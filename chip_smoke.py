@@ -1,0 +1,554 @@
+#!/usr/bin/env python3
+"""On-card smoke test of the PyTorch/CUDA port (``src/repro_torch``).
+
+    python3 chip_smoke.py            # one CUDA card; exits non-zero on any
+                                     # failed check, and without a card
+
+Phases, each printing its result and time on its own line:
+  1. device and build: the card's name and power limit, torch and CUDA
+     versions; the kernels are built from ``src/repro_torch/kernels/csrc``
+     with nvcc (set-up time, printed);
+  2. every kernel against its plain PyTorch version on the card, with the
+     traffic functor and random weights made from a seed, at the main
+     path's shapes and at larger ones, resets inside the horizon. Lanes are
+     independent: a lane passes when every leaf matches (integer leaves
+     exactly, float leaves within ATOL); a lane whose first mismatch
+     follows a decision the plain version took within FLIP_EPS of its
+     threshold counts as a flip; any other mismatch, or flips in more than
+     MAX_FLIP_SHARE of the lanes, fails. Kernel and plain-version times
+     (CUDA events, median after warm-up) are measured here;
+  3. the main path: ``rl_train --domain traffic --simulator ials`` at full
+     width (FNN AIP, A = 1; then GRU AIP, A = 25), with the launch counters
+     zeroed before each run and read after it: ``policy_rollout`` must
+     launch once per PPO iteration, losses must be finite and the GS
+     evaluation reward in [0, 1];
+  4. the engine's own entry points (``engine.rollout`` per backbone,
+     ``engine.step`` with the GRU AIP), counters zeroed before and read
+     after: ``fnn_rollout``, ``aip_rollout_multi`` and ``aip_step`` must
+     have launched.
+Then one JSON line lists every kernel (route, source, the TPU kernel it
+replaces, launches on its path, max error, times and the card's bound),
+the ``nvidia-smi`` line, and last ``{"ok": true, "device": ...}``.
+"""
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+ATOL = 1e-4            # float leaves, kernel vs plain version (fp32 GEMM
+#                        reduction order differs; gates round identically)
+FLIP_EPS = 1e-4        # a decision this close to its threshold may flip
+MAX_FLIP_SHARE = 0.01
+PEAK_FP32_FLOPS = 67e12   # H100 SXM, fp32 outside the tensor cores
+PEAK_BYTES = 3.35e12      # H100 SXM HBM3
+SOURCE = "src/repro_torch/kernels/csrc/ials_kernels.cu"
+REPLACES = {
+    "aip_step": "src/repro/kernels/aip_step.py:150",
+    "aip_rollout_multi": "src/repro/kernels/aip_step.py:476",
+    "fnn_rollout": "src/repro/kernels/aip_step.py:514",
+    "policy_rollout[fnn]": "src/repro/kernels/aip_step.py:745",
+    "policy_rollout[gru]": "src/repro/kernels/aip_step.py:745",
+}
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def phase(name):
+    def deco(fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            log(f"[phase] {name}: ok in {time.perf_counter() - t0:.2f} s")
+            return out
+        return run
+    return deco
+
+
+# ---------------------------------------------------------------------------
+# timing
+# ---------------------------------------------------------------------------
+
+def time_cuda(fn, reps=10, warmup=2):
+    """Median milliseconds of ``fn`` over ``reps`` CUDA-event timings."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        ms.append(a.elapsed_time(b))
+    return statistics.median(ms)
+
+
+def nbytes(*tensors):
+    import torch
+    total = 0
+    for t in tensors:
+        if isinstance(t, (tuple, list)):
+            total += nbytes(*t)
+        elif isinstance(t, torch.Tensor):
+            total += t.numel() * t.element_size()
+    return total
+
+
+def bound(flops, bytes_):
+    """(bound_ms, bound_by): the larger of the operations and the bytes
+    over the card's published fp32 and memory rates."""
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_mem = bytes_ / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
+
+
+# ---------------------------------------------------------------------------
+# fixtures: the traffic LS, random weights and streams made from a seed
+# ---------------------------------------------------------------------------
+
+class Case:
+    """One kernel call's inputs at (A, B, T), made on the card from a seed."""
+
+    def __init__(self, kind, A, B, T, seed, dev):
+        import torch
+        from repro_torch.core import engine, influence
+        from repro_torch.envs.traffic import (TrafficConfig,
+                                              make_batched_local_traffic_env)
+        from repro_torch.nn.act import random_bits
+        from repro_torch.rl import ppo
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        self.kind, self.A, self.B, self.T = kind, A, B, T
+        L = A * B
+        self.ls_env = make_batched_local_traffic_env(TrafficConfig(), dev)
+        spec = self.ls_env.spec
+        self.acfg = influence.AIPConfig(
+            kind=kind, d_in=spec.dset_dim, n_out=spec.n_influence,
+            hidden=64, stack=8 if kind == "fnn" else 1)
+        params = influence.init_aip_stacked(self.acfg, g, A, dev)
+        # non-zero biases so every weight leaf is exercised
+        params = {k: {n: (w + 0.05 * torch.randn(w.shape, generator=g,
+                                                  device=dev))
+                      for n, w in v.items()} for k, v in params.items()}
+        self.aip_params = params
+        if kind == "gru":
+            self.aw = (params["gru"]["wx"], params["gru"]["wh"],
+                       params["gru"]["b"], params["head"]["w"],
+                       params["head"]["b"])
+            self.s0 = 0.5 * torch.randn((L, 64), generator=g, device=dev)
+        else:
+            self.aw = (params["l1"]["w"], params["l1"]["b"],
+                       params["l2"]["w"], params["l2"]["b"],
+                       params["head"]["w"], params["head"]["b"])
+            self.s0 = (torch.rand((L, 320), generator=g, device=dev)
+                       < 0.3).float()
+        self.pcfg = ppo.PPOConfig(obs_dim=spec.obs_dim,
+                                  n_actions=spec.n_actions)
+        pol = ppo.init_policy(self.pcfg, g)
+        pol = {k: {n: w + 0.05 * torch.randn(w.shape, generator=g,
+                                             device=dev)
+                   for n, w in v.items()} for k, v in pol.items()}
+        self.pw = ppo.flat_policy_weights(pol)
+        st = self.ls_env.reset(g, L)
+        st = type(st)(st.lanes, torch.randint(0, 2, (L,), generator=g,
+                                              device=dev).to(torch.int8))
+        self.io = engine.kernel_io(self.ls_env, st)
+        self.frames0 = self.ls_env.obs_fn(st)
+        self.actions = torch.randint(0, 2, (T, L), generator=g, device=dev,
+                                     dtype=torch.int32)
+        self.bits = random_bits((T, L, spec.n_influence), g)
+        self.gumbel = ppo.gumbel_noise(g, (T, L, spec.n_actions))
+        # resets inside the horizon: each env on its own episode phase
+        t_in = torch.randint(0, 40, (B,), generator=g, device=dev)
+        ticks = t_in[None] + 1 + torch.arange(T, device=dev)[:, None]
+        self.done = ((ticks % 40) == 0).to(torch.int32).repeat(1, A)
+        resets = [self.ls_env.reset(g, L) for _ in range(T)]
+        self.reset_ls = self.io.encode(
+            [torch.stack([r.lanes for r in resets]),
+             torch.stack([r.phase for r in resets])])
+
+    # --- the kernel and its plain version on the same inputs -------------
+    def rollout_call(self, plain=False, trace=None):
+        from repro_torch.kernels import aip_step as cuda
+        from repro_torch.kernels import ref
+        args = (self.io.ls, self.s0, *self.aw, self.actions, self.bits, ())
+        if self.kind == "gru":
+            if plain:
+                return ref.ials_rollout_multi_ref(
+                    *args, n_agents=self.A, tick_fn=self.io.tick_fn,
+                    dset_fn=self.io.dset_fn, trace=trace)
+            return cuda.aip_rollout_multi(*args, n_agents=self.A,
+                                          domain=self.ls_env.kernel_domain)
+        if plain:
+            return ref.fnn_rollout_ref(*args, n_agents=self.A,
+                                       tick_fn=self.io.tick_fn,
+                                       dset_fn=self.io.dset_fn, trace=trace)
+        return cuda.fnn_rollout(*args, n_agents=self.A,
+                                domain=self.ls_env.kernel_domain)
+
+    def policy_call(self, plain=False, trace=None):
+        from repro_torch.kernels import aip_step as cuda
+        from repro_torch.kernels import ref
+        args = (self.io.ls, self.s0, self.frames0, self.aw, self.pw,
+                self.gumbel, self.bits, self.done, (), self.reset_ls)
+        if plain:
+            return ref.policy_rollout_ref(
+                *args, kind=self.kind, n_agents=self.A, fast_gates=True,
+                tick_fn=self.io.tick_fn, dset_fn=self.io.dset_fn,
+                obs_fn=self.io.obs_fn, trace=trace)
+        return cuda.policy_rollout(*args, kind=self.kind, n_agents=self.A,
+                                   fast_gates=True,
+                                   domain=self.ls_env.kernel_domain)
+
+    def flops_per_lane_tick(self, policy):
+        f = (2 * (320 * 64 + 64 * 64 + 64 * 4) if self.kind == "fnn"
+             else 2 * (40 * 192 + 64 * 192 + 64 * 4))
+        return f + (2 * (41 * 128 + 128 * 128 + 128 * 3) if policy else 0)
+
+
+# ---------------------------------------------------------------------------
+# the lane and flip rule
+# ---------------------------------------------------------------------------
+
+def compare_lanes(name, streams, finals, margins, T, L):
+    """``streams``: [(kernel (T, L, ...), plain, exact)]; ``finals``:
+    [(kernel (L, ...), plain, exact)]; ``margins``: (T, L) decision
+    distances of the plain run. -> (n_flips, max float error)."""
+    import torch
+    bad_t = torch.full((L,), T, dtype=torch.long, device=margins.device)
+    max_err = 0.0
+    ticks = torch.arange(T, device=margins.device)[:, None]
+
+    ok_lanes_err = []
+    for k, p, exact in streams:
+        k2 = k.reshape(T, L, -1)
+        p2 = p.reshape(T, L, -1)
+        if exact:
+            m = (k2 != p2).any(-1)
+        else:
+            err = (k2.float() - p2.float()).abs()
+            m = (err > ATOL).any(-1)
+            ok_lanes_err.append(err.amax(-1))
+        first = torch.where(m, ticks.expand(T, L), T).amin(0)
+        bad_t = torch.minimum(bad_t, first)
+    for k, p, exact in finals:
+        k2 = k.reshape(L, -1)
+        p2 = p.reshape(L, -1)
+        if exact:
+            m = (k2 != p2).any(-1)
+        else:
+            err = (k2.float() - p2.float()).abs()
+            m = (err > ATOL).any(-1)
+            ok_lanes_err.append(err.amax(-1)[None])
+        bad_t = torch.where(m & (bad_t == T), T - 1, bad_t)
+    bad = bad_t < T
+    # min decision margin of the plain run up to each lane's first mismatch
+    upto = ticks <= bad_t[None]
+    near = torch.where(upto, margins, math.inf).amin(0) < FLIP_EPS
+    flips = bad & near
+    faults = bad & ~near
+    good = ~bad
+    for e in ok_lanes_err:
+        e = e.reshape(-1, L).amax(0)
+        if good.any():
+            max_err = max(max_err, float(e[good].max()))
+    n_flip, n_fault = int(flips.sum()), int(faults.sum())
+    if n_fault:
+        lane = int(torch.nonzero(faults)[0])
+        raise AssertionError(
+            f"{name}: {n_fault} of {L} lanes disagree with the plain version "
+            f"away from any decision threshold (first: lane {lane}, tick "
+            f"{int(bad_t[lane])})")
+    if n_flip > MAX_FLIP_SHARE * L:
+        raise AssertionError(f"{name}: decision flips in {n_flip} of {L} "
+                             f"lanes (> {MAX_FLIP_SHARE:.0%})")
+    return n_flip, max_err
+
+
+def check_rollout(case, name):
+    import torch
+    k_ls, k_s, k_r = case.rollout_call()
+    torch.cuda.synchronize()
+    trace = {}
+    p_ls, p_s, p_r = case.rollout_call(plain=True, trace=trace)
+    L = case.A * case.B
+    margins = torch.stack(trace["aip"])
+    flips, err = compare_lanes(
+        name, [(k_r, p_r, False)],
+        [(k_ls[0], p_ls[0], True), (k_ls[1], p_ls[1], True),
+         (k_s, p_s, False)], margins, case.T, L)
+    return flips, err
+
+
+def check_policy(case, name):
+    import torch
+    out_k = case.policy_call()
+    torch.cuda.synchronize()
+    trace = {}
+    out_p = case.policy_call(plain=True, trace=trace)
+    L = case.A * case.B
+    margins = torch.minimum(torch.stack(trace["aip"]),
+                            torch.stack(trace["policy"]))
+    (kl, ks, kf, kx, ka, klg, kv, kr) = out_k
+    (pl, ps, pf, px, pa, plg, pv, pr) = out_p
+    return compare_lanes(
+        name, [(kx, px, False), (ka, pa, True), (klg, plg, False),
+               (kv, pv, False), (kr, pr, False)],
+        [(kl[0], pl[0], True), (kl[1], pl[1], True), (ks, ps, False),
+         (kf, pf, False)], margins, case.T, L)
+
+
+def check_aip_step(A, B, seed, dev):
+    """One GRU tick over (B, A) lanes against its plain version; the u
+    lanes that differ must sit within FLIP_EPS of their threshold."""
+    import torch
+    from repro_torch.kernels import aip_step as cuda
+    from repro_torch.kernels import ref
+    from repro_torch.nn.act import fast_sigmoid, random_bits, \
+        uniform_from_bits
+    case = Case("gru", A, B, 1, seed, dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed + 1)
+    d = (torch.rand((B, A, 40), generator=g, device=dev) < 0.3).float()
+    h = 0.5 * torch.randn((B, A, 64), generator=g, device=dev)
+    bits = random_bits((B, A, 4), g)
+    args = (d, h, *case.aw, bits)
+    kh, kl, ku = cuda.aip_step_multi(*args)
+    torch.cuda.synchronize()
+    ph, pl, pu = ref.aip_step_multi_ref(*args)
+    err = max(float((kh - ph).abs().max()), float((kl - pl).abs().max()))
+    if err > ATOL:
+        raise AssertionError(f"aip_step A={A} B={B}: max error {err}")
+    diff = ku != pu
+    margin = (uniform_from_bits(bits) - fast_sigmoid(pl)).abs()
+    if bool((diff & (margin >= FLIP_EPS)).any()):
+        raise AssertionError(f"aip_step A={A} B={B}: a draw flipped away "
+                             f"from its threshold")
+    flips = int(diff.any(-1).sum())
+    timing = dict(ms=time_cuda(lambda: cuda.aip_step_multi(*args)),
+                  plain_ms=time_cuda(lambda: ref.aip_step_multi_ref(*args)))
+    flops = 2 * (40 * 192 + 64 * 192 + 64 * 4) * A * B
+    by = nbytes(args, kh, kl, ku)
+    log(f"[kernel] aip_step A={A} B={B}: lanes {A * B}, flips {flips}, "
+        f"max err {err:.3g}, ms {timing['ms']:.4f}, plain ms "
+        f"{timing['plain_ms']:.4f}")
+    return dict(max_abs_err=err, flips=flips, flops=flops, bytes=by,
+                **timing)
+
+
+def run_case(name, kind, A, B, T, seed, dev, policy, timed):
+    case = Case(kind, A, B, T, seed, dev)
+    check = check_policy if policy else check_rollout
+    flips, err = check(case, f"{name} A={A} B={B} T={T}")
+    rec = dict(max_abs_err=err, flips=flips)
+    call = case.policy_call if policy else case.rollout_call
+    if timed:
+        rec["ms"] = time_cuda(call)
+        rec["plain_ms"] = time_cuda(lambda: call(plain=True), reps=3,
+                                    warmup=1)
+        out = call()
+        inputs = ((case.io.ls, case.s0, case.aw, case.bits)
+                  + ((case.frames0, case.pw, case.gumbel, case.done,
+                      case.reset_ls) if policy else (case.actions,)))
+        rec["flops"] = case.flops_per_lane_tick(policy) * A * B * T
+        rec["bytes"] = nbytes(inputs, out)
+    log(f"[kernel] {name} A={A} B={B} T={T}: lanes {A * B}, flips {flips}, "
+        f"max err {err:.3g}"
+        + (f", ms {rec['ms']:.3f}, plain ms {rec['plain_ms']:.3f}"
+           if timed else ""))
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+@phase("device and build")
+def phase_build():
+    import torch
+    from repro_torch.kernels import aip_step as cuda
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=30)
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
+        else "nvidia-smi unavailable"
+    log(f"[device] {card}")
+    log(f"[device] {torch.cuda.get_device_name(0)}; torch "
+        f"{torch.__version__}; CUDA {torch.version.cuda}; python "
+        f"{sys.version.split()[0]}")
+    t0 = time.perf_counter()
+    cuda.library()
+    log(f"[build] nvcc + load {time.perf_counter() - t0:.2f} s -> "
+        f"{cuda.BUILD_LOG['path']}")
+    for line in (cuda.BUILD_LOG["ptxas"] or "").splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"[ptxas] {line.strip()}")
+    return card
+
+
+@phase("kernels against their plain versions")
+def phase_kernels(dev):
+    recs = {}
+    # the main path's shapes (timed for the kernels line) ...
+    recs["aip_step"] = check_aip_step(25, 16, 11, dev)
+    recs["aip_rollout_multi"] = run_case("aip_rollout_multi", "gru", 25, 16,
+                                         128, 12, dev, False, True)
+    recs["fnn_rollout"] = run_case("fnn_rollout", "fnn", 1, 16, 128, 13,
+                                   dev, False, True)
+    recs["policy_rollout[fnn]"] = run_case("policy_rollout[fnn]", "fnn", 1,
+                                           16, 128, 14, dev, True, True)
+    recs["policy_rollout[gru]"] = run_case("policy_rollout[gru]", "gru", 25,
+                                           16, 128, 15, dev, True, True)
+    # ... and larger ones, with resets inside the horizon (timed, printed)
+    check_aip_step(1, 512, 21, dev)
+    check_aip_step(25, 512, 22, dev)
+    for i, (A, B) in enumerate(((1, 512), (25, 64))):
+        run_case("aip_rollout_multi", "gru", A, B, 128, 30 + i, dev, False,
+                 True)
+        run_case("fnn_rollout", "fnn", A, B, 128, 40 + i, dev, False, True)
+        run_case("policy_rollout[fnn]", "fnn", A, B, 128, 50 + i, dev, True,
+                 True)
+        run_case("policy_rollout[gru]", "gru", A, B, 128, 60 + i, dev, True,
+                 True)
+    return recs
+
+
+def _train(argv):
+    import torch
+    from repro_torch.kernels import aip_step as cuda
+    from repro_torch.launch import rl_train
+    args = rl_train.parse_args(argv)
+    cuda.reset_launches()
+    out = rl_train.run_training(args)
+    torch.cuda.synchronize()
+    launches = dict(cuda.LAUNCHES)
+    hist = out["history"]
+    for row in hist:
+        if not math.isfinite(row["loss"]):
+            raise AssertionError(f"non-finite loss: {row}")
+    evals = [r["gs_eval_reward"] for r in hist if "gs_eval_reward" in r]
+    if not evals or not all(0.0 <= e <= 1.0 for e in evals):
+        raise AssertionError(f"GS evaluation missing or out of [0, 1]: "
+                             f"{evals}")
+    steps = args.n_envs * args.rollout_len * args.n_agents
+    for row in hist:
+        log(f"[train] {argv[-1]} iter {row['iter']}: {row['iter_s']:.3f} s, "
+            f"{steps / row['iter_s']:.0f} samples/s, loss {row['loss']:.4f}, "
+            f"train reward {row['train_reward']:.4f}"
+            + (f", GS eval {row['gs_eval_reward']:.4f}"
+               if "gs_eval_reward" in row else ""))
+    return launches, len(hist)
+
+
+@phase("main path: rl_train --domain traffic --simulator ials")
+def phase_main_path():
+    common = ["--domain", "traffic", "--simulator", "ials", "--n-envs", "16",
+              "--rollout-len", "128", "--episode-len", "128",
+              "--eval-every", "1", "--collect-episodes", "64",
+              "--aip-epochs", "2", "--device", "cuda", "--seed", "0"]
+    fnn, n_fnn = _train(common + ["--iterations", "3", "--aip", "fnn"])
+    gru, n_gru = _train(common + ["--iterations", "2", "--n-agents", "25",
+                                  "--aip", "gru"])
+    if fnn["policy_rollout_fnn"] != n_fnn:
+        raise AssertionError(f"policy_rollout[fnn] launched "
+                             f"{fnn['policy_rollout_fnn']} times in "
+                             f"{n_fnn} iterations")
+    if gru["policy_rollout_gru"] != n_gru:
+        raise AssertionError(f"policy_rollout[gru] launched "
+                             f"{gru['policy_rollout_gru']} times in "
+                             f"{n_gru} iterations")
+    log(f"[counts] main path FNN A=1: {fnn}; GRU A=25: {gru}")
+    return {"policy_rollout[fnn]": fnn["policy_rollout_fnn"],
+            "policy_rollout[gru]": gru["policy_rollout_gru"]}
+
+
+@phase("engine entry points: engine.rollout, engine.step")
+def phase_engine(dev):
+    import torch
+    from repro_torch.core import engine, influence
+    from repro_torch.envs.api import horizon_noise
+    from repro_torch.envs.traffic import (TrafficConfig,
+                                          make_batched_local_traffic_env)
+    from repro_torch.kernels import aip_step as cuda
+    ls = make_batched_local_traffic_env(TrafficConfig(), dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    B, T = 16, 128
+    cuda.reset_launches()
+    for kind, A in (("fnn", 1), ("gru", 25)):
+        acfg = influence.AIPConfig(kind=kind, d_in=40, n_out=4, hidden=64,
+                                   stack=8 if kind == "fnn" else 1)
+        p = (influence.init_aip(acfg, g) if A == 1
+             else influence.init_aip_stacked(acfg, g, A))
+        env = engine.make_unified_ials(ls, p, acfg, n_agents=A)
+        st = env.reset(g, B)
+        acts = torch.randint(0, 2, (T, B) + ((A,) if A > 1 else ()),
+                             generator=g, device=dev)
+        st2, rew = env.rollout(st, acts, horizon_noise(env.noise_fn, g, T,
+                                                         B))
+        if not bool(torch.isfinite(rew).all()) or \
+                not (0 <= float(rew.min()) <= float(rew.max()) <= 1):
+            raise AssertionError(f"engine.rollout {kind}: bad rewards")
+        if kind == "gru":
+            _, obs, r, _ = env.step(st2, acts[0], g)
+            if tuple(obs.shape) != (B, A, 41):
+                raise AssertionError(f"engine.step obs {tuple(obs.shape)}")
+    torch.cuda.synchronize()
+    counts = dict(cuda.LAUNCHES)
+    for k in ("fnn_rollout", "aip_rollout_multi", "aip_step"):
+        if counts[k] < 1:
+            raise AssertionError(f"{k} did not launch on its path: {counts}")
+    log(f"[counts] engine entry points: {counts}")
+    return {k: counts[k] for k in ("fnn_rollout", "aip_rollout_multi",
+                                   "aip_step")}
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this check "
+              "needs a CUDA card", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = phase_build()
+    recs = phase_kernels(dev)
+    launches = phase_main_path()
+    launches.update(phase_engine(dev))
+    kernels = []
+    for name, rec in recs.items():
+        b_ms, b_by = bound(rec["flops"], rec["bytes"])
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None,
+            "path": ("rl_train" if name.startswith("policy_rollout")
+                     else "engine entry points"),
+            "flips": rec["flips"]})
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,56 @@
+"""Carry weights and states across from the JAX package (no counterpart
+there).
+
+The JAX package's parameter pytrees are nested dicts of arrays; given as
+numpy arrays (or anything ``np.asarray`` accepts), they become the port's
+nested dicts of tensors. Layouts are the same on both sides (dense ``w``
+(in, out), GRU gate-major ``[r|z|n]``, stacked (A, ...) per-agent AIPs),
+so this is a dtype- and device-aware copy, never a transpose. uint32
+random bits become their int32 storage, bool and int8 leaves keep their
+dtype, floats become float32.
+
+``to_torch`` covers the AIP (GRU and FNN, single and (A, ...) stacked),
+the policy, and the LS, GS, IALS and rollout states: NamedTuple states
+(``LocalTrafficState``, ``TrafficState``, ``IALSState``,
+``RolloutState``) are rebuilt as the port's classes of the same name.
+This module never imports the JAX package.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core.engine import IALSState
+from repro_torch.envs.traffic import LocalTrafficState, TrafficState
+from repro_torch.rl.ppo import RolloutState
+
+_STATES = {cls.__name__: cls for cls in
+           (LocalTrafficState, TrafficState, IALSState, RolloutState)}
+
+
+def array_to_torch(x, device="cuda") -> torch.Tensor:
+    a = np.asarray(x)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    elif a.dtype.kind == "f":
+        a = a.astype(np.float32)
+    return torch.from_numpy(np.array(a, copy=True, order="C")).to(
+        resolve_device(device))
+
+
+def to_torch(tree, device="cuda"):
+    """A JAX-side pytree (dicts, lists, tuples, NamedTuples of arrays;
+    ``None`` kept) -> the port's pytree of tensors on ``device``."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: to_torch(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        cls = _STATES.get(type(tree).__name__)
+        vals = [to_torch(v, device) for v in tree]
+        return cls(*vals) if cls is not None else tuple(vals)
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_torch(v, device) for v in tree)
+    return array_to_torch(tree, device)
+

@@ -1,0 +1,297 @@
+"""The unified IALS rollout engine (counterpart of ``repro/core/engine.py``).
+
+``make_unified_ials`` builds the natively batched IALS (a ``BatchedEnv``)
+for either AIP backbone ({gru, fnn}) and any agent multiplicity A: the
+agent axis is a batch dimension of one fused tick, and a grid dimension
+of one whole-horizon kernel. State leaves are (B, ...) when A = 1 and
+(B, A, ...) otherwise.
+
+Per tick (``step_det``): d_t from the LS, one AIP tick with its Bernoulli
+draw (``influence.step_sample[_multi]``; the GRU tick is the ``aip_step``
+kernel on the card), one batched LS transition over all B*A lanes.
+
+Whole horizon:
+  - ``rollout(state, actions, noise)`` is ONE ``kernels.ops`` call —
+    ``ials_rollout_multi`` (GRU) or ``fnn_rollout`` (FNN);
+  - ``policy_rollout`` hands PPO's whole acting loop (policy forward,
+    Gumbel-argmax, AIP, LS tick, reward, periodic resets) to ONE
+    ``kernels.ops.policy_rollout`` call.
+Both always take the kernel route: ``ops`` launches the CUDA kernel for
+CUDA tensors and runs the plain version for CPU tensors, so there is no
+auto-detection that quietly picks a loop. ``policy_rollout`` is set
+whenever the LS has ``rollout_tick``, ``noise_fn`` and ``obs_fn``.
+
+Lanes are agent-major (lane ``a*B + b``) at the kernel boundary, so each
+kernel block indexes its own agent's stacked weights; bool/int8 LS leaves
+travel as int32 (``envs.api.kernel_codec``). The episode-reset schedule
+inside a horizon is closed-form from ``t_in_ep``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core import influence
+from repro_torch.envs.api import BatchedEnv, BatchedLocalEnv, kernel_codec
+from repro_torch.nn.act import fast_sigmoid, random_bits
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
+
+
+class IALSState(NamedTuple):
+    ls_state: object        # LS state; (B, ...) leaves, (B, A, ...) if multi
+    aip_state: torch.Tensor  # (B, [A,] H) GRU / (B, [A,] stack, d_in) FNN
+
+
+# agent-major lane layout at the kernel boundary: lane a*B + b holds agent
+# a of env b, so each kernel block belongs to one agent (no-ops at A = 1)
+def lane_fold(x, A: int):
+    """(B, A, ...) -> (A*B, ...)."""
+    if A == 1:
+        return x
+    return x.transpose(0, 1).reshape((-1,) + x.shape[2:])
+
+
+def lane_unfold(x, A: int, B: int):
+    """(A*B, ...) -> (B, A, ...)."""
+    if A == 1:
+        return x
+    return x.reshape((A, B) + x.shape[1:]).transpose(0, 1)
+
+
+def stream_fold(x, A: int):
+    """(T, B, A, ...) -> (T, A*B, ...)."""
+    if A == 1:
+        return x
+    return x.transpose(1, 2).reshape((x.shape[0], -1) + x.shape[3:])
+
+
+def stream_unfold(x, A: int, B: int):
+    """(T, A*B, ...) -> (T, B, A, ...)."""
+    if A == 1:
+        return x
+    return x.reshape((x.shape[0], A, B) + x.shape[2:]).transpose(1, 2)
+
+
+class KernelIO(NamedTuple):
+    """An LS state at the kernel boundary: its kernel-encoded leaves, its
+    noise leaves, the codec, and the domain's plain functions on encoded
+    leaves (the CPU route's ``tick_fn`` / ``dset_fn`` / ``obs_fn``)."""
+    ls: tuple
+    noise: tuple
+    encode: object
+    decode: object         # encoded leaves -> the LS state pytree
+    tick_fn: object
+    dset_fn: object
+    obs_fn: object
+
+
+def kernel_io(local_env: BatchedLocalEnv, ls_state, env_noise=None):
+    """``ls_state`` ((L, ...) leaves, lanes already in kernel order) and
+    its T-stacked ``env_noise`` -> ``KernelIO``."""
+    ls_leaves = tree_leaves(ls_state)
+    ls_enc, ls_dec = kernel_codec([l.dtype for l in ls_leaves])
+    nz_leaves = tree_leaves(env_noise)
+    nz_enc, nz_dec = kernel_codec([l.dtype for l in nz_leaves])
+
+    def dec(vals):
+        return tree_unflatten(ls_state, ls_dec(vals))
+
+    def dset_fn(vals, a):
+        return local_env.dset_fn(dec(vals), a)
+
+    def tick_fn(vals, a, u, nzv):
+        st2, r = local_env.rollout_tick(
+            dec(vals), a, u, tree_unflatten(env_noise, nz_dec(nzv)))
+        return ls_enc(tree_leaves(st2)), r
+
+    def obs_fn(vals):
+        return local_env.obs_fn(dec(vals))
+
+    return KernelIO(ls_enc(ls_leaves), nz_enc(nz_leaves), ls_enc, dec,
+                    tick_fn, dset_fn, obs_fn)
+
+
+def make_unified_ials(local_env: BatchedLocalEnv, aip_params,
+                      aip_cfg: influence.AIPConfig, *,
+                      n_agents: int = 1) -> BatchedEnv:
+    """The fused rollout engine over a natively batched LS. With
+    ``n_agents = A > 1`` the LS batch carries every agent of every env
+    copy (B*A lanes) and ``aip_params`` leaves are (A, ...) stacked;
+    actions are (B, A) and obs (B, A, obs_dim). With A = 1 the agent axis
+    is squeezed off every leaf and ``aip_params`` is one AIP."""
+    A = n_agents
+    multi = A > 1
+    M = local_env.spec.n_influence
+    spec = dataclasses.replace(
+        local_env.spec,
+        name=local_env.spec.name + ("+multi-ials" if multi else "+ials"),
+        n_agents=A)
+    ash = (A,) if multi else ()
+    domain = local_env.kernel_domain
+
+    def _device():
+        return tree_leaves(aip_params)[0].device
+
+    # (B, A, ...) <-> (B*A, ...) batch-major: the LS's native lane order
+    def _flat(tree, B):
+        if not multi:
+            return tree
+        return tree_map(lambda l: l.reshape((B * A,) + l.shape[2:]), tree)
+
+    def _unflat(tree, B):
+        if not multi:
+            return tree
+        return tree_map(lambda l: l.reshape((B, A) + l.shape[1:]), tree)
+
+    def _batch(state: IALSState) -> int:
+        return tree_leaves(state.ls_state)[0].shape[0]
+
+    def reset(gen: torch.Generator, n_envs: int):
+        return IALSState(
+            ls_state=_unflat(local_env.reset(gen, n_envs * A), n_envs),
+            aip_state=influence.init_state(aip_cfg, (n_envs,) + ash,
+                                           device=_device()))
+
+    def noise_fn(gen: torch.Generator, n_envs: int):
+        bits = random_bits((n_envs,) + ash + (M,), gen)
+        env = (local_env.noise_fn(gen, n_envs * A)
+               if local_env.noise_fn is not None else None)
+        return {"bits": bits, "env": env}
+
+    def step_det(state: IALSState, actions, noise):
+        B = actions.shape[0]
+        ls_flat = _flat(state.ls_state, B)
+        a_flat = actions.reshape(B * A) if multi else actions
+        d_t = local_env.dset_fn(ls_flat, a_flat)        # (B*A, Dd)
+        if multi:
+            d_t = d_t.reshape(B, A, -1)
+        sample = (influence.step_sample_multi if multi
+                  else influence.step_sample)
+        logits, new_aip, u = sample(aip_params, aip_cfg, state.aip_state,
+                                    d_t, noise["bits"])
+        u_flat = u.reshape(B * A, M) if multi else u
+        ls2, obs, r, info = local_env.step_det(ls_flat, a_flat, u_flat,
+                                               noise["env"])
+        info = dict(_unflat(info, B))
+        info["u"] = u
+        info["u_probs"] = fast_sigmoid(logits)
+        if multi:
+            obs, r = obs.reshape(B, A, -1), r.reshape(B, A)
+        return IALSState(ls_state=_unflat(ls2, B), aip_state=new_aip), \
+            obs, r, info
+
+    def step(state: IALSState, actions, gen: torch.Generator):
+        return step_det(state, actions, noise_fn(gen, actions.shape[0]))
+
+    # --- whole-horizon path: agent-major lanes at the kernel boundary ---
+    def _noise_fold(x, B):   # (T, B*A, ...) batch-major -> (T, A*B, ...)
+        if not multi:
+            return x
+        return stream_fold(x.reshape((x.shape[0], B, A) + x.shape[2:]), A)
+
+    def _io(state, noise, B):
+        return kernel_io(local_env,
+                         tree_map(lambda l: lane_fold(l, A), state.ls_state),
+                         tree_map(lambda l: _noise_fold(l, B),
+                                  noise["env"]))
+
+    def _stacked(tree):
+        """aip_params with a leading (A,) axis (A = 1 stacks on the fly)."""
+        return tree if multi else tree_map(lambda l: l[None], tree)
+
+    def _aip_weights(p):
+        if aip_cfg.kind == "gru":
+            return (p["gru"]["wx"], p["gru"]["wh"], p["gru"]["b"],
+                    p["head"]["w"], p["head"]["b"])
+        return (p["l1"]["w"], p["l1"]["b"], p["l2"]["w"], p["l2"]["b"],
+                p["head"]["w"], p["head"]["b"])
+
+    def _aip_fold(aip_state):             # -> (L, K) flat kernel state
+        s = lane_fold(aip_state, A)
+        return s.reshape(s.shape[0], -1)
+
+    def _aip_unfold(sT, B):
+        if aip_cfg.kind == "fnn":
+            sT = sT.reshape(-1, aip_cfg.stack, aip_cfg.d_in)
+        return lane_unfold(sT, A, B)
+
+    def rollout(state: IALSState, actions, noise):
+        """(state, actions (T, B[, A]), noise = T-stacked ``noise_fn``) ->
+        (state, rewards (T, B[, A])): the whole horizon in one kernel."""
+        from repro_torch.kernels import ops
+        B = _batch(state)
+        io = _io(state, noise, B)
+        fn = (ops.ials_rollout_multi if aip_cfg.kind == "gru"
+              else ops.fnn_rollout)
+        final, sT, rews = fn(
+            io.ls, _aip_fold(state.aip_state),
+            *_aip_weights(_stacked(aip_params)),
+            stream_fold(actions, A).to(torch.int32),
+            stream_fold(noise["bits"], A), io.noise, n_agents=A,
+            tick_fn=io.tick_fn, dset_fn=io.dset_fn, domain=domain)
+        ls_T = tree_map(lambda l: lane_unfold(l, A, B), io.decode(final))
+        return (IALSState(ls_state=ls_T, aip_state=_aip_unfold(sT, B)),
+                stream_unfold(rews, A, B))
+
+    def policy_rollout(state: IALSState, frames, t_in_ep, pol_params,
+                       gumbel, noise, reset_states, *, episode_len: int,
+                       fast_gates: bool):
+        """T PPO acting ticks as ONE ``kernels.ops.policy_rollout`` call.
+        Pre-drawn ``gumbel`` (T, B, [A,] n_actions), ``noise`` (T-stacked
+        ``noise_fn``), ``reset_states`` (T-stacked ``reset``). Invariant
+        0 <= t_in_ep < episode_len on entry; resets restore the streamed
+        LS state and zero the AIP state."""
+        from repro_torch.kernels import ops
+        from repro_torch.rl.ppo import flat_policy_weights
+        B = _batch(state)
+        T = gumbel.shape[0]
+        io = _io(state, noise, B)
+        rls = io.encode(tree_leaves(tree_map(lambda l: stream_fold(l, A),
+                                             reset_states.ls_state)))
+        ticks = (t_in_ep[None, :] + 1
+                 + torch.arange(T, dtype=torch.int32,
+                                device=t_in_ep.device)[:, None])
+        done_env = (ticks % episode_len) == 0             # (T, B)
+        t_out = ((t_in_ep + T) % episode_len).to(torch.int32)
+        done_lanes = done_env.to(torch.int32)
+        if multi:                       # lane a*B + b <-> env b
+            done_lanes = done_lanes.repeat(1, A)
+        frames_l = lane_fold(frames, A)                   # (L, k, d)
+        stack, d_obs = frames_l.shape[-2], frames_l.shape[-1]
+        fin, sT, fT, x, a, logits, v, r = ops.policy_rollout(
+            io.ls, _aip_fold(state.aip_state),
+            frames_l.reshape(frames_l.shape[0], -1),
+            _aip_weights(_stacked(aip_params)),
+            flat_policy_weights(pol_params), stream_fold(gumbel, A),
+            stream_fold(noise["bits"], A), done_lanes, io.noise, rls,
+            kind=aip_cfg.kind, n_agents=A, fast_gates=fast_gates,
+            tick_fn=io.tick_fn, dset_fn=io.dset_fn, obs_fn=io.obs_fn,
+            domain=domain)
+        ls_T = tree_map(lambda l: lane_unfold(l, A, B), io.decode(fin))
+        frames_T = lane_unfold(fT.reshape(-1, stack, d_obs), A, B)
+        r_u = stream_unfold(r, A, B)
+        done_b = torch.broadcast_to(
+            done_env.reshape(done_env.shape + (1,) * (1 if multi else 0)),
+            r_u.shape).to(torch.float32)
+        out = {"x": stream_unfold(x, A, B), "a": stream_unfold(a, A, B),
+               "logits": stream_unfold(logits, A, B),
+               "v": stream_unfold(v, A, B), "r": r_u, "done": done_b}
+        return (IALSState(ls_state=ls_T, aip_state=_aip_unfold(sT, B)),
+                frames_T, t_out, out)
+
+    def observe(state: IALSState):
+        B = _batch(state)
+        obs = local_env.observe(_flat(state.ls_state, B))
+        return obs.reshape(B, A, -1) if multi else obs
+
+    has_horizon = (local_env.rollout_tick is not None
+                   and local_env.noise_fn is not None)
+    return BatchedEnv(
+        spec=spec, reset=reset, step=step, observe=observe,
+        rollout=rollout if has_horizon else None, noise_fn=noise_fn,
+        step_det=step_det,
+        policy_rollout=(policy_rollout
+                        if has_horizon and local_env.obs_fn is not None
+                        else None))

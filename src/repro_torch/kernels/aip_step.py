@@ -1,0 +1,359 @@
+"""The CUDA route of the IALS kernels: build, bind and launch (counterpart
+of ``repro/kernels/aip_step.py``, whose Pallas TPU kernels these
+replace).
+
+``csrc/ials_kernels.cu`` holds the five entry points (one GRU AIP tick,
+the GRU and FNN whole-horizon rollouts, the actor-in-the-loop rollout for
+each cell). It is compiled at first use with ``nvcc`` for ``sm_90a`` into
+a shared library with a plain C interface, keyed by a hash of the source
+and flags, under ``build/kernels/`` at the repo root, and loaded with
+``ctypes``. Nothing here is imported or built when the module is
+imported: the first launch builds.
+
+Each wrapper takes CUDA tensors only (``ops.py`` sends CPU tensors to the
+plain versions in ``ref.py``), checks dtypes and shapes, allocates its
+outputs, launches on PyTorch's current stream, raises if the launch
+returned a CUDA error, and adds one to its entry of ``LAUNCHES``. Random
+bits are int32-stored uint32 values; LS leaves are kernel-encoded int32
+(``envs.api.kernel_codec``).
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+_SOURCES = ("ials_kernels.cu",)
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+# launches per entry point since the last ``reset_launches()``
+LAUNCHES = {"aip_step": 0, "aip_rollout_multi": 0, "fnn_rollout": 0,
+            "policy_rollout_fnn": 0, "policy_rollout_gru": 0}
+
+
+def reset_launches():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_longlong
+_INT_FIELDS = ("T", "A", "B", "D", "H", "M", "stack", "S", "obs_dim", "Hp",
+               "n_act", "domain", "lane_len", "ext_influence", "fast_gates")
+
+
+class IalsArgs(ctypes.Structure):
+    """Mirror of ``IalsArgs`` in ``csrc/ials_kernels.cu`` (every field 8
+    bytes, so the two layouts cannot disagree on padding)."""
+    _fields_ = ([("ls_in", _P * 4), ("ls_out", _P * 4),
+                 ("reset_ls", _P * 4), ("noise", _P * 4),
+                 ("s0", _P), ("s_out", _P), ("frames0", _P),
+                 ("frames_out", _P), ("aw", _P * 6), ("pw", _P * 6),
+                 ("actions", _P), ("bits", _P), ("gumbel", _P),
+                 ("done", _P), ("x_out", _P), ("a_out", _P),
+                 ("logits_out", _P), ("v_out", _P), ("rew_out", _P),
+                 ("d", _P), ("h", _P), ("h2", _P), ("logits", _P),
+                 ("u", _P)]
+                + [(n, _I) for n in _INT_FIELDS])
+
+
+_DOMAINS = {"traffic": 0}
+_ENTRIES = ("ials_aip_step", "ials_aip_rollout_multi", "ials_fnn_rollout",
+            "ials_policy_rollout_gru", "ials_policy_rollout_fnn")
+_lib = None
+_lib_lock = threading.Lock()
+BUILD_LOG = {"seconds": None, "path": None, "ptxas": ""}
+
+
+def _nvcc() -> str:
+    cands = [shutil.which("nvcc"),
+             os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                          "bin", "nvcc")]
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found (looked on PATH and in "
+                       "$CUDA_HOME/bin): the CUDA kernels cannot be built")
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in _SOURCES:
+        h.update(name.encode())
+        h.update((_CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the kernels once per source hash; returns the library."""
+    out = BUILD_DIR / f"libials_kernels_{source_hash()}.so"
+    if out.exists():
+        BUILD_LOG["path"] = str(out)
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(out.name + f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
+           *(str(_CSRC / s) for s in _SOURCES)]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+                           f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
+    os.replace(tmp, out)
+    BUILD_LOG.update(seconds=time.perf_counter() - t0, path=str(out),
+                     ptxas=res.stderr)
+    return out
+
+
+def library():
+    """The loaded kernel library (built at first call)."""
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name in _ENTRIES:
+                fn = getattr(lib, name)
+                fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+                fn.restype = ctypes.c_int
+            lib.ials_args_size.argtypes = []
+            lib.ials_args_size.restype = ctypes.c_int
+            if lib.ials_args_size() != ctypes.sizeof(IalsArgs):
+                raise RuntimeError("IalsArgs layout differs between the "
+                                   "CUDA source and its ctypes mirror")
+            _lib = lib
+        return _lib
+
+
+def _f32(t, name, shape):
+    return _check(t, name, torch.float32, shape)
+
+
+def _i32(t, name, shape):
+    return _check(t, name, torch.int32, shape)
+
+
+def _check(t, name, dtype, shape):
+    if not t.is_cuda:
+        raise ValueError(f"{name}: the CUDA kernel takes CUDA tensors, got "
+                         f"{t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    return t.contiguous()
+
+
+def _launch(entry: str, counter: str, args: IalsArgs, device):
+    """Launch on the current stream; the wrapper's locals keep every
+    buffer alive until the (asynchronous) launch has been enqueued, and
+    the caching allocator orders later reuse on the same stream."""
+    lib = library()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        err = getattr(lib, entry)(ctypes.byref(args), stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} failed to launch: CUDA error {err}")
+    LAUNCHES[counter] += 1
+
+
+def _traffic_leaves(ls, L, domain, prefix=()):
+    if domain is None or domain.name not in _DOMAINS:
+        raise NotImplementedError(
+            f"no CUDA device functor for LS domain {domain!r} (only "
+            f"'traffic' in this slice; see ROADMAP)")
+    lanes, phase = ls
+    Lc = domain.lane_len
+    return (_i32(lanes, "ls.lanes", prefix + (L, 4, Lc)),
+            _i32(phase, "ls.phase", prefix + (L,)))
+
+
+def _base_args(A, B, D, H, M, domain, **kw):
+    return IalsArgs(A=A, B=B, D=D, H=H, M=M, domain=_DOMAINS[domain.name],
+                    lane_len=domain.lane_len,
+                    ext_influence=int(domain.ext_influence), **kw)
+
+
+def aip_step_multi(d, h, wx, wh, b, hw, hb, bits):
+    """d (B, A, D), h (B, A, H), stacked (A, ...) GRU weights, bits
+    (B, A, M) int32 -> (h2, logits, u): one launch, grid (row tiles, A)."""
+    B, A, D = d.shape
+    H = wh.shape[1]
+    M = hw.shape[2]
+    d = _f32(d, "d", (B, A, D))
+    h = _f32(h, "h", (B, A, H))
+    ws = [_f32(wx, "wx", (A, D, 3 * H)), _f32(wh, "wh", (A, H, 3 * H)),
+          _f32(b, "b", (A, 3 * H)), _f32(hw, "hw", (A, H, M)),
+          _f32(hb, "hb", (A, M))]
+    bits = _i32(bits, "bits", (B, A, M))
+    h2 = torch.empty_like(h)
+    logits = torch.empty((B, A, M), dtype=torch.float32, device=d.device)
+    u = torch.empty_like(logits)
+    args = IalsArgs(A=A, B=B, D=D, H=H, M=M)
+    args.d, args.h, args.bits = d.data_ptr(), h.data_ptr(), bits.data_ptr()
+    for i, w in enumerate(ws):
+        args.aw[i] = w.data_ptr()
+    args.h2, args.logits, args.u = (h2.data_ptr(), logits.data_ptr(),
+                                    u.data_ptr())
+    _launch("ials_aip_step", "aip_step", args, d.device)
+    return h2, logits, u
+
+
+def aip_step(d, h, wx, wh, b, hw, hb, bits):
+    """One GRU AIP tick with 2-D weights: d (B, D), h (B, H), bits (B, M)
+    -> (h2 (B, H), logits (B, M), u (B, M))."""
+    out = aip_step_multi(d[:, None], h[:, None], wx[None], wh[None],
+                         b[None], hw[None], hb[None], bits[:, None])
+    return tuple(o[:, 0] for o in out)
+
+
+def _rollout(entry, counter, ls, s0, weights, actions, bits, noise, *,
+             n_agents, domain, D, H, M, stack):
+    if noise:
+        raise NotImplementedError("LS noise leaves have no device functor "
+                                  "yet (traffic draws none)")
+    L, SD = s0.shape
+    A = n_agents
+    if L % A:
+        raise ValueError(f"lane count {L} not divisible by n_agents={A}")
+    T = actions.shape[0]
+    lanes, phase = _traffic_leaves(ls, L, domain)
+    s0 = _f32(s0, "s0", (L, SD))
+    actions = _i32(actions, "actions", (T, L))
+    bits = _i32(bits, "bits", (T, L, M))
+    lanes_out, phase_out = torch.empty_like(lanes), torch.empty_like(phase)
+    s_out = torch.empty_like(s0)
+    rew = torch.empty((T, L), dtype=torch.float32, device=s0.device)
+    args = _base_args(A, L // A, D, H, M, domain, T=T, stack=stack)
+    args.ls_in[0], args.ls_in[1] = lanes.data_ptr(), phase.data_ptr()
+    args.ls_out[0], args.ls_out[1] = (lanes_out.data_ptr(),
+                                      phase_out.data_ptr())
+    args.s0, args.s_out = s0.data_ptr(), s_out.data_ptr()
+    for i, w in enumerate(weights):
+        args.aw[i] = w.data_ptr()
+    args.actions, args.bits = actions.data_ptr(), bits.data_ptr()
+    args.rew_out = rew.data_ptr()
+    _launch(entry, counter, args, s0.device)
+    return (lanes_out, phase_out), s_out, rew
+
+
+def aip_rollout_multi(ls, h0, wx, wh, b, hw, hb, actions, bits, noise, *,
+                      n_agents: int, domain):
+    """Whole-horizon IALS rollout, GRU backbone, ONE launch: ls (lanes
+    (L, 4, lane_len), phase (L,)) int32, h0 (L, H), stacked weights,
+    actions (T, L), bits (T, L, M) -> (final ls, h_T, rewards (T, L))."""
+    A, D, G3 = wx.shape
+    H = G3 // 3
+    M = hw.shape[2]
+    ws = [_f32(wx, "wx", (A, D, 3 * H)), _f32(wh, "wh", (A, H, 3 * H)),
+          _f32(b, "b", (A, 3 * H)), _f32(hw, "hw", (A, H, M)),
+          _f32(hb, "hb", (A, M))]
+    return _rollout("ials_aip_rollout_multi", "aip_rollout_multi", ls, h0,
+                    ws, actions, bits, noise, n_agents=n_agents,
+                    domain=domain, D=D, H=H, M=M, stack=1)
+
+
+def fnn_rollout(ls, buf0, w1, b1, w2, b2, hw, hb, actions, bits, noise, *,
+                n_agents: int, domain):
+    """Whole-horizon IALS rollout, FNN backbone, ONE launch: buf0 (L,
+    stack*d_in) flat frame buffers; otherwise as ``aip_rollout_multi``."""
+    A, SD, K = w1.shape
+    M = hw.shape[2]
+    D = 4 * domain.lane_len if domain is not None else 0
+    if D == 0 or SD % D:
+        raise ValueError(f"frame buffer width {SD} is not a multiple of "
+                         f"the d-set width {D}")
+    ws = [_f32(w1, "w1", (A, SD, K)), _f32(b1, "b1", (A, K)),
+          _f32(w2, "w2", (A, K, K)), _f32(b2, "b2", (A, K)),
+          _f32(hw, "hw", (A, K, M)), _f32(hb, "hb", (A, M))]
+    return _rollout("ials_fnn_rollout", "fnn_rollout", ls, buf0, ws,
+                    actions, bits, noise, n_agents=n_agents, domain=domain,
+                    D=D, H=K, M=M, stack=SD // D)
+
+
+def policy_rollout(ls, s0, frames0, aip_w, pol_w, gumbel, bits, done,
+                   noise, reset_ls, *, kind: str, n_agents: int,
+                   fast_gates: bool, domain):
+    """A whole PPO acting horizon in ONE launch (policy forward,
+    Gumbel-argmax, AIP cell ``kind`` and draw, LS tick, frame refill,
+    streamed resets). Layout as ``ref.policy_rollout_ref`` -> (final ls,
+    s_T, frames_T, x (T, L, S), a (T, L) int32, logits (T, L, NA),
+    v (T, L), r (T, L))."""
+    if noise:
+        raise NotImplementedError("LS noise leaves have no device functor "
+                                  "yet (traffic draws none)")
+    L, SD = s0.shape
+    A = n_agents
+    if L % A:
+        raise ValueError(f"lane count {L} not divisible by n_agents={A}")
+    T, _, NA = gumbel.shape
+    S = frames0.shape[1]
+    lanes, phase = _traffic_leaves(ls, L, domain)
+    r_lanes, r_phase = _traffic_leaves(reset_ls, L, domain, prefix=(T,))
+    D = 4 * domain.lane_len
+    obs_dim = D + 1
+    if kind == "gru":
+        G3 = aip_w[0].shape[2]
+        H, M, stack = G3 // 3, aip_w[3].shape[2], 1
+        shapes = [(A, D, 3 * H), (A, H, 3 * H), (A, 3 * H), (A, H, M),
+                  (A, M)]
+        entry, counter = "ials_policy_rollout_gru", "policy_rollout_gru"
+    elif kind == "fnn":
+        H = aip_w[0].shape[2]
+        M, stack = aip_w[4].shape[2], SD // D
+        shapes = [(A, SD, H), (A, H), (A, H, H), (A, H), (A, H, M), (A, M)]
+        entry, counter = "ials_policy_rollout_fnn", "policy_rollout_fnn"
+    else:
+        raise ValueError(f"unknown AIP kind {kind!r}")
+    aw = [_f32(w, f"aip_w[{i}]", s)
+          for i, (w, s) in enumerate(zip(aip_w, shapes))]
+    w1, b1, w2, b2, piw, pib, vw, vb = pol_w
+    Hp = w1.shape[1]
+    pw = [_f32(w1, "w1", (S, Hp)), _f32(b1, "b1", (Hp,)),
+          _f32(w2, "w2", (Hp, Hp)), _f32(b2, "b2", (Hp,)),
+          _f32(torch.cat([piw, vw], dim=1), "pi|v w", (Hp, NA + 1)),
+          _f32(torch.cat([pib, vb], dim=0), "pi|v b", (NA + 1,))]
+    s0 = _f32(s0, "s0", (L, SD))
+    frames0 = _f32(frames0, "frames0", (L, S))
+    gumbel = _f32(gumbel, "gumbel", (T, L, NA))
+    bits = _i32(bits, "bits", (T, L, M))
+    done = _i32(done, "done", (T, L))
+    dev = s0.device
+    lanes_out, phase_out = torch.empty_like(lanes), torch.empty_like(phase)
+    s_out, f_out = torch.empty_like(s0), torch.empty_like(frames0)
+    x = torch.empty((T, L, S), dtype=torch.float32, device=dev)
+    a = torch.empty((T, L), dtype=torch.int32, device=dev)
+    logits = torch.empty((T, L, NA), dtype=torch.float32, device=dev)
+    v = torch.empty((T, L), dtype=torch.float32, device=dev)
+    r = torch.empty((T, L), dtype=torch.float32, device=dev)
+    args = _base_args(A, L // A, D, H, M, domain, T=T, stack=stack, S=S,
+                      obs_dim=obs_dim, Hp=Hp, n_act=NA,
+                      fast_gates=int(fast_gates))
+    args.ls_in[0], args.ls_in[1] = lanes.data_ptr(), phase.data_ptr()
+    args.ls_out[0], args.ls_out[1] = (lanes_out.data_ptr(),
+                                      phase_out.data_ptr())
+    args.reset_ls[0], args.reset_ls[1] = (r_lanes.data_ptr(),
+                                          r_phase.data_ptr())
+    args.s0, args.s_out = s0.data_ptr(), s_out.data_ptr()
+    args.frames0, args.frames_out = frames0.data_ptr(), f_out.data_ptr()
+    for i, w in enumerate(aw):
+        args.aw[i] = w.data_ptr()
+    for i, w in enumerate(pw):
+        args.pw[i] = w.data_ptr()
+    args.gumbel, args.bits, args.done = (gumbel.data_ptr(),
+                                         bits.data_ptr(), done.data_ptr())
+    args.x_out, args.a_out, args.logits_out = (x.data_ptr(), a.data_ptr(),
+                                               logits.data_ptr())
+    args.v_out, args.rew_out = v.data_ptr(), r.data_ptr()
+    _launch(entry, counter, args, dev)
+    return ((lanes_out, phase_out), s_out, f_out, x, a, logits, v, r)

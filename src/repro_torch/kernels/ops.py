@@ -1,0 +1,80 @@
+"""Dispatch between the CUDA kernels and their plain versions
+(counterpart of ``repro/kernels/ops.py``).
+
+The rule is the tensor's device, and nothing else: a CUDA tensor
+launches the hand-written kernel (``aip_step.py``), a CPU tensor takes the
+plain PyTorch version (``ref.py``). There is no ``try`` and no other
+route: a kernel that fails to build or launch raises.
+
+The rollout entry points take both the domain's plain functions
+(``tick_fn`` / ``dset_fn`` / ``obs_fn`` on kernel-encoded LS leaves, for
+the CPU) and its ``KernelDomain`` (the device functor, for the card).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import aip_step as _cuda
+from repro_torch.kernels import ref as _ref
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    if t.is_cuda:
+        return True
+    if t.device.type != "cpu":
+        raise ValueError(f"no kernel route for device {t.device}")
+    return False
+
+
+def aip_step(d, h, wx, wh, b, hw, hb, bits):
+    """One fused GRU AIP tick: (B, ...) inputs, 2-D weights."""
+    if _on_card(d):
+        return _cuda.aip_step(d, h, wx, wh, b, hw, hb, bits)
+    return _ref.aip_step_ref(d, h, wx, wh, b, hw, hb, bits)
+
+
+def aip_step_multi(d, h, wx, wh, b, hw, hb, bits):
+    """A per-agent fused GRU AIP ticks: (B, A, ...) inputs, stacked
+    weights; on the card the agent axis is in the launch grid."""
+    if _on_card(d):
+        return _cuda.aip_step_multi(d, h, wx, wh, b, hw, hb, bits)
+    return _ref.aip_step_multi_ref(d, h, wx, wh, b, hw, hb, bits)
+
+
+def ials_rollout_multi(ls, h0, wx, wh, b, hw, hb, actions, bits, noise, *,
+                       n_agents, tick_fn, dset_fn, domain):
+    """Whole-horizon IALS rollout, GRU backbone (``aip_rollout_multi``)."""
+    if _on_card(h0):
+        return _cuda.aip_rollout_multi(ls, h0, wx, wh, b, hw, hb, actions,
+                                       bits, noise, n_agents=n_agents,
+                                       domain=domain)
+    return _ref.ials_rollout_multi_ref(ls, h0, wx, wh, b, hw, hb, actions,
+                                       bits, noise, n_agents=n_agents,
+                                       tick_fn=tick_fn, dset_fn=dset_fn)
+
+
+def fnn_rollout(ls, buf0, w1, b1, w2, b2, hw, hb, actions, bits, noise, *,
+                n_agents, tick_fn, dset_fn, domain):
+    """Whole-horizon IALS rollout, FNN backbone (``fnn_rollout``)."""
+    if _on_card(buf0):
+        return _cuda.fnn_rollout(ls, buf0, w1, b1, w2, b2, hw, hb, actions,
+                                 bits, noise, n_agents=n_agents,
+                                 domain=domain)
+    return _ref.fnn_rollout_ref(ls, buf0, w1, b1, w2, b2, hw, hb, actions,
+                                bits, noise, n_agents=n_agents,
+                                tick_fn=tick_fn, dset_fn=dset_fn)
+
+
+def policy_rollout(ls, s0, frames0, aip_w, pol_w, gumbel, bits, done,
+                   noise, reset_ls, *, kind, n_agents, fast_gates, tick_fn,
+                   dset_fn, obs_fn, domain):
+    """A whole PPO acting horizon (``policy_rollout``), either cell."""
+    if _on_card(s0):
+        return _cuda.policy_rollout(
+            ls, s0, frames0, aip_w, pol_w, gumbel, bits, done, noise,
+            reset_ls, kind=kind, n_agents=n_agents, fast_gates=fast_gates,
+            domain=domain)
+    return _ref.policy_rollout_ref(
+        ls, s0, frames0, aip_w, pol_w, gumbel, bits, done, noise, reset_ls,
+        kind=kind, n_agents=n_agents, fast_gates=fast_gates,
+        tick_fn=tick_fn, dset_fn=dset_fn, obs_fn=obs_fn)

@@ -1,0 +1,63 @@
+"""The port stands alone: importing every ``repro_torch`` module leaves
+``jax`` and ``repro`` out of ``sys.modules``; no module of
+``src/repro_torch`` and not ``chip_smoke.py`` imports them; and without
+CUDA the entry points refuse the default device instead of carrying on
+on the CPU."""
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+import test_torch_common  # noqa: F401  (one torch thread)
+
+import torch  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+
+def _modules():
+    return sorted(".".join(("repro_torch",) + p.relative_to(PORT).with_suffix(
+        "").parts).replace(".__init__", "") for p in PORT.rglob("*.py"))
+
+
+def test_importing_the_port_pulls_in_neither_jax_nor_repro():
+    mods = _modules()
+    code = ("import sys\n"
+            + "".join(f"import {m}\n" for m in mods)
+            + "bad = sorted(m for m in sys.modules if m == 'jax' or "
+              "m.startswith('jax.') or m == 'jaxlib' or m == 'repro' or "
+              "m.startswith('repro.'))\n"
+              "print(bad)\nsys.exit(1 if bad else 0)\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"})
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert len(mods) >= 15
+
+
+@pytest.mark.parametrize("path", sorted(
+    [str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")]
+    + ["chip_smoke.py"]))
+def test_no_source_imports_jax_or_repro(path):
+    tree = ast.parse((ROOT / path).read_text())
+    for node in ast.walk(tree):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        for n in names:
+            top = n.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), f"{path}: {n}"
+
+
+def test_default_device_without_cuda_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    from repro_torch.launch import rl_train
+    with pytest.raises(RuntimeError, match="cuda"):
+        rl_train.run_training(rl_train.parse_args(["--iterations", "1"]))

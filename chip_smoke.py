@@ -16,7 +16,9 @@ Phases, each printing its result and time on its own line:
      follows a decision the plain version took within FLIP_EPS of its
      threshold counts as a flip; any other mismatch, or flips in more than
      MAX_FLIP_SHARE of the lanes, fails. Kernel and plain-version times
-     (CUDA events, median after warm-up) are measured here;
+     (CUDA events around each call, median after warm-up) and the
+     kernel's device time (``torch.profiler``, without the host's enqueue
+     time) are measured here;
   3. the main path: ``rl_train --domain traffic --simulator ials`` at full
      width (FNN AIP, A = 1; then GRU AIP, A = 25), with the launch counters
      zeroed before each run and read after it: ``policy_rollout`` must
@@ -25,7 +27,24 @@ Phases, each printing its result and time on its own line:
   4. the engine's own entry points (``engine.rollout`` per backbone,
      ``engine.step`` with the GRU AIP), counters zeroed before and read
      after: ``fnn_rollout``, ``aip_rollout_multi`` and ``aip_step`` must
-     have launched.
+     have launched;
+  5. the serving kernels against their plain versions: ``serve_forward``
+     and ``serve_forward_multi`` (N = 1 and 4) at the traffic (D = 41,
+     2 actions) and warehouse (D = 296, 5 actions) widths, hidden 128,
+     slots S in {1, 16, 64, 128, 256, 4096} with a random mask and
+     unroutable lanes: floats within ATOL, an action may differ only where
+     the plain version's top-two logits are within FLIP_EPS, pad and
+     unroutable lanes exactly 0, and on the card bitwise: a real lane is
+     the same whatever the pad lanes hold and wherever it sits, and a
+     lane of the multi kernel is the single-policy kernel's for its own
+     checkpoint. Timed at the main serving shape (traffic, S = 128);
+  6. the serving path ``policy_serve`` in-process at full width, counters
+     zeroed before each run and read after: the fixed 128-lane slot (wall
+     clock), the calibrated bimodal buckets with 4 policies, the chaos
+     plan on the virtual clock (exactly the corrupt reload rejected, the
+     plan exhausted), and ``--ckpt-dir`` on a checkpoint the port's
+     ``ckpt.save`` wrote in ``rl_train``'s layout (restored bitwise).
+     Each kernel must launch at least once per dispatch of its run.
 Then one JSON line lists every kernel (route, source, the TPU kernel it
 replaces, launches on its path, max error, times and the card's bound),
 the ``nvidia-smi`` line, and last ``{"ok": true, "device": ...}``.
@@ -56,7 +75,16 @@ REPLACES = {
     "fnn_rollout": "src/repro/kernels/aip_step.py:514",
     "policy_rollout[fnn]": "src/repro/kernels/aip_step.py:745",
     "policy_rollout[gru]": "src/repro/kernels/aip_step.py:745",
+    "serve_forward": "src/repro/kernels/aip_step.py:205",
+    "serve_forward_multi": "src/repro/kernels/aip_step.py:291",
 }
+PATHS = {"serve_forward": "policy_serve", "serve_forward_multi":
+         "policy_serve", "policy_rollout[fnn]": "rl_train",
+         "policy_rollout[gru]": "rl_train"}
+# the serving widths: (frame width D, actions); policy hidden 128
+SERVE_WIDTHS = {"traffic": (41, 2), "warehouse": (37 * 8, 5)}
+SERVE_SLOTS = (1, 16, 64, 128, 256, 4096)
+SERVE_HP = 128
 
 
 def log(msg):
@@ -94,6 +122,35 @@ def time_cuda(fn, reps=10, warmup=2):
         torch.cuda.synchronize()
         ms.append(a.elapsed_time(b))
     return statistics.median(ms)
+
+
+def device_ms(fn, reps=10, warmup=2):
+    """Mean device milliseconds per call of ``fn``: the summed device time
+    of every kernel and copy it launches, from ``torch.profiler`` -> a
+    float, or "not measured" when the profiler saw no device activity.
+    Unlike CUDA events around one call, it leaves out the host's time to
+    enqueue the launch, which dominates a kernel of ~0.1 ms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = device_us(prof)
+    return us * 1e-3 / reps if us > 0 else "not measured"
+
+
+def device_us(prof):
+    """Summed duration of the device's own events (kernels, copies) in a
+    profile. A CPU op's device time repeats its kernels', so only the
+    device events are counted."""
+    from torch.autograd import DeviceType
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
 
 
 def nbytes(*tensors):
@@ -339,11 +396,13 @@ def check_aip_step(A, B, seed, dev):
                              f"from its threshold")
     flips = int(diff.any(-1).sum())
     timing = dict(ms=time_cuda(lambda: cuda.aip_step_multi(*args)),
-                  plain_ms=time_cuda(lambda: ref.aip_step_multi_ref(*args)))
+                  plain_ms=time_cuda(lambda: ref.aip_step_multi_ref(*args)),
+                  device_ms=device_ms(lambda: cuda.aip_step_multi(*args)))
     flops = 2 * (40 * 192 + 64 * 192 + 64 * 4) * A * B
     by = nbytes(args, kh, kl, ku)
     log(f"[kernel] aip_step A={A} B={B}: lanes {A * B}, flips {flips}, "
-        f"max err {err:.3g}, ms {timing['ms']:.4f}, plain ms "
+        f"max err {err:.3g}, ms {timing['ms']:.4f} (device "
+        f"{timing['device_ms']}), plain ms "
         f"{timing['plain_ms']:.4f}")
     return dict(max_abs_err=err, flips=flips, flops=flops, bytes=by,
                 **timing)
@@ -357,6 +416,7 @@ def run_case(name, kind, A, B, T, seed, dev, policy, timed):
     call = case.policy_call if policy else case.rollout_call
     if timed:
         rec["ms"] = time_cuda(call)
+        rec["device_ms"] = device_ms(call, reps=3, warmup=1)
         rec["plain_ms"] = time_cuda(lambda: call(plain=True), reps=3,
                                     warmup=1)
         out = call()
@@ -367,7 +427,8 @@ def run_case(name, kind, A, B, T, seed, dev, policy, timed):
         rec["bytes"] = nbytes(inputs, out)
     log(f"[kernel] {name} A={A} B={B} T={T}: lanes {A * B}, flips {flips}, "
         f"max err {err:.3g}"
-        + (f", ms {rec['ms']:.3f}, plain ms {rec['plain_ms']:.3f}"
+        + (f", ms {rec['ms']:.3f} (device {rec['device_ms']}), plain ms "
+           f"{rec['plain_ms']:.3f}"
            if timed else ""))
     return rec
 
@@ -517,6 +578,306 @@ def phase_engine(dev):
                                    "aip_step")}
 
 
+# ---------------------------------------------------------------------------
+# the serving kernels (phase 5) and the serving path (phase 6)
+# ---------------------------------------------------------------------------
+
+class ServeCase:
+    """One serving slot at (domain widths, S, N) on the card: frames, a
+    random mask, per-lane policy indices with unroutable lanes, and N
+    policies made from a seed (init plus noise, so every weight and the
+    head matter)."""
+
+    def __init__(self, domain, S, N, seed, dev):
+        import torch
+        from repro_torch.kernels.ref import fuse_head
+        from repro_torch.rl import ppo
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        D, NA = SERVE_WIDTHS[domain]
+        self.domain, self.S, self.N, self.D, self.NA = domain, S, N, D, NA
+        cfg = ppo.PPOConfig(obs_dim=D, n_actions=NA, hidden=SERVE_HP)
+        pols = []
+        for _ in range(N):
+            p = ppo.init_policy(cfg, g)
+            pols.append({k: {n: w + 0.05 * torch.randn(
+                w.shape, generator=g, device=dev) for n, w in v.items()}
+                for k, v in p.items()})
+        self.single = [fuse_head(ppo.flat_policy_weights(p)) for p in pols]
+        self.stacked = fuse_head(ppo.stack_policy_weights(pols))
+        self.frames = torch.randn((S, D), generator=g, device=dev)
+        self.mask = (torch.rand((S,), generator=g, device=dev)
+                     < 0.75).to(torch.int32)
+        self.pidx = torch.randint(0, N, (S,), generator=g, device=dev,
+                                  dtype=torch.int32)
+        self.pidx[3::7] = N                       # unroutable lanes
+        self.pidx[5::11] = -1
+
+    def call(self, multi, plain=False, frames=None, mask=None, pidx=None):
+        from repro_torch.kernels import aip_step as cuda
+        from repro_torch.kernels import ref
+        f = self.frames if frames is None else frames
+        m = self.mask if mask is None else mask
+        p = self.pidx if pidx is None else pidx
+        if multi:
+            if plain:
+                return ref.serve_forward_multi_ref(self.stacked, f, m, p,
+                                                   fast_gates=True)
+            return cuda.serve_forward_multi(f, m, p, self.stacked,
+                                            fast_gates=True)
+        if plain:
+            return ref.serve_forward_ref(self.single[0], f, m,
+                                         fast_gates=True)
+        return cuda.serve_forward(f, m, self.single[0], fast_gates=True)
+
+    def live(self, multi):
+        """Lanes some policy answers (the rest must come back 0)."""
+        if not multi:
+            return self.mask != 0
+        return (self.mask != 0) & (self.pidx >= 0) & (self.pidx < self.N)
+
+    def work(self, multi):
+        """(FLOPs, bytes) this call needs: one forward per answered lane;
+        inputs (frames, mask, pidx, every policy's weights) read once and
+        outputs written once."""
+        D, NH = self.D, self.NA + 1
+        lanes = int(self.live(multi).sum())
+        flops = 2 * lanes * (D * SERVE_HP + SERVE_HP * SERVE_HP
+                             + SERVE_HP * NH)
+        w = self.stacked if multi else self.single[0]
+        by = nbytes(self.frames, self.mask, w) + self.S * NH * 4
+        if multi:
+            by += nbytes(self.pidx)
+        return flops, by
+
+
+def _bitwise(a, b, what):
+    import torch
+    for x, y in zip(a, b):
+        if not torch.equal(x, y):
+            raise AssertionError(f"{what}: not bitwise equal")
+
+
+def check_serve(case, multi, name):
+    """Kernel vs plain version, the pad/unroutable zeros and the bitwise
+    contracts on the card -> (flips, max error)."""
+    import torch
+    k_lg, k_v = case.call(multi)
+    torch.cuda.synchronize()
+    p_lg, p_v = case.call(multi, plain=True)
+    live = case.live(multi)
+    err = max(float((k_lg - p_lg).abs().max()),
+              float((k_v - p_v).abs().max()))
+    if err > ATOL:
+        raise AssertionError(f"{name}: max error {err} > {ATOL}")
+    if bool(k_lg[~live].any()) or bool(k_v[~live].any()):
+        raise AssertionError(f"{name}: a pad or unroutable lane is not 0")
+    k_a, p_a = torch.argmax(k_lg, -1), torch.argmax(p_lg, -1)
+    top2 = torch.topk(p_lg, 2, dim=-1).values
+    near = (top2[:, 0] - top2[:, 1]) < FLIP_EPS
+    diff = k_a != p_a
+    if bool((diff & ~near).any()):
+        raise AssertionError(f"{name}: an action differs away from a tie")
+    # contract 1: junk in the pad lanes, lanes permuted -> bitwise
+    junk = case.frames.clone()
+    junk[case.mask == 0] = float("nan")
+    j_lg, j_v = case.call(multi, frames=junk)
+    _bitwise((j_lg[live], j_v[live]), (k_lg[live], k_v[live]),
+             f"{name} pad contents")
+    g = torch.Generator(device=case.frames.device)
+    g.manual_seed(case.S)
+    perm = torch.randperm(case.S, generator=g, device=case.frames.device)
+    q_lg, q_v = case.call(multi, frames=case.frames[perm],
+                          mask=case.mask[perm], pidx=case.pidx[perm])
+    _bitwise((q_lg, q_v), (k_lg[perm], k_v[perm]), f"{name} lane position")
+    if multi:   # contract 2: a lane is its own checkpoint's single kernel
+        from repro_torch.kernels import aip_step as cuda
+        for n in range(case.N):
+            s_lg, s_v = cuda.serve_forward(case.frames, case.mask,
+                                           case.single[n], fast_gates=True)
+            sel = live & (case.pidx == n)
+            _bitwise((k_lg[sel], k_v[sel]), (s_lg[sel], s_v[sel]),
+                     f"{name} policy {n} vs its single kernel")
+    return int(diff.sum()), err
+
+
+@phase("serving kernels against their plain versions")
+def phase_serve_kernels(dev):
+    recs = {"serve_forward": dict(flips=0, lanes=0, max_abs_err=0.0),
+            "serve_forward_multi": dict(flips=0, lanes=0, max_abs_err=0.0)}
+    seed = 100
+    for domain in SERVE_WIDTHS:
+        for S in SERVE_SLOTS:
+            for N in (1, 4):
+                seed += 1
+                case = ServeCase(domain, S, N, seed, dev)
+                kinds = ((False, True) if N == 1 else (True,))
+                for multi in kinds:
+                    name = "serve_forward_multi" if multi else \
+                        "serve_forward"
+                    flips, err = check_serve(
+                        case, multi, f"{name} {domain} S={S} N={N}")
+                    r = recs[name]
+                    r["flips"] += flips
+                    r["lanes"] += S
+                    r["max_abs_err"] = max(r["max_abs_err"], err)
+                if domain == "traffic" and S == 128:
+                    for multi in kinds:
+                        if multi and N == 1:
+                            continue
+                        name = "serve_forward_multi" if multi else \
+                            "serve_forward"
+                        recs[name]["ms"] = time_cuda(
+                            lambda: case.call(multi), reps=50, warmup=5)
+                        recs[name]["device_ms"] = device_ms(
+                            lambda: case.call(multi), reps=50, warmup=5)
+                        recs[name]["plain_ms"] = time_cuda(
+                            lambda: case.call(multi, plain=True), reps=50,
+                            warmup=5)
+                        recs[name]["flops"], recs[name]["bytes"] = \
+                            case.work(multi)
+                        recs[name]["timed_at"] = f"traffic S=128 N={N}"
+    for name, r in recs.items():
+        if r["flips"] > MAX_FLIP_SHARE * r["lanes"]:
+            raise AssertionError(f"{name}: {r['flips']} flips in "
+                                 f"{r['lanes']} lanes")
+        log(f"[kernel] {name}: {r['lanes']} lanes over {len(SERVE_WIDTHS)}"
+            f" widths x {len(SERVE_SLOTS)} slots, flips {r['flips']}, max "
+            f"err {r['max_abs_err']:.3g}, ms {r['ms']:.4f} (device "
+            f"{r['device_ms']}, plain {r['plain_ms']:.4f}) at "
+            f"{r['timed_at']}; pad/unroutable "
+            f"zeros and the bitwise contracts held")
+    return recs
+
+
+def _policy_serve(argv, counter):
+    """One in-process ``policy_serve`` run with the launch counters zeroed
+    before it and read after it -> (JSON result, launches of ``counter``)."""
+    import contextlib
+    import io
+    import torch
+    from repro_torch.kernels import aip_step as cuda
+    from repro_torch.launch import policy_serve
+    cuda.reset_launches()
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = policy_serve.main(argv)
+    torch.cuda.synchronize()
+    launches = cuda.LAUNCHES[counter]
+    if launches < res["dispatches"]:
+        raise AssertionError(f"{counter} launched {launches} times in "
+                             f"{res['dispatches']} dispatches: {argv}")
+    log(f"[serve] {' '.join(argv)}: requests {res['requests']}, served "
+        f"{res['served']}, rejected {res['rejected']}, dispatches "
+        f"{res['dispatches']}, {counter} launches {launches}, p50 "
+        f"{res['p50_ms']:.4f} ms, p99 {res['p99_ms']:.4f} ms, qps "
+        f"{res['qps']:.1f}, padded_lane_frac {res['padded_lane_frac']:.4f}"
+        f", slot {res['slot']}")
+    return res, launches
+
+
+def dispatch_breakdown(server, trace, reps=200):
+    """Where one fixed-slot dispatch's time goes at the main serving shape:
+    host ms to pack a batch of the trace's first burst, host ms of
+    ``forward_slot`` (one host-to-device copy, the kernel, ``argmax``, the
+    sync; median and p99 over ``reps``), and from ``torch.profiler`` the
+    device time per dispatch (every kernel and copy) and the device's busy
+    share (that time over the wall time)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    shape = server.slot
+    burst = [r for r in trace[:shape] if r.arrival == trace[0].arrival]
+    t_pack = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        frames, pidx = server._pack(burst, shape)
+        t_pack.append(time.perf_counter() - t0)
+    server.forward_slot(frames, len(burst), pidx)
+    t_fwd = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        server.forward_slot(frames, len(burst), pidx)
+        t_fwd.append(time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            server.forward_slot(frames, len(burst), pidx)
+        wall = time.perf_counter() - t0
+    dev_us = device_us(prof)
+    rec = {"burst_lanes": len(burst),
+           "pack_ms": 1e3 * statistics.median(t_pack),
+           "forward_slot_ms": 1e3 * statistics.median(t_fwd),
+           "forward_slot_p99_ms": 1e3 * float(np.percentile(t_fwd, 99)),
+           "device_ms_per_dispatch": (dev_us * 1e-3 / reps if dev_us > 0
+                                      else "not measured"),
+           "device_busy_share": (dev_us * 1e-6 / wall if dev_us > 0
+                                 else "not measured")}
+    log(f"[serve] dispatch breakdown at slot {shape}: {rec}")
+    return rec
+
+
+@phase("serving path: policy_serve")
+def phase_serving_path(dev):
+    import shutil
+    import torch
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.launch import policy_serve
+    from repro_torch.rl import ppo
+    from repro_torch.tree import tree_leaves
+    base = ["--domain", "traffic", "--regions", "256", "--rps", "20000",
+            "--duration-s", "2"]
+    fixed, n_fixed = _policy_serve(base + ["--slot", "128"],
+                                   "serve_forward")
+    server, trace, _ = policy_serve.build_server_and_trace(
+        policy_serve.parse_args(base + ["--slot", "128"]))
+    dispatch_breakdown(server, trace)
+    multi, n_multi = _policy_serve(base + ["--bimodal", "--calibrate", "3",
+                                           "--n-policies", "4"],
+                                   "serve_forward_multi")
+    chaos, _ = _policy_serve(
+        base + ["--virtual", "--admission", "--faults",
+                "slow:10:0.05,flood:0.5:0.2:4,corrupt:0:nan",
+                "--reload-at", "100,200"], "serve_forward")
+    for res in (fixed, multi):
+        if res["served"] != res["requests"]:
+            raise AssertionError(f"served {res['served']} of "
+                                 f"{res['requests']} without admission")
+    log_ = chaos["reload_log"]
+    if (chaos["reload_rejected"] != 1 or chaos["reloads"] != 1
+            or log_[0][0] != "rejected" or "canary" not in log_[0][1]):
+        raise AssertionError(f"chaos run: the corrupt reload alone must be "
+                             f"rejected: {log_}")
+    if chaos["faults_applied"] != {"SlowDispatch": 1, "RequestFlood": 1,
+                                   "CorruptCheckpoint": 1}:
+        raise AssertionError(f"chaos plan: {chaos['faults_applied']}")
+    # an rl_train-layout checkpoint written by the port, served back
+    d = ROOT / "build" / "serve_ckpt"
+    shutil.rmtree(d, ignore_errors=True)
+    g = torch.Generator(device=dev)
+    g.manual_seed(17)
+    cfg = ppo.PPOConfig(obs_dim=41, n_actions=2)
+    pol = ppo.init_policy(cfg, g)
+    ckpt.save(d, 40, {"policy": pol,
+                      "opt": ppo.make_optimizer(cfg).init(pol)},
+              metadata={"iteration": 40})
+    argv = base[:-1] + ["0.5", "--slot", "128", "--ckpt-dir", str(d)]
+    restored, _ = _policy_serve(argv, "serve_forward")
+    server, _, _ = policy_serve.build_server_and_trace(
+        policy_serve.parse_args(argv))
+    for a, b in zip(tree_leaves(pol), tree_leaves(server._params)):
+        if not torch.equal(a, b):
+            raise AssertionError("--ckpt-dir: restored policy differs")
+    if restored["restored_step"] != 40 or \
+            restored["served"] != restored["requests"]:
+        raise AssertionError(f"--ckpt-dir run: {restored['restored_step']}"
+                             f", served {restored['served']}")
+    shutil.rmtree(d, ignore_errors=True)
+    log(f"[serve] chaos reload_log {log_}; --ckpt-dir restored step 40 "
+        f"bitwise")
+    return {"serve_forward": n_fixed, "serve_forward_multi": n_multi}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -530,6 +891,8 @@ def main():
     recs = phase_kernels(dev)
     launches = phase_main_path()
     launches.update(phase_engine(dev))
+    recs.update(phase_serve_kernels(dev))
+    launches.update(phase_serving_path(dev))
     kernels = []
     for name, rec in recs.items():
         b_ms, b_by = bound(rec["flops"], rec["bytes"])
@@ -539,8 +902,8 @@ def main():
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None,
-            "path": ("rl_train" if name.startswith("policy_rollout")
-                     else "engine entry points"),
+            "device_ms": rec["device_ms"],
+            "path": PATHS.get(name, "engine entry points"),
             "flips": rec["flips"]})
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -95,6 +95,36 @@ def kernel_codec(dtypes):
     return encode, decode
 
 
+def pad_mask(n_valid: int, slot: int, device=None) -> torch.Tensor:
+    """(slot,) bool lane-validity mask: True for the n_valid real lanes,
+    False for the pad lanes. ``kernels/ops.py::serve_forward`` applies it
+    at the kernel boundary, so pad lanes never perturb real lanes."""
+    return torch.arange(slot, device=device) < n_valid
+
+
+def pad_lanes(tree, slot: int, fill: str = "edge"):
+    """Pack a ragged batch into a fixed slot: every (n, ...) leaf (n >= 1)
+    becomes (slot, ...), lanes [0, n) the real rows and [n, slot) pads.
+    ``fill="edge"`` replicates lane 0, ``fill="zero"`` writes zeros; pad
+    outputs are garbage by contract either way (``pad_mask`` is the
+    guarantee, not the fill)."""
+    if fill not in ("edge", "zero"):
+        raise ValueError(f"unknown fill mode: {fill!r}")
+
+    def pad(leaf):
+        leaf = torch.as_tensor(leaf)
+        n = leaf.shape[0]
+        if n > slot:
+            raise ValueError(f"ragged batch of {n} rows does not fit a "
+                             f"{slot}-lane slot")
+        rows = (leaf[:1].expand((slot - n,) + leaf.shape[1:])
+                if fill == "edge" else
+                leaf.new_zeros((slot - n,) + leaf.shape[1:]))
+        return torch.cat([leaf, rows], dim=0)
+
+    return tree_map(pad, tree)
+
+
 def stack_trees(trees):
     """A list of structurally equal pytrees -> one pytree of stacked
     leaves (leading axis = list index)."""

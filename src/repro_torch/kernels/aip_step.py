@@ -2,9 +2,10 @@
 of ``repro/kernels/aip_step.py``, whose Pallas TPU kernels these
 replace).
 
-``csrc/ials_kernels.cu`` holds the five entry points (one GRU AIP tick,
+``csrc/ials_kernels.cu`` holds the seven entry points (one GRU AIP tick,
 the GRU and FNN whole-horizon rollouts, the actor-in-the-loop rollout for
-each cell). It is compiled at first use with ``nvcc`` for ``sm_90a`` into
+each cell, and the serving tier's masked slot forward for one policy and
+for N). It is compiled at first use with ``nvcc`` for ``sm_90a`` into
 a shared library with a plain C interface, keyed by a hash of the source
 and flags, under ``build/kernels/`` at the repo root, and loaded with
 ``ctypes``. Nothing here is imported or built when the module is
@@ -38,7 +39,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # launches per entry point since the last ``reset_launches()``
 LAUNCHES = {"aip_step": 0, "aip_rollout_multi": 0, "fnn_rollout": 0,
-            "policy_rollout_fnn": 0, "policy_rollout_gru": 0}
+            "policy_rollout_fnn": 0, "policy_rollout_gru": 0,
+            "serve_forward": 0, "serve_forward_multi": 0}
 
 
 def reset_launches():
@@ -49,7 +51,8 @@ def reset_launches():
 _P = ctypes.c_void_p
 _I = ctypes.c_longlong
 _INT_FIELDS = ("T", "A", "B", "D", "H", "M", "stack", "S", "obs_dim", "Hp",
-               "n_act", "domain", "lane_len", "ext_influence", "fast_gates")
+               "n_act", "domain", "lane_len", "ext_influence", "fast_gates",
+               "n_pol")
 
 
 class IalsArgs(ctypes.Structure):
@@ -63,13 +66,14 @@ class IalsArgs(ctypes.Structure):
                  ("done", _P), ("x_out", _P), ("a_out", _P),
                  ("logits_out", _P), ("v_out", _P), ("rew_out", _P),
                  ("d", _P), ("h", _P), ("h2", _P), ("logits", _P),
-                 ("u", _P)]
+                 ("u", _P), ("mask", _P), ("pidx", _P)]
                 + [(n, _I) for n in _INT_FIELDS])
 
 
 _DOMAINS = {"traffic": 0}
 _ENTRIES = ("ials_aip_step", "ials_aip_rollout_multi", "ials_fnn_rollout",
-            "ials_policy_rollout_gru", "ials_policy_rollout_fnn")
+            "ials_policy_rollout_gru", "ials_policy_rollout_fnn",
+            "ials_serve_forward", "ials_serve_forward_multi")
 _lib = None
 _lib_lock = threading.Lock()
 BUILD_LOG = {"seconds": None, "path": None, "ptxas": ""}
@@ -357,3 +361,50 @@ def policy_rollout(ls, s0, frames0, aip_w, pol_w, gumbel, bits, done,
     args.v_out, args.rew_out = v.data_ptr(), r.data_ptr()
     _launch(entry, counter, args, dev)
     return ((lanes_out, phase_out), s_out, f_out, x, a, logits, v, r)
+
+
+def _serve(entry, counter, frames, mask, pidx, pol_w, *, fast_gates, lead):
+    S, D = frames.shape
+    if S < 1:
+        raise ValueError("an empty slot has no lanes to serve")
+    w1, b1, w2, b2, hw, hb = pol_w
+    Hp, NH = w1.shape[-1], hw.shape[-1]
+    frames = _f32(frames, "frames", (S, D))
+    mask = _i32(mask, "mask", (S,))
+    ws = [_f32(w1, "w1", lead + (D, Hp)), _f32(b1, "b1", lead + (Hp,)),
+          _f32(w2, "w2", lead + (Hp, Hp)), _f32(b2, "b2", lead + (Hp,)),
+          _f32(hw, "[pi|v] w", lead + (Hp, NH)),
+          _f32(hb, "[pi|v] b", lead + (NH,))]
+    logits = torch.empty((S, NH - 1), dtype=torch.float32,
+                         device=frames.device)
+    v = torch.empty((S,), dtype=torch.float32, device=frames.device)
+    args = IalsArgs(B=S, S=D, Hp=Hp, n_act=NH - 1,
+                    fast_gates=int(fast_gates),
+                    n_pol=lead[0] if lead else 1)
+    args.frames0, args.mask = frames.data_ptr(), mask.data_ptr()
+    if pidx is not None:
+        pidx = _i32(pidx, "pidx", (S,))
+        args.pidx = pidx.data_ptr()
+    for i, w in enumerate(ws):
+        args.pw[i] = w.data_ptr()
+    args.logits_out, args.v_out = logits.data_ptr(), v.data_ptr()
+    _launch(entry, counter, args, frames.device)
+    return logits, v
+
+
+def serve_forward(frames, mask, pol_w, *, fast_gates: bool):
+    """Masked fixed-slot policy forward, ONE launch: frames (S, D) f32,
+    mask (S,) int32, ``pol_w`` the fused (w1, b1, w2, b2, [pi|v] w,
+    [pi|v] b) tuple (``ref.fuse_head``) -> (logits (S, n_act), v (S,)),
+    masked-off lanes exactly 0.0."""
+    return _serve("ials_serve_forward", "serve_forward", frames, mask, None,
+                  pol_w, fast_gates=fast_gates, lead=())
+
+
+def serve_forward_multi(frames, mask, pidx, pol_ws, *, fast_gates: bool):
+    """``serve_forward`` over N policies stacked on a leading axis, pidx
+    (S,) int32 routing each lane, ONE launch; lanes whose pidx is outside
+    [0, N) are zero like the pad lanes."""
+    return _serve("ials_serve_forward_multi", "serve_forward_multi", frames,
+                  mask, pidx, pol_ws, fast_gates=fast_gates,
+                  lead=(pol_ws[0].shape[0],))

@@ -78,3 +78,23 @@ def policy_rollout(ls, s0, frames0, aip_w, pol_w, gumbel, bits, done,
         ls, s0, frames0, aip_w, pol_w, gumbel, bits, done, noise, reset_ls,
         kind=kind, n_agents=n_agents, fast_gates=fast_gates,
         tick_fn=tick_fn, dset_fn=dset_fn, obs_fn=obs_fn)
+
+
+def serve_forward(frames, mask, pol_w, *, fast_gates):
+    """Masked fixed-slot policy forward (``serve_forward``): frames (S, D),
+    mask (S,) int32, the fused policy weights (``ref.fuse_head``) ->
+    (logits (S, n_act), v (S,)), pad lanes exactly zero."""
+    if _on_card(frames):
+        return _cuda.serve_forward(frames, mask, pol_w, fast_gates=fast_gates)
+    return _ref.serve_forward_ref(pol_w, frames, mask, fast_gates=fast_gates)
+
+
+def serve_forward_multi(frames, mask, pidx, pol_ws, *, fast_gates):
+    """Cross-policy masked slot forward (``serve_forward_multi``): weights
+    stacked over N policies, pidx (S,) int32 per lane; pad and unroutable
+    lanes exactly zero."""
+    if _on_card(frames):
+        return _cuda.serve_forward_multi(frames, mask, pidx, pol_ws,
+                                         fast_gates=fast_gates)
+    return _ref.serve_forward_multi_ref(pol_ws, frames, mask, pidx,
+                                        fast_gates=fast_gates)

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the four CUDA kernels (counterpart of
+"""Plain PyTorch versions of the CUDA kernels (counterpart of
 ``repro/kernels/ref.py``): the ground truth the kernels are held against
 on the card, and the route ``ops.py`` takes for CPU tensors.
 
@@ -118,15 +118,61 @@ def fnn_rollout_ref(ls, buf0, w1, b1, w2, b2, hw, hb, actions, bits, noise,
                     dset_fn=dset_fn, trace=trace)
 
 
-def policy_fwd_ref(pol_w, x, fast_gates: bool):
-    """The PPO actor-critic forward on the flat (w1, b1, w2, b2, piw, pib,
-    vw, vb) tuple, both heads as ONE fused GEMM (the kernels' order)."""
+def fuse_head(pol_w):
+    """The flat (w1, b1, w2, b2, piw, pib, vw, vb) policy tuple, single or
+    stacked over a leading policy axis -> (w1, b1, w2, b2, hw, hb) with the
+    [pi|v] head as one (Hp, n_act + 1) matrix: the weight ABI of
+    ``policy_fwd_ref`` and the serving kernels."""
     w1, b1, w2, b2, piw, pib, vw, vb = pol_w
+    return (w1, b1, w2, b2, torch.cat([piw, vw], dim=-1),
+            torch.cat([pib, vb], dim=-1))
+
+
+def policy_fwd_ref(fused_w, x, fast_gates: bool):
+    """The PPO actor-critic forward on the ``fuse_head`` tuple, both heads
+    as ONE GEMM (the kernels' order)."""
+    w1, b1, w2, b2, hw, hb = fused_w
     act = fast_tanh if fast_gates else torch.tanh
     h = act(x @ w1 + b1)
     h = act(h @ w2 + b2)
-    out = h @ torch.cat([piw, vw], dim=1) + torch.cat([pib, vb], dim=0)
+    out = h @ hw + hb
     return out[..., :-1], out[..., -1]
+
+
+def serve_forward_ref(fused_w, frames, mask, *, fast_gates: bool):
+    """Masked fixed-slot policy forward, the ``serve_forward`` kernel's
+    ground truth: frames (S, D) f32, mask (S,) int32/bool, the
+    ``fuse_head`` weights -> (logits (S, n_act), v (S,)), pad lanes
+    exactly zero. Every lane runs the same fused forward, so at one slot
+    shape a real lane's outputs do not depend on the pad lanes or on
+    where the lane sits."""
+    logits, v = policy_fwd_ref(fused_w, frames, fast_gates)
+    m = mask != 0
+    return (torch.where(m[:, None], logits, torch.zeros_like(logits)),
+            torch.where(m, v, torch.zeros_like(v)))
+
+
+def serve_forward_multi_ref(fused_ws, frames, mask, pidx, *,
+                            fast_gates: bool):
+    """Cross-policy masked slot forward, the ``serve_forward_multi``
+    kernel's ground truth: ``fused_ws`` the ``fuse_head`` weights stacked
+    over N policies (of ``ppo.stack_policy_weights``), pidx (S,) int32 ->
+    (logits, v) with pad lanes and lanes whose pidx is outside [0, N)
+    exactly zero. Each policy's forward runs over the full slot at the
+    single-policy shape and lanes select their own row, so a lane is
+    bitwise the single-policy forward of its checkpoint."""
+    S = frames.shape[0]
+    logits = frames.new_zeros((S, fused_ws[4].shape[-1] - 1))
+    v = frames.new_zeros((S,))
+    for n in range(fused_ws[0].shape[0]):
+        lg_n, v_n = policy_fwd_ref(tuple(w[n] for w in fused_ws), frames,
+                                   fast_gates)
+        sel = pidx == n
+        logits = torch.where(sel[:, None], lg_n, logits)
+        v = torch.where(sel, v_n, v)
+    m = mask != 0
+    return (torch.where(m[:, None], logits, torch.zeros_like(logits)),
+            torch.where(m, v, torch.zeros_like(v)))
 
 
 def policy_rollout_ref(ls, s0, frames0, aip_w, pol_w, gumbel, bits, done,
@@ -147,13 +193,14 @@ def policy_rollout_ref(ls, s0, frames0, aip_w, pol_w, gumbel, bits, done,
     L = s0.shape[0]
     B = L // A
     cell = _gru_tick if kind == "gru" else _fnn_tick
+    fused_w = fuse_head(pol_w)
     ls = tuple(ls)
     s = s0.float().reshape(A, B, -1)
     frames = frames0.float()
     xs, acts, lgs, vs, rs = [], [], [], [], []
     for t in range(gumbel.shape[0]):
         x = frames
-        logits, value = policy_fwd_ref(pol_w, x, fast_gates)
+        logits, value = policy_fwd_ref(fused_w, x, fast_gates)
         score = logits + gumbel[t]
         a = torch.argmax(score, dim=-1).to(torch.int32)
         if trace is not None:

@@ -67,8 +67,8 @@ def build_domain(domain: str, n_agents: int = 1, device="cuda"):
     n_agents > 1."""
     if domain != "traffic":
         raise NotImplementedError(
-            f"domain {domain!r} is not ported yet (ROADMAP, Queue 1: the "
-            f"warehouse device functions come with a later slice)")
+            f"domain {domain!r} is not ported yet (ROADMAP Queue 1, item "
+            f"2b: the warehouse GS, LS and device functor)")
     cfg = TrafficConfig()
     if n_agents > 1:
         gs = make_batched_multi_traffic_env(

@@ -86,6 +86,16 @@ def flat_policy_weights(params):
             params["v"]["w"], params["v"]["b"])
 
 
+def stack_policy_weights(params_list):
+    """N checkpoints' ``flat_policy_weights`` tuples -> one tuple of
+    (N, ...) tensors: the cross-policy serving ABI of
+    ``kernels/ops.py::serve_forward_multi`` (index n of every leading axis
+    is ``params_list[n]``). All checkpoints share one architecture;
+    ``torch.stack`` raises otherwise."""
+    flats = [flat_policy_weights(p) for p in params_list]
+    return tuple(torch.stack(ws) for ws in zip(*flats))
+
+
 def policy_forward(params, x, *, fast_gates: bool):
     """-> (logits (..., n_actions), value (...)); hidden layers through the
     rational tanh when ``fast_gates`` (exact tanh otherwise)."""

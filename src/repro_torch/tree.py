@@ -2,10 +2,13 @@
 tensors (the counterpart of the ``jax.tree_util`` calls the JAX package
 makes). Dict keys are visited in sorted order, as ``jax.tree_util`` does,
 so leaf orders — and therefore global-norm sums — match the reference.
-``None`` is an empty subtree."""
+``None`` is an empty subtree. Leaf paths print as ``jax.tree_util.keystr``
+does (``['key']`` for a dict key, ``[i]`` for a list or tuple index,
+``.field`` for a NamedTuple field): checkpoints name their leaves by them.
+"""
 from __future__ import annotations
 
-from typing import Any, Callable, List
+from typing import Any, Callable, List, Tuple
 
 
 def _is_namedtuple(x) -> bool:
@@ -20,6 +23,23 @@ def tree_leaves(tree) -> List[Any]:
     if isinstance(tree, (tuple, list)):
         return [l for t in tree for l in tree_leaves(t)]
     return [tree]
+
+
+def tree_leaves_with_path(tree, prefix: str = "") -> List[Tuple[str, Any]]:
+    """[(path, leaf)] in ``tree_leaves`` order, each path as
+    ``jax.tree_util.keystr`` prints it (e.g. ``['o'].b[0]``)."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [pl for k in sorted(tree)
+                for pl in tree_leaves_with_path(tree[k], f"{prefix}[{k!r}]")]
+    if _is_namedtuple(tree):
+        return [pl for name, t in zip(tree._fields, tree)
+                for pl in tree_leaves_with_path(t, f"{prefix}.{name}")]
+    if isinstance(tree, (tuple, list)):
+        return [pl for i, t in enumerate(tree)
+                for pl in tree_leaves_with_path(t, f"{prefix}[{i}]")]
+    return [(prefix, tree)]
 
 
 def tree_map(fn: Callable, tree, *rest):

@@ -44,10 +44,24 @@ Phases, each printing its result and time on its own line:
      plan on the virtual clock (exactly the corrupt reload rejected, the
      plan exhausted), and ``--ckpt-dir`` on a checkpoint the port's
      ``ckpt.save`` wrote in ``rl_train``'s layout (restored bitwise).
-     Each kernel must launch at least once per dispatch of its run.
+     Each kernel must launch at least once per dispatch of its run;
+  7. the layer kernels (``gru_sequence``, ``rmsnorm``, ``flash_attention``)
+     against their plain versions through ``repro_torch.kernels.ops``, at
+     ``benchmarks/kernel_bench.py``'s shapes, ``tests/test_kernels.py``'s
+     cases and the widths of the repo's configurations (the traffic AIP,
+     ``qwen3_4b``), f32 and bf16, timed beside the one PyTorch call that
+     computes the same function (``library_ms``, a yardstick the port
+     never calls); then the ``kernels.ops`` path itself at those widths,
+     launch counters zeroed before and read after, its outputs held
+     against the port's ``nn`` functions.
 Then one JSON line lists every kernel (route, source, the TPU kernel it
-replaces, launches on its path, max error, times and the card's bound),
-the ``nvidia-smi`` line, and last ``{"ok": true, "device": ...}``.
+replaces, launches on its path, max error, times and the card's bound;
+``flips`` counts the decisions that flipped for the kernels that make
+decisions, phases 2 and 5, and is null for the layer kernels, which make
+none),
+the ``nvidia-smi`` line, and last ``{"ok": true, "device": ...}``. Any
+failure prints its reason on stderr and as a ``chip_smoke: FAILED`` line
+on stdout, and exits 1.
 """
 from __future__ import annotations
 
@@ -57,6 +71,7 @@ import statistics
 import subprocess
 import sys
 import time
+import traceback
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -67,8 +82,21 @@ ATOL = 1e-4            # float leaves, kernel vs plain version (fp32 GEMM
 FLIP_EPS = 1e-4        # a decision this close to its threshold may flip
 MAX_FLIP_SHARE = 0.01
 PEAK_FP32_FLOPS = 67e12   # H100 SXM, fp32 outside the tensor cores
+PEAK_BF16_FLOPS = 989e12  # H100 SXM, bf16 tensor cores, dense
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 SOURCE = "src/repro_torch/kernels/csrc/ials_kernels.cu"
+LAYER_SOURCE = "src/repro_torch/kernels/csrc/layer_kernels.cu"
+# the layer kernels' tolerances against their plain versions, (f32, bf16):
+# the reference tests' own (flash f32 2e-5, rmsnorm 1e-2), GRU f32 at
+# ATOL for matmul order over T steps, rmsnorm f32 1e-5; bf16 outputs may
+# also differ by one bf16 ulp of the value (BF16_RTOL), where the f32
+# results straddle a rounding boundary. Flash bf16 does its math in f32
+# on both sides, so beyond that ulp it differs by f32 noise only: 1e-4
+# (the reference tests' 2e-2 was set at T = 128, outputs ~0.15; at the
+# qwen3_4b widths outputs are ~0.03 and a dropped KV tile moves ~0.003)
+LAYER_TOL = {"flash_attention": (2e-5, 1e-4), "gru_sequence": (ATOL, 3e-2),
+             "rmsnorm": (1e-5, 1e-2)}
+BF16_RTOL = 2.0 ** -7
 REPLACES = {
     "aip_step": "src/repro/kernels/aip_step.py:150",
     "aip_rollout_multi": "src/repro/kernels/aip_step.py:476",
@@ -77,10 +105,14 @@ REPLACES = {
     "policy_rollout[gru]": "src/repro/kernels/aip_step.py:745",
     "serve_forward": "src/repro/kernels/aip_step.py:205",
     "serve_forward_multi": "src/repro/kernels/aip_step.py:291",
+    "gru_sequence": "src/repro/kernels/gru.py:50",
+    "rmsnorm": "src/repro/kernels/rmsnorm.py:25",
+    "flash_attention": "src/repro/kernels/flash_attention.py:69",
 }
 PATHS = {"serve_forward": "policy_serve", "serve_forward_multi":
          "policy_serve", "policy_rollout[fnn]": "rl_train",
-         "policy_rollout[gru]": "rl_train"}
+         "policy_rollout[gru]": "rl_train", "gru_sequence": "kernels.ops",
+         "rmsnorm": "kernels.ops", "flash_attention": "kernels.ops"}
 # the serving widths: (frame width D, actions); policy hidden 128
 SERVE_WIDTHS = {"traffic": (41, 2), "warehouse": (37 * 8, 5)}
 SERVE_SLOTS = (1, 16, 64, 128, 256, 4096)
@@ -164,10 +196,14 @@ def nbytes(*tensors):
     return total
 
 
-def bound(flops, bytes_):
+def bound(flops, bytes_, dtype="float32"):
     """(bound_ms, bound_by): the larger of the operations and the bytes
-    over the card's published fp32 and memory rates."""
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    over the card's published rates: the fp32 rate of the CUDA cores for
+    float32 inputs, the bf16 tensor-core rate for bfloat16 inputs (bf16
+    products summed in f32 are what ``wgmma`` computes), and the memory
+    rate."""
+    peak = PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_FP32_FLOPS
+    t_ops = flops / peak * 1e3
     t_mem = bytes_ / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
 
@@ -878,12 +914,274 @@ def phase_serving_path(dev):
     return {"serve_forward": n_fixed, "serve_forward_multi": n_multi}
 
 
+# ---------------------------------------------------------------------------
+# the layer kernels (phase 7): gru_sequence, rmsnorm, flash_attention
+# ---------------------------------------------------------------------------
+
+# flash (B, T, S, H, KH, D, Dv, causal, dtype, bq, bk), GRU (B, T, D, H,
+# dtype), rmsnorm (N, d, dtype); "bench" = benchmarks/kernel_bench.py's
+# shape, "main" = the widths of the repo's configurations that the
+# kernels line reports (qwen3_4b attention and d_model, the traffic AIP)
+FLASH_CASES = {
+    "bench": (2, 512, 512, 8, 4, 64, 64, True, "float32", 128, 128),
+    "main": (1, 4096, 4096, 32, 8, 128, 128, True, "bfloat16", 128, 128),
+    "qwen3_4b non-causal": (1, 4096, 4096, 32, 8, 128, 128, False,
+                            "bfloat16", 128, 128),
+    "qwen3_4b f32": (1, 4096, 4096, 32, 8, 128, 128, True, "float32", 128,
+                     128),
+    "T128 causal": (4, 128, 128, 1, 1, 64, 64, True, "float32", 128, 128),
+    "T128 non-causal": (4, 128, 128, 1, 1, 64, 64, False, "float32", 128,
+                        128),
+    "T256 D128": (4, 256, 256, 1, 1, 128, 128, True, "float32", 128, 128),
+    "T128 S256 cross": (4, 128, 256, 1, 1, 64, 64, False, "float32", 128,
+                        128),
+    "T128 bf16": (4, 128, 128, 1, 1, 64, 64, True, "bfloat16", 128, 128),
+    "blocks 64x64": (2, 256, 256, 1, 1, 64, 64, True, "float32", 64, 64),
+    "blocks 128x32": (2, 256, 256, 1, 1, 64, 64, True, "float32", 128, 32),
+    "blocks 32x128": (2, 256, 256, 1, 1, 64, 64, True, "float32", 32, 128),
+    "GQA wrapper": (2, 128, 128, 8, 2, 64, 64, True, "float32", 128, 128),
+    "ragged Dv<D": (2, 96, 160, 4, 2, 64, 32, True, "float32", 32, 32),
+    "D256": (1, 128, 128, 2, 1, 256, 256, True, "float32", 128, 128),
+    "T1": (1, 1, 128, 4, 4, 64, 64, False, "float32", 128, 128),
+}
+GRU_CASES = {
+    "bench": (8, 64, 40, 64, "float32"),
+    "main": (1024, 128, 40, 64, "float32"),
+    "B4 T20": (4, 20, 24, 32, "float32"),
+    "B1 T1": (1, 1, 8, 16, "float32"),
+    "bf16": (2, 16, 12, 32, "bfloat16"),
+    "weights via L2": (16, 8, 256, 256, "float32"),
+}
+RMS_CASES = {
+    "bench": (4096, 512, "bfloat16"),
+    "main": (4096, 2560, "bfloat16"),
+    "qk-norm": (4096 * 32, 128, "bfloat16"),
+    "N256": (256, 128, "float32"),
+    "N1000": (1000, 512, "float32"),
+    "bf16 d256": (64, 256, "bfloat16"),
+    "block per row f32": (37, 3000, "float32"),
+}
+
+
+class LayerCase:
+    """One layer op's inputs on the card at one shape, made from a seed:
+    ``call()`` the ``kernels.ops`` entry point (the CUDA kernel),
+    ``plain()`` its plain version, ``library()`` the one PyTorch call that
+    computes the same function (or None), and the work the function
+    needs (``flops``: its matrix products, or 4 operations an element for
+    RMSNorm; ``bytes``: inputs read once, outputs written once)."""
+
+    def __init__(self, op, dims, seed, dev):
+        import torch
+        import torch.nn.functional as F
+        from repro_torch.kernels import ops, ref
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        self.op, self.dims = op, dims
+        self.dtype = dims[-1] if op != "flash_attention" else dims[8]
+        dt = getattr(torch, self.dtype)
+
+        def rn(*shape, scale=1.0):
+            return (scale * torch.randn(shape, generator=g, device=dev)
+                    ).to(dt)
+
+        self.library = None
+        if op == "flash_attention":
+            B, T, S, H, KH, D, Dv, causal, _, bq, bk = dims
+            q, k, v = rn(B, T, H, D), rn(B, S, KH, D), rn(B, S, KH, Dv)
+            self.call = lambda: ops.flash_attention_mha(
+                q, k, v, causal=causal, bq=bq, bk=bk)
+            self.plain = lambda: ref.flash_attention_mha_ref(
+                q, k, v, causal=causal)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            self.library = lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True)
+            pairs = (sum(min(i + 1, S) for i in range(T)) if causal
+                     else T * S)
+            self.flops = 2 * B * H * pairs * (D + Dv)
+            self.bytes = nbytes(q, k, v) + B * T * H * Dv * q.element_size()
+        elif op == "gru_sequence":
+            B, T, D, H, _ = dims
+            p = {"wx": rn(D, 3 * H, scale=0.2), "wh": rn(H, 3 * H, scale=0.2),
+                 "b": rn(3 * H, scale=0.1)}
+            xs, h0 = rn(B, T, D), rn(B, H, scale=0.5)
+            self.call = lambda: ops.gru_sequence(p, xs, h0)
+            self.plain = lambda: ref.gru_sequence_ref(xs, p["wx"], p["wh"],
+                                                      p["b"], h0)
+            self.flops = 2 * B * T * (D + H) * 3 * H
+            self.bytes = nbytes(xs, h0, p) + B * T * H * xs.element_size()
+        else:
+            N, d, _ = dims
+            x = rn(N, d)
+            gw = torch.randn((d,), generator=g, device=dev)
+            self.call = lambda: ops.rmsnorm(x, gw)
+            self.plain = lambda: ref.rmsnorm_ref(x, gw)
+            g_dt = gw.to(dt)
+            self.library = lambda: F.rms_norm(x, (d,), weight=g_dt, eps=1e-6)
+            self.flops = 4 * N * d
+            self.bytes = 2 * nbytes(x) + nbytes(gw)
+
+
+def _outputs(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def check_layer(case, name):
+    """Kernel (through ``kernels.ops``) against its plain version on the
+    same inputs: shapes and dtypes equal, finite, within the stated
+    tolerance -> max abs error."""
+    import torch
+    k_out = _outputs(case.call())
+    torch.cuda.synchronize()
+    p_out = _outputs(case.plain())
+    return max(_near(k, p, LAYER_TOL[case.op], name)
+               for k, p in zip(k_out, p_out))
+
+
+def time_layer(case):
+    """Kernel, device, plain and library times of one case; the library
+    call's device time too, since the event time of a ~0.02 ms kernel is
+    mostly its caller's enqueue (a Python wrapper's more than a C++
+    operator's)."""
+    import torch
+    reps = 10
+    rec = {"ms": time_cuda(case.call, reps=reps),
+           "device_ms": device_ms(case.call, reps=reps),
+           "plain_ms": time_cuda(case.plain, reps=3, warmup=1),
+           "library_ms": None, "library_device_ms": None}
+    if case.library is not None:
+        rec["library_ms"] = time_cuda(case.library, reps=reps)
+        rec["library_device_ms"] = device_ms(case.library, reps=reps)
+        # how far the yardstick agrees
+        lib = case.library()
+        if case.op == "flash_attention":
+            lib = lib.transpose(1, 2)
+        rec["library_diff"] = float((lib.float() - case.call().float()
+                                     ).abs().max())
+    torch.cuda.synchronize()
+    return rec
+
+
+@phase("layer kernels against their plain versions")
+def phase_layer_kernels(dev):
+    import torch
+    recs = {}
+    seed = 700
+    for op, cases in (("gru_sequence", GRU_CASES), ("rmsnorm", RMS_CASES),
+                      ("flash_attention", FLASH_CASES)):
+        worst = 0.0
+        for label, dims in cases.items():
+            seed += 1
+            case = LayerCase(op, dims, seed, dev)
+            err = check_layer(case, f"{op} {label} {dims}")
+            worst = max(worst, err)
+            line = f"[kernel] {op} {label} {dims}: max err {err:.3g}"
+            if label in ("bench", "main"):
+                rec = time_layer(case)
+                b_ms, b_by = bound(case.flops, case.bytes, case.dtype)
+                line += (f", ms {rec['ms']:.4f} (device {rec['device_ms']}),"
+                         f" plain ms {rec['plain_ms']:.4f}, library ms "
+                         f"{rec['library_ms']} (device "
+                         f"{rec['library_device_ms']}), bound ms "
+                         f"{b_ms:.6f} ({b_by})"
+                         + (f", library diff {rec['library_diff']:.3g}"
+                            if "library_diff" in rec else ""))
+                if label == "main":
+                    recs[op] = dict(rec, flops=case.flops, bytes=case.bytes,
+                                    dtype=case.dtype, flips=None,
+                                    timed_at=f"{op} {dims}")
+            log(line)
+            del case
+            torch.cuda.empty_cache()
+        recs[op]["max_abs_err"] = worst
+    return recs
+
+
+@phase("layer path: kernels.ops at the configurations' widths")
+def phase_layer_path(dev):
+    """The ``kernels.ops`` entry points as a caller drives them (each
+    op at ``benchmarks/kernel_bench.py``'s shape and at the main widths;
+    GRU with ``h0=None``, RMSNorm with ``rmsnorm_init``'s g), counters
+    zeroed before and read after; each output held against the port's
+    ``nn`` function it is a drop-in for."""
+    import torch
+    from repro_torch.kernels import aip_step as cuda
+    from repro_torch.kernels import ops
+    from repro_torch.nn import attention, module, rnn
+    g = torch.Generator(device=dev)
+    g.manual_seed(900)
+    bf = torch.bfloat16
+    flash_in, gru_in, rms_in = [], [], []
+    for B, T, H, KH, D, dt in ((2, 512, 8, 4, 64, torch.float32),
+                               (1, 4096, 32, 8, 128, bf)):
+        flash_in.append([torch.randn((B, T, h, D), generator=g,
+                                     device=dev).to(dt)
+                         for h in (H, KH, KH)])
+    for B, T in ((8, 64), (1024, 128)):
+        p = rnn.gru_init(g, 40, 64, device=dev)
+        p["b"] = 0.1 * torch.randn(p["b"].shape, generator=g, device=dev)
+        gru_in.append((p, torch.randn((B, T, 40), generator=g, device=dev)))
+    for N, d in ((4096, 512), (4096, 2560), (4096 * 32, 128)):
+        rms_in.append((module.rmsnorm_init(d, device=dev),
+                       torch.randn((N, d), generator=g, device=dev).to(bf)))
+    cuda.reset_launches()
+    flash_out = [ops.flash_attention_mha(q, k, v, causal=True)
+                 for q, k, v in flash_in]
+    gru_out = [ops.gru_sequence(p, xs) for p, xs in gru_in]
+    rms_out = [ops.rmsnorm(x, p["g"]) for p, x in rms_in]
+    torch.cuda.synchronize()
+    counts = {k: cuda.LAUNCHES[k] for k in ("flash_attention",
+                                             "gru_sequence", "rmsnorm")}
+    want = {"flash_attention": len(flash_in), "gru_sequence": len(gru_in),
+            "rmsnorm": len(rms_in)}
+    if counts != want:
+        raise AssertionError(f"kernels.ops launches {counts}, expected "
+                             f"{want}")
+    errs = {}
+    for (q, k, v), o in zip(flash_in, flash_out):
+        # p_bf16=False: the kernel keeps the probability tile in f32
+        want_o = attention.flash_attention(q, k, v, causal=True,
+                                           p_bf16=False)
+        errs.setdefault("flash_attention", []).append(_near(
+            o, want_o, LAYER_TOL["flash_attention"], "flash vs nn"))
+    for (p, xs), (hs, hT) in zip(gru_in, gru_out):
+        want_hs, want_hT = rnn.gru_sequence(p, xs)
+        errs.setdefault("gru_sequence", []).append(max(
+            _near(hs, want_hs, LAYER_TOL["gru_sequence"], "gru vs nn"),
+            _near(hT, want_hT, LAYER_TOL["gru_sequence"], "gru h_T vs nn")))
+    for (p, x), o in zip(rms_in, rms_out):
+        errs.setdefault("rmsnorm", []).append(_near(
+            o, module.rmsnorm(p, x), LAYER_TOL["rmsnorm"], "rmsnorm vs nn"))
+    log(f"[counts] kernels.ops path: {counts}; max error against the nn "
+        f"functions: {errs}")
+    return counts
+
+
+def _near(a, b, tols, what):
+    """``a`` finite, of ``b``'s shape and dtype, and within the dtype's
+    tolerance of it (``tols`` = (f32, bf16); bf16 also one bf16 ulp of
+    ``b``) -> the max abs difference."""
+    import torch
+    if a.shape != b.shape or a.dtype != b.dtype:
+        raise AssertionError(f"{what}: {tuple(a.shape)} {a.dtype} vs "
+                             f"{tuple(b.shape)} {b.dtype}")
+    af, bf = a.float(), b.float()
+    if not bool(torch.isfinite(af).all()):
+        raise AssertionError(f"{what}: non-finite output")
+    is_bf16 = a.dtype == torch.bfloat16
+    tol, rtol = tols[is_bf16], (BF16_RTOL if is_bf16 else 0.0)
+    diff = (af - bf).abs()
+    if bool((diff > tol + rtol * bf.abs()).any()):
+        raise AssertionError(f"{what}: max error {float(diff.max()):.3g} "
+                             f"above {tol} (+ {rtol} x |reference|)")
+    return float(diff.max())
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False; this check "
-              "needs a CUDA card", file=sys.stderr)
-        return 1
+        raise RuntimeError("torch.cuda.is_available() is False; this check "
+                           "needs a CUDA card")
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -893,16 +1191,21 @@ def main():
     launches.update(phase_engine(dev))
     recs.update(phase_serve_kernels(dev))
     launches.update(phase_serving_path(dev))
+    recs.update(phase_layer_kernels(dev))
+    launches.update(phase_layer_path(dev))
     kernels = []
     for name, rec in recs.items():
-        b_ms, b_by = bound(rec["flops"], rec["bytes"])
+        b_ms, b_by = bound(rec["flops"], rec["bytes"],
+                           rec.get("dtype", "float32"))
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
+            "name": name, "route": "cuda",
+            "source": LAYER_SOURCE if name in LAYER_TOL else SOURCE,
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None,
+            "bound_by": b_by, "library_ms": rec.get("library_ms"),
             "device_ms": rec["device_ms"],
+            "library_device_ms": rec.get("library_device_ms"),
             "path": PATHS.get(name, "engine entry points"),
             "flips": rec["flips"]})
     print(json.dumps({"kernels": kernels}))
@@ -913,5 +1216,19 @@ def main():
     return 0
 
 
+def run():
+    """``main()`` behind the script's one boundary: any failure prints
+    its traceback and reason on stderr, the reason as a line on stdout,
+    and exits 1 (never 0 without the ``ok`` line)."""
+    try:
+        return main()
+    except Exception as e:   # the boundary: report every failure, exit 1
+        traceback.print_exc()
+        msg = f"chip_smoke: FAILED: {type(e).__name__}: {e}"
+        print(msg, file=sys.stderr, flush=True)
+        print(msg, flush=True)
+        return 1
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(run())

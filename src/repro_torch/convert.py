@@ -7,7 +7,8 @@ nested dicts of tensors. Layouts are the same on both sides (dense ``w``
 (in, out), GRU gate-major ``[r|z|n]``, stacked (A, ...) per-agent AIPs),
 so this is a dtype- and device-aware copy, never a transpose. uint32
 random bits become their int32 storage, bool and int8 leaves keep their
-dtype, floats become float32.
+dtype; bfloat16 and float16 keep theirs, float32 and float64 become
+float32.
 
 ``to_torch`` covers the AIP (GRU and FNN, single and (A, ...) stacked),
 the policy, and the LS, GS, IALS and rollout states: NamedTuple states
@@ -31,12 +32,15 @@ _STATES = {cls.__name__: cls for cls in
 
 def array_to_torch(x, device="cuda") -> torch.Tensor:
     a = np.asarray(x)
+    dtype = None
     if a.dtype == np.uint32:
         a = a.view(np.int32)
-    elif a.dtype.kind == "f":
+    elif a.dtype.name == "bfloat16":   # ml_dtypes: numpy has no bfloat16
+        a, dtype = a.astype(np.float32), torch.bfloat16   # exact
+    elif a.dtype.kind == "f" and a.dtype != np.float16:
         a = a.astype(np.float32)
-    return torch.from_numpy(np.array(a, copy=True, order="C")).to(
-        resolve_device(device))
+    t = torch.from_numpy(np.array(a, copy=True, order="C"))
+    return t.to(resolve_device(device), dtype=dtype)
 
 
 def to_torch(tree, device="cuda"):

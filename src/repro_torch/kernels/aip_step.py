@@ -5,11 +5,15 @@ replace).
 ``csrc/ials_kernels.cu`` holds the seven entry points (one GRU AIP tick,
 the GRU and FNN whole-horizon rollouts, the actor-in-the-loop rollout for
 each cell, and the serving tier's masked slot forward for one policy and
-for N). It is compiled at first use with ``nvcc`` for ``sm_90a`` into
-a shared library with a plain C interface, keyed by a hash of the source
-and flags, under ``build/kernels/`` at the repo root, and loaded with
-``ctypes``. Nothing here is imported or built when the module is
-imported: the first launch builds.
+for N); ``csrc/layer_kernels.cu`` the three layer ops (``gru_sequence``,
+``rmsnorm``, ``flash_attention``, bound in the modules of those names);
+both include ``csrc/gates.cuh``. At first use each source is compiled
+with ``nvcc`` for ``sm_90a`` (all at once, one process each) and the
+objects are linked into ONE shared library with a plain C interface,
+keyed by a hash of the sources, header and flags, under
+``build/kernels/`` at the repo root, and loaded with ``ctypes``. Nothing
+here is imported or built when the module is imported: the first launch
+builds. This module also holds the launch counters of every kernel.
 
 Each wrapper takes CUDA tensors only (``ops.py`` sends CPU tensors to the
 plain versions in ``ref.py``), checks dtypes and shapes, allocates its
@@ -32,15 +36,17 @@ from pathlib import Path
 import torch
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = ("ials_kernels.cu",)
+_SOURCES = ("ials_kernels.cu", "layer_kernels.cu")
+_HEADERS = ("gates.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 # launches per entry point since the last ``reset_launches()``
 LAUNCHES = {"aip_step": 0, "aip_rollout_multi": 0, "fnn_rollout": 0,
             "policy_rollout_fnn": 0, "policy_rollout_gru": 0,
-            "serve_forward": 0, "serve_forward_multi": 0}
+            "serve_forward": 0, "serve_forward_multi": 0,
+            "gru_sequence": 0, "rmsnorm": 0, "flash_attention": 0}
 
 
 def reset_launches():
@@ -74,6 +80,15 @@ _DOMAINS = {"traffic": 0}
 _ENTRIES = ("ials_aip_step", "ials_aip_rollout_multi", "ials_fnn_rollout",
             "ials_policy_rollout_gru", "ials_policy_rollout_fnn",
             "ials_serve_forward", "ials_serve_forward_multi")
+_C_INT = ctypes.c_int
+_LAYER_ENTRIES = {
+    # x, wx, wh, b, h0, hs, B, T, D, H, bf16, stream
+    "layer_gru_sequence": [_P] * 6 + [_I] * 4 + [_C_INT, _P],
+    # x, g, out, N, d, eps, bf16, stream
+    "layer_rmsnorm": [_P, _P, _P, _I, _I, ctypes.c_float, _C_INT, _P],
+    # args, bf16, stream
+    "layer_flash_attention": [_P, _C_INT, _P],
+}
 _lib = None
 _lib_lock = threading.Lock()
 BUILD_LOG = {"seconds": None, "path": None, "ptxas": ""}
@@ -92,30 +107,53 @@ def _nvcc() -> str:
 
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in _SOURCES:
+    for name in _SOURCES + _HEADERS:
         h.update(name.encode())
         h.update((_CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds):
+    """Run the commands side by side; raise if any fails -> their
+    stderr, joined."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    outs = [p.communicate() for p in procs]
+    for c, p, (so, se) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n"
+                               f"{' '.join(c)}\n{so}\n{se}")
+    return "".join(se for _, se in outs)
+
+
 def build() -> Path:
-    """Compile the kernels once per source hash; returns the library."""
+    """Compile the kernels once per source hash: one nvcc per source, all
+    started together, then one link; returns the library. One nvcc over
+    every source would compile them one after another, and the build
+    counts against ``chip_smoke.py``'s time limit."""
     out = BUILD_DIR / f"libials_kernels_{source_hash()}.so"
     if out.exists():
         BUILD_LOG["path"] = str(out)
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(out.name + f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
-           *(str(_CSRC / s) for s in _SOURCES)]
+    tag = f".{os.getpid()}.tmp"
+    objs = [BUILD_DIR / (s + tag + ".o") for s in _SOURCES]
+    tmp = out.with_name(out.name + tag)
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{res.stdout}\n{res.stderr}")
-    os.replace(tmp, out)
+    try:
+        ptxas = _run_all([[nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o",
+                           str(o), str(_CSRC / s)]
+                          for s, o in zip(_SOURCES, objs)])
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                   *map(str, objs)]])
+        os.replace(tmp, out)
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     BUILD_LOG.update(seconds=time.perf_counter() - t0, path=str(out),
-                     ptxas=res.stderr)
+                     ptxas=ptxas)
     return out
 
 
@@ -124,33 +162,43 @@ def library():
     global _lib
     with _lib_lock:
         if _lib is None:
+            from repro_torch.kernels.flash_attention import FlashArgs
             lib = ctypes.CDLL(str(build()))
             for name in _ENTRIES:
                 fn = getattr(lib, name)
                 fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
                 fn.restype = ctypes.c_int
-            lib.ials_args_size.argtypes = []
-            lib.ials_args_size.restype = ctypes.c_int
-            if lib.ials_args_size() != ctypes.sizeof(IalsArgs):
-                raise RuntimeError("IalsArgs layout differs between the "
-                                   "CUDA source and its ctypes mirror")
+            for name, argtypes in _LAYER_ENTRIES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            for fn, mirror in ((lib.ials_args_size, IalsArgs),
+                               (lib.layer_flash_args_size, FlashArgs)):
+                fn.argtypes = []
+                fn.restype = ctypes.c_int
+                if fn() != ctypes.sizeof(mirror):
+                    raise RuntimeError(f"{mirror.__name__} layout differs "
+                                       f"between the CUDA source and its "
+                                       f"ctypes mirror")
             _lib = lib
         return _lib
 
 
 def _f32(t, name, shape):
-    return _check(t, name, torch.float32, shape)
+    return check(t, name, torch.float32, shape)
 
 
 def _i32(t, name, shape):
-    return _check(t, name, torch.int32, shape)
+    return check(t, name, torch.int32, shape)
 
 
-def _check(t, name, dtype, shape):
+def check(t, name, dtype, shape):
+    """A CUDA tensor of ``dtype`` (one dtype or a tuple of them) and
+    ``shape`` -> it, contiguous; raises on anything else."""
     if not t.is_cuda:
         raise ValueError(f"{name}: the CUDA kernel takes CUDA tensors, got "
                          f"{t.device}")
-    if t.dtype != dtype:
+    if t.dtype not in (dtype if isinstance(dtype, tuple) else (dtype,)):
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
@@ -158,14 +206,16 @@ def _check(t, name, dtype, shape):
     return t.contiguous()
 
 
-def _launch(entry: str, counter: str, args: IalsArgs, device):
-    """Launch on the current stream; the wrapper's locals keep every
-    buffer alive until the (asynchronous) launch has been enqueued, and
-    the caching allocator orders later reuse on the same stream."""
+def launch(entry: str, counter: str, device, *args):
+    """Call ``entry(*args, stream)`` on the current stream of ``device``
+    and count the launch; raises if it returned a CUDA error. The
+    wrapper's locals keep every buffer alive until the (asynchronous)
+    launch has been enqueued, and the caching allocator orders later
+    reuse on the same stream."""
     lib = library()
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
-        err = getattr(lib, entry)(ctypes.byref(args), stream)
+        err = getattr(lib, entry)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{entry} failed to launch: CUDA error {err}")
     LAUNCHES[counter] += 1
@@ -209,7 +259,7 @@ def aip_step_multi(d, h, wx, wh, b, hw, hb, bits):
         args.aw[i] = w.data_ptr()
     args.h2, args.logits, args.u = (h2.data_ptr(), logits.data_ptr(),
                                     u.data_ptr())
-    _launch("ials_aip_step", "aip_step", args, d.device)
+    launch("ials_aip_step", "aip_step", d.device, ctypes.byref(args))
     return h2, logits, u
 
 
@@ -247,7 +297,7 @@ def _rollout(entry, counter, ls, s0, weights, actions, bits, noise, *,
         args.aw[i] = w.data_ptr()
     args.actions, args.bits = actions.data_ptr(), bits.data_ptr()
     args.rew_out = rew.data_ptr()
-    _launch(entry, counter, args, s0.device)
+    launch(entry, counter, s0.device, ctypes.byref(args))
     return (lanes_out, phase_out), s_out, rew
 
 
@@ -359,7 +409,7 @@ def policy_rollout(ls, s0, frames0, aip_w, pol_w, gumbel, bits, done,
     args.x_out, args.a_out, args.logits_out = (x.data_ptr(), a.data_ptr(),
                                                logits.data_ptr())
     args.v_out, args.rew_out = v.data_ptr(), r.data_ptr()
-    _launch(entry, counter, args, dev)
+    launch(entry, counter, dev, ctypes.byref(args))
     return ((lanes_out, phase_out), s_out, f_out, x, a, logits, v, r)
 
 
@@ -388,7 +438,7 @@ def _serve(entry, counter, frames, mask, pidx, pol_w, *, fast_gates, lead):
     for i, w in enumerate(ws):
         args.pw[i] = w.data_ptr()
     args.logits_out, args.v_out = logits.data_ptr(), v.data_ptr()
-    _launch(entry, counter, args, frames.device)
+    launch(entry, counter, frames.device, ctypes.byref(args))
     return logits, v
 
 

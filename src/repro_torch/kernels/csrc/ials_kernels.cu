@@ -12,12 +12,13 @@
 //
 // One source holds the shared device code, templated over the AIP cell
 // (GruCell / FnnCell) and the local-simulator domain (TrafficDomain):
-// the rational gates, uniform_from_bits, the three cells of
+// uniform_from_bits, the three cells of
 // aip_step.py:73-135, and the traffic functor (dset, tick, obs) that the
 // Pallas kernels trace from envs/traffic.py. Plain C entry points take
 // one IalsArgs struct (every field 8 bytes, mirrored by ctypes in
 // repro_torch/kernels/aip_step.py), launch on the caller's stream and
-// return cudaGetLastError().
+// return cudaGetLastError(). The rational gates and the GRU gate update
+// come from gates.cuh, shared with layer_kernels.cu's gru_sequence.
 //
 // Design (first version, simply right). The Pallas grid (A*nB, T) runs T
 // in order on one TPU core with state in VMEM scratch. Here the lane
@@ -54,6 +55,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "gates.cuh"
 
 constexpr int kMaxLeaves = 4;
 
@@ -96,31 +99,8 @@ constexpr int kThreads = 128;   // threads per block
 constexpr int kRows = 16;       // simulation lanes per block (one agent)
 
 
-// ---------------------------------------------------------------------------
-// numerics shared with repro_torch/nn/act.py
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ float fast_tanh(float x) {
-  const float c = 4.97178686f;
-  x = fminf(fmaxf(x, -c), c);
-  const float x2 = __fmul_rn(x, x);
-  const float num = __fmul_rn(
-      x, __fadd_rn(135135.0f,
-                   __fmul_rn(x2, __fadd_rn(17325.0f,
-                                           __fmul_rn(x2, __fadd_rn(378.0f,
-                                                                   x2))))));
-  const float den = __fadd_rn(
-      135135.0f,
-      __fmul_rn(x2, __fadd_rn(62370.0f,
-                              __fmul_rn(x2, __fadd_rn(3150.0f,
-                                                      __fmul_rn(x2,
-                                                                28.0f))))));
-  return __fdiv_rn(num, den);
-}
-
-__device__ __forceinline__ float fast_sigmoid(float x) {
-  return __fmul_rn(0.5f, __fadd_rn(fast_tanh(__fmul_rn(0.5f, x)), 1.0f));
-}
+// numerics shared with repro_torch/nn/act.py: fast_tanh, fast_sigmoid and
+// the GRU gate update live in gates.cuh
 
 __device__ __forceinline__ float uniform_from_bits(int bits) {
   return (float)(((uint32_t)bits) >> 8) * (1.0f / 16777216.0f);
@@ -303,11 +283,8 @@ struct GruCell {
       const int r = i / H, j = i % H;
       const float* gx = sc.c1 + r * G3;
       const float* gh = sc.c2 + r * G3;
-      const float rg = fast_sigmoid(__fadd_rn(gx[j], gh[j]));
-      const float z = fast_sigmoid(__fadd_rn(gx[H + j], gh[H + j]));
-      const float n = fast_tanh(
-          __fadd_rn(gx[2 * H + j], __fmul_rn(rg, gh[2 * H + j])));
-      h[i] = __fadd_rn(__fmul_rn(__fsub_rn(1.0f, z), n), __fmul_rn(z, h[i]));
+      h[i] = gru_gate(gx[j], gx[H + j], gx[2 * H + j], gh[j], gh[H + j],
+                      gh[2 * H + j], h[i]);
     }
     __syncthreads();
     gemm(h, H, hw, hb, H, M, sc.logits, M, kNone);

@@ -1,0 +1,468 @@
+// Hand-written Hopper (sm_90a) kernels of the layer ops: the CUDA
+// counterparts of the three remaining Pallas TPU kernels.
+//
+//   layer_gru_sequence    <- src/repro/kernels/gru.py::gru_sequence
+//   layer_rmsnorm         <- src/repro/kernels/rmsnorm.py::rmsnorm
+//   layer_flash_attention <- src/repro/kernels/flash_attention.py::
+//                            flash_attention (and, through strides, the
+//                            GQA wrapper kernels/ops.py::flash_attention_mha)
+//
+// Plain C entry points, bound with ctypes in repro_torch/kernels/
+// {gru,rmsnorm,flash_attention}.py. Each launches on the caller's stream
+// and returns cudaGetLastError() (or cudaErrorInvalidValue for a shape it
+// does not take). Inputs are float32 or bfloat16 (the `bf16` flag); all
+// math is float32 and every output is rounded once, to the input's type.
+//
+// gru_sequence. On the TPU the grid walks T in order on one core with h in
+// VMEM scratch. Here a block owns kGruRows batch rows and T is a loop
+// inside it; h stays in shared memory in float32 for the whole sequence,
+// and wx, wh sit in shared memory beside it when they fit (95 KB at the
+// traffic AIP's D = 40, H = 64), else they are read through L2. A thread
+// owns one of the 3H gate columns and computes both products x_t @ wx and
+// h @ wh for all rows of the tile, so each weight is read once per tile
+// per tick. What bounds it: the T dependent ticks, each two K-long FMA
+// chains and two block barriers -- latency, far above both the bytes
+// bound and the operations bound; more rows per card (batch) are free
+// until the blocks fill the 132 SMs. The gates are gates.cuh's, shared
+// with the IALS kernels, so the kernel differs from its plain version
+// only in the order of the matrix-product sums. For bf16, hs is written
+// in bf16 while h carries on in float32, as in the Pallas kernel.
+//
+// rmsnorm. One warp per row for d <= 1024 (eight rows a block), one block
+// per row above; any N (the last block masks its ragged edge). The sum of
+// squares is reduced with warp shuffles, 1 / sqrt(mean + eps) is taken
+// with the correctly rounded __fsqrt_rn and an IEEE division (rsqrtf is
+// not correctly rounded), and x * r * g is formed in float32 and rounded
+// once. It is bound by bytes: N d (in + out bytes) + 4 d over 3.35 TB/s;
+// the row is read twice (the second time from L1/L2), which a later
+// version can keep in registers.
+//
+// flash_attention. One block per (batch*head, 64-row query tile), walking
+// 64-key tiles through shared memory in float32 (q pre-scaled, as the
+// reference does `q * scale` before q k^T), with m, l and acc in
+// registers: a thread owns 4 query rows x 4 keys of the score tile and the
+// same 4 rows x Dv/16 columns of acc, so the row statistics never leave
+// the thread's half-warp (shuffle reductions). Semantics are the
+// reference's exactly: causal mask q_idx >= k_idx with no offset, masked
+// scores -1e30, p = 0 where s <= -1e30 / 2, alpha = exp(m_prev - m_new),
+// out = acc / max(l, 1e-20); expf, not __expf. Tiles wholly above the
+// diagonal are skipped (they would change nothing), and the tiles with
+// the most keys are scheduled first. Strides over (batch, head, row) and
+// a KV-group factor let the GQA wrapper pass (B, T, H, D) and (B, S, KH,
+// D) tensors in place, without repeating KV heads. What bounds it on this
+// card: operations (4 T S D per head, half of it under the causal mask)
+// on the CUDA cores in float32 -- bf16 inputs are widened on load; the
+// tensor-core (wgmma) version is later work. D and Dv up to 256.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "gates.cuh"
+
+namespace {
+
+template <class T>
+__device__ __forceinline__ float to_f32(T v);
+template <>
+__device__ __forceinline__ float to_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <class T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+constexpr int kMaxSmem = 232448;   // dynamic shared memory a block may use
+
+// ---------------------------------------------------------------------------
+// gru_sequence
+// ---------------------------------------------------------------------------
+
+constexpr int kGruRows = 8;        // batch rows per block
+constexpr int kGruThreads = 256;
+
+template <class T, bool kSmemW>
+__global__ void __launch_bounds__(kGruThreads)
+gru_sequence_kernel(const T* __restrict__ x, const float* __restrict__ wx,
+                    const float* __restrict__ wh, const float* __restrict__ b,
+                    const float* __restrict__ h0, T* __restrict__ hs, int B,
+                    int T_, int D, int H) {
+  extern __shared__ float smem[];
+  const int G3 = 3 * H;
+  const int row0 = blockIdx.x * kGruRows;
+  const int nrows = min(kGruRows, B - row0);
+  float* h = smem;                       // (kGruRows, H) float32 state
+  float* xt = h + kGruRows * H;          // (kGruRows, D) this tick's input
+  float* gx = xt + kGruRows * D;         // (kGruRows, 3H) x_t @ wx + b
+  float* gh = gx + kGruRows * G3;        // (kGruRows, 3H) h @ wh
+  const float* WX = wx;
+  const float* WH = wh;
+  if (kSmemW) {
+    float* wxs = gh + kGruRows * G3;     // (D, 3H)
+    float* whs = wxs + D * G3;           // (H, 3H)
+    for (int i = threadIdx.x; i < D * G3; i += blockDim.x) wxs[i] = wx[i];
+    for (int i = threadIdx.x; i < H * G3; i += blockDim.x) whs[i] = wh[i];
+    WX = wxs;
+    WH = whs;
+  }
+  for (int i = threadIdx.x; i < kGruRows * H; i += blockDim.x) {
+    const int r = i / H;
+    h[i] = r < nrows ? h0[(size_t)(row0 + r) * H + i % H] : 0.0f;
+  }
+  for (int t = 0; t < T_; ++t) {
+    for (int i = threadIdx.x; i < kGruRows * D; i += blockDim.x) {
+      const int r = i / D;
+      xt[i] = r < nrows
+          ? to_f32(x[((size_t)(row0 + r) * T_ + t) * D + i % D]) : 0.0f;
+    }
+    __syncthreads();
+    for (int c = threadIdx.x; c < G3; c += blockDim.x) {
+      float ax[kGruRows], ah[kGruRows];
+#pragma unroll
+      for (int r = 0; r < kGruRows; ++r) ax[r] = ah[r] = 0.0f;
+      for (int k = 0; k < D; ++k) {
+        const float w = WX[k * G3 + c];
+#pragma unroll
+        for (int r = 0; r < kGruRows; ++r)
+          ax[r] = fmaf(xt[r * D + k], w, ax[r]);
+      }
+      for (int k = 0; k < H; ++k) {
+        const float w = WH[k * G3 + c];
+#pragma unroll
+        for (int r = 0; r < kGruRows; ++r)
+          ah[r] = fmaf(h[r * H + k], w, ah[r]);
+      }
+      const float bc = b[c];
+#pragma unroll
+      for (int r = 0; r < kGruRows; ++r) {
+        gx[r * G3 + c] = __fadd_rn(ax[r], bc);
+        gh[r * G3 + c] = ah[r];
+      }
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < kGruRows * H; i += blockDim.x) {
+      const int r = i / H, j = i % H;
+      const float* gxr = gx + r * G3;
+      const float* ghr = gh + r * G3;
+      const float hn = gru_gate(gxr[j], gxr[H + j], gxr[2 * H + j], ghr[j],
+                                ghr[H + j], ghr[2 * H + j], h[i]);
+      h[i] = hn;
+      if (r < nrows)
+        hs[((size_t)(row0 + r) * T_ + t) * H + j] = from_f32<T>(hn);
+    }
+    __syncthreads();
+  }
+}
+
+template <class T>
+int launch_gru(const void* x, const float* wx, const float* wh,
+               const float* b, const float* h0, void* hs, long long B,
+               long long T_, long long D, long long H, cudaStream_t stream) {
+  const long long G3 = 3 * H;
+  const long long state = 4 * kGruRows * (H + D + 2 * G3);
+  const long long weights = 4 * (D + H) * G3;
+  if (state > kMaxSmem) return (int)cudaErrorInvalidValue;
+  const bool in_smem = state + weights <= kMaxSmem;
+  const int bytes = (int)(in_smem ? state + weights : state);
+  auto k = in_smem ? &gru_sequence_kernel<T, true>
+                   : &gru_sequence_kernel<T, false>;
+  cudaError_t e = cudaFuncSetAttribute(
+      k, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned grid = (unsigned)((B + kGruRows - 1) / kGruRows);
+  k<<<grid, kGruThreads, bytes, stream>>>(
+      (const T*)x, wx, wh, b, h0, (T*)hs, (int)B, (int)T_, (int)D, (int)H);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// rmsnorm
+// ---------------------------------------------------------------------------
+
+constexpr int kNormThreads = 256;
+constexpr int kNormWarps = kNormThreads / 32;
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float inv_rms(float ss, int d, float eps) {
+  return 1.0f / __fsqrt_rn(__fadd_rn(__fdiv_rn(ss, (float)d), eps));
+}
+
+// d <= 1024: one warp per row, kNormWarps rows per block
+template <class T>
+__global__ void __launch_bounds__(kNormThreads)
+rmsnorm_warp_kernel(const T* __restrict__ x, const float* __restrict__ g,
+                    T* __restrict__ out, long long N, int d, float eps) {
+  const int lane = threadIdx.x % 32;
+  const long long row = (long long)blockIdx.x * kNormWarps + threadIdx.x / 32;
+  if (row >= N) return;                  // the whole warp leaves together
+  const T* xr = x + row * d;
+  float ss = 0.0f;
+  for (int c = lane; c < d; c += 32) {
+    const float v = to_f32(xr[c]);
+    ss = fmaf(v, v, ss);
+  }
+  const float r = inv_rms(warp_sum(ss), d, eps);
+  T* orow = out + row * d;
+  for (int c = lane; c < d; c += 32)
+    orow[c] = from_f32<T>(__fmul_rn(__fmul_rn(to_f32(xr[c]), r), g[c]));
+}
+
+// d > 1024: one block per row
+template <class T>
+__global__ void __launch_bounds__(kNormThreads)
+rmsnorm_block_kernel(const T* __restrict__ x, const float* __restrict__ g,
+                     T* __restrict__ out, int d, float eps) {
+  __shared__ float part[kNormWarps];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const T* xr = x + (long long)blockIdx.x * d;
+  float ss = 0.0f;
+  for (int c = threadIdx.x; c < d; c += kNormThreads) {
+    const float v = to_f32(xr[c]);
+    ss = fmaf(v, v, ss);
+  }
+  ss = warp_sum(ss);
+  if (lane == 0) part[warp] = ss;
+  __syncthreads();
+  ss = lane < kNormWarps ? part[lane] : 0.0f;
+  const float r = inv_rms(warp_sum(ss), d, eps);
+  T* orow = out + (long long)blockIdx.x * d;
+  for (int c = threadIdx.x; c < d; c += kNormThreads)
+    orow[c] = from_f32<T>(__fmul_rn(__fmul_rn(to_f32(xr[c]), r), g[c]));
+}
+
+template <class T>
+int launch_rmsnorm(const void* x, const float* g, void* out, long long N,
+                   long long d, float eps, cudaStream_t stream) {
+  if (d <= 1024) {
+    const long long grid = (N + kNormWarps - 1) / kNormWarps;
+    rmsnorm_warp_kernel<T><<<(unsigned)grid, kNormThreads, 0, stream>>>(
+        (const T*)x, g, (T*)out, N, (int)d, eps);
+  } else {
+    rmsnorm_block_kernel<T><<<(unsigned)N, kNormThreads, 0, stream>>>(
+        (const T*)x, g, (T*)out, (int)d, eps);
+  }
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// flash_attention
+// ---------------------------------------------------------------------------
+
+constexpr int kBQ = 64;            // query rows per block
+constexpr int kBK = 64;            // keys per tile
+constexpr int kFlashThreads = 256; // 16 row groups x 16 column lanes
+constexpr int kLdp = kBK + 1;      // padded row stride of the p tile
+constexpr float kNegInf = -1e30f;  // the reference's mask value
+
+}  // namespace
+
+// mirrored field for field by repro_torch/kernels/flash_attention.py::
+// FlashArgs (every field 8 bytes). Batch index bh = b * nh + h; the KV head
+// of query head h is h / group; element strides over (batch, head, row),
+// the last axis contiguous.
+struct FlashArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
+  long long nbh, nh, group, T, S, D, Dv, causal;
+  long long q_sb, q_sh, q_st, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss;
+  long long o_sb, o_sh, o_st;
+  double scale;
+};
+
+namespace {
+
+template <class T, int kDvPer>
+__global__ void __launch_bounds__(kFlashThreads)
+flash_kernel(const FlashArgs a) {
+  extern __shared__ float smem[];
+  const int D = (int)a.D, Dv = (int)a.Dv, T_ = (int)a.T, S = (int)a.S;
+  const int ldq = D + 1;               // padded: no bank conflicts on rows
+  const int ldv = 16 * kDvPer;         // Dv rounded up; pad columns are 0
+  float* qs = smem;                    // (kBQ, ldq) scaled q tile
+  float* ks = qs + kBQ * ldq;          // (kBK, ldq) key tile
+  float* vs = ks + kBK * ldq;          // (kBK, ldv) value tile
+  float* ps = vs + kBK * ldv;          // (kBQ, kLdp) probability tile
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int nq = (T_ + kBQ - 1) / kBQ;
+  const int q0 = (nq - 1 - (int)blockIdx.x) * kBQ;   // longest tiles first
+  const long long bh = blockIdx.y;
+  const long long bb = bh / a.nh, hh = bh % a.nh, kh = hh / a.group;
+  const T* q = (const T*)a.q + bb * a.q_sb + hh * a.q_sh;
+  const T* k = (const T*)a.k + bb * a.k_sb + kh * a.k_sh;
+  const T* v = (const T*)a.v + bb * a.v_sb + kh * a.v_sh;
+  T* o = (T*)a.o + bb * a.o_sb + hh * a.o_sh;
+  const float scale = (float)a.scale;
+  const bool causal = a.causal != 0;
+
+  for (int i = tid; i < kBQ * D; i += kFlashThreads) {
+    const int r = i / D, c = i % D;
+    qs[r * ldq + c] = q0 + r < T_
+        ? __fmul_rn(to_f32(q[(q0 + r) * a.q_st + c]), scale) : 0.0f;
+  }
+  float m[4], l[4], acc[4][kDvPer];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < kDvPer; ++j) acc[i][j] = 0.0f;
+  }
+  // keys past the last query row of the tile are all masked: skip them
+  const int kend = causal ? min(S, q0 + kBQ) : S;
+  for (int k0 = 0; k0 < kend; k0 += kBK) {
+    __syncthreads();                   // the previous tile is consumed
+    for (int i = tid; i < kBK * D; i += kFlashThreads) {
+      const int r = i / D, c = i % D;
+      ks[r * ldq + c] = k0 + r < S ? to_f32(k[(k0 + r) * a.k_ss + c]) : 0.0f;
+    }
+    for (int i = tid; i < kBK * ldv; i += kFlashThreads) {
+      const int r = i / ldv, c = i % ldv;
+      vs[i] = (k0 + r < S && c < Dv) ? to_f32(v[(k0 + r) * a.v_ss + c])
+                                     : 0.0f;
+    }
+    __syncthreads();
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
+    for (int kk = 0; kk < D; ++kk) {
+      float qv[4], kv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qv[i] = qs[(4 * ty + i) * ldq + kk];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) kv[j] = ks[(tx + 16 * j) * ldq + kk];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + 4 * ty + i;
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int col = k0 + tx + 16 * j;
+        if (col >= S || (causal && row < col)) s[i][j] = kNegInf;
+        mx = fmaxf(mx, s[i][j]);
+      }
+#pragma unroll
+      for (int o_ = 8; o_ > 0; o_ >>= 1)     // the row's 16 lanes
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o_));
+      const float m_new = fmaxf(m[i], mx);
+      float psum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = s[i][j] <= kNegInf / 2 ? 0.0f : expf(s[i][j] - m_new);
+        ps[(4 * ty + i) * kLdp + tx + 16 * j] = p;
+        psum += p;
+      }
+#pragma unroll
+      for (int o_ = 8; o_ > 0; o_ >>= 1)
+        psum += __shfl_xor_sync(0xffffffffu, psum, o_);
+      const float alpha = expf(m[i] - m_new);
+      l[i] = __fadd_rn(__fmul_rn(l[i], alpha), psum);
+      m[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < kDvPer; ++j) acc[i][j] = __fmul_rn(acc[i][j], alpha);
+    }
+    __syncthreads();                   // the p tile is complete
+    for (int kk = 0; kk < kBK; ++kk) {
+      float pv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pv[i] = ps[(4 * ty + i) * kLdp + kk];
+#pragma unroll
+      for (int j = 0; j < kDvPer; ++j) {
+        const float vv = vs[kk * ldv + tx + 16 * j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(pv[i], vv, acc[i][j]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + 4 * ty + i;
+    if (row >= T_) continue;
+    const float den = fmaxf(l[i], 1e-20f);
+#pragma unroll
+    for (int j = 0; j < kDvPer; ++j) {
+      const int col = tx + 16 * j;
+      if (col < Dv)
+        o[row * a.o_st + col] = from_f32<T>(__fdiv_rn(acc[i][j], den));
+    }
+  }
+}
+
+template <class T, int kDvPer>
+int launch_flash_dv(const FlashArgs& a, cudaStream_t stream) {
+  const long long ldq = a.D + 1, ldv = 16 * kDvPer;
+  const long long bytes = 4 * (2 * kBK * ldq + kBK * ldv + kBQ * kLdp);
+  if (bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
+  auto k = flash_kernel<T, kDvPer>;
+  cudaError_t e = cudaFuncSetAttribute(
+      k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((unsigned)((a.T + kBQ - 1) / kBQ), (unsigned)a.nbh);
+  k<<<grid, kFlashThreads, (int)bytes, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+template <class T>
+int launch_flash(const FlashArgs& a, cudaStream_t stream) {
+  if (a.Dv <= 16) return launch_flash_dv<T, 1>(a, stream);
+  if (a.Dv <= 32) return launch_flash_dv<T, 2>(a, stream);
+  if (a.Dv <= 64) return launch_flash_dv<T, 4>(a, stream);
+  if (a.Dv <= 128) return launch_flash_dv<T, 8>(a, stream);
+  return launch_flash_dv<T, 16>(a, stream);
+}
+
+}  // namespace
+
+extern "C" {
+
+int layer_gru_sequence(const void* x, const float* wx, const float* wh,
+                       const float* b, const float* h0, void* hs, long long B,
+                       long long T, long long D, long long H, int bf16,
+                       void* stream) {
+  if (B < 1 || T < 1 || D < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  return bf16 ? launch_gru<__nv_bfloat16>(x, wx, wh, b, h0, hs, B, T, D, H, s)
+              : launch_gru<float>(x, wx, wh, b, h0, hs, B, T, D, H, s);
+}
+
+int layer_rmsnorm(const void* x, const float* g, void* out, long long N,
+                  long long d, float eps, int bf16, void* stream) {
+  if (N < 1 || d < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  return bf16 ? launch_rmsnorm<__nv_bfloat16>(x, g, out, N, d, eps, s)
+              : launch_rmsnorm<float>(x, g, out, N, d, eps, s);
+}
+
+int layer_flash_attention(const FlashArgs* a, int bf16, void* stream) {
+  if (a->nbh < 1 || a->T < 1 || a->S < 1 || a->D < 1 || a->D > 256 ||
+      a->Dv < 1 || a->Dv > 256 || a->nh < 1 || a->group < 1 ||
+      a->nh % a->group != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  return bf16 ? launch_flash<__nv_bfloat16>(*a, s) : launch_flash<float>(*a, s);
+}
+
+int layer_flash_args_size(void) { return (int)sizeof(FlashArgs); }
+
+}  // extern "C"

@@ -9,13 +9,19 @@ route: a kernel that fails to build or launch raises.
 The rollout entry points take both the domain's plain functions
 (``tick_fn`` / ``dset_fn`` / ``obs_fn`` on kernel-encoded LS leaves, for
 the CPU) and its ``KernelDomain`` (the device functor, for the card).
+The layer ops (``flash_attention_mha``, ``gru_sequence``, ``rmsnorm``)
+keep the JAX wrappers' signatures and layouts; their kernels live in
+``flash_attention.py``, ``gru.py`` and ``rmsnorm.py``.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import aip_step as _cuda
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import gru as _gru
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import rmsnorm as _rms
 
 
 def _on_card(t: torch.Tensor) -> bool:
@@ -98,3 +104,42 @@ def serve_forward_multi(frames, mask, pidx, pol_ws, *, fast_gates):
                                          fast_gates=fast_gates)
     return _ref.serve_forward_multi_ref(pol_ws, frames, mask, pidx,
                                         fast_gates=fast_gates)
+
+
+def flash_attention_mha(q, k, v, *, causal=True, scale=None, bq=128,
+                        bk=128):
+    """q: (B, T, H, D); k, v: (B, S, KH, D[v]) with GQA support -> (B, T,
+    H, Dv). On the card one launch reads the KV heads in place. ``bq``/
+    ``bk`` are the Pallas blocks, checked for divisibility on both
+    routes."""
+    if _on_card(q):
+        return _fa.flash_attention_mha(q, k, v, causal=causal, scale=scale,
+                                       bq=bq, bk=bk)
+    _fa.check_blocks(q.shape[1], k.shape[1], bq, bk)
+    return _ref.flash_attention_mha_ref(q, k, v, causal=causal, scale=scale)
+
+
+def gru_sequence(params, xs, h0=None):
+    """Drop-in for ``nn.rnn.gru_sequence`` backed by the fused kernel:
+    xs (B, T, D) -> (hs (B, T, H), h_T); ``h0=None`` is zeros of xs's
+    dtype."""
+    B = xs.shape[0]
+    H = params["wh"].shape[0]
+    if h0 is None:
+        h0 = torch.zeros((B, H), dtype=xs.dtype, device=xs.device)
+    if _on_card(xs):
+        return _gru.gru_sequence(xs, params["wx"], params["wh"],
+                                 params["b"], h0)
+    return _ref.gru_sequence_ref(xs, params["wx"], params["wh"],
+                                 params["b"], h0)
+
+
+def rmsnorm(x, g, *, eps: float = 1e-6):
+    """x (..., d), g (d,) -> RMSNorm over the last axis in x's dtype."""
+    shp = x.shape
+    x2 = x.reshape(-1, shp[-1])
+    if _on_card(x):
+        out = _rms.rmsnorm(x2, g, eps=eps)
+    else:
+        out = _ref.rmsnorm_ref(x2, g, eps=eps)
+    return out.reshape(shp)

@@ -2,6 +2,11 @@
 ``repro/kernels/ref.py``): the ground truth the kernels are held against
 on the card, and the route ``ops.py`` takes for CPU tensors.
 
+The layer ops (``flash_attention_ref``, ``gru_sequence_ref``,
+``rmsnorm_ref``) are the reference's oracles as they are: the naive
+softmax with -1e30 as the mask value, a loop of the GRU cell in the
+inputs' dtype, and RMSNorm in float32 rounded once.
+
 Layouts are the kernels': lanes agent-major (lane ``a*B + b``), stacked
 (A, ...) AIP weights, (T, L, ...) streams, LS leaves already
 kernel-encoded (int32). ``tick_fn`` / ``dset_fn`` / ``obs_fn`` are the
@@ -14,6 +19,58 @@ from __future__ import annotations
 import torch
 
 from repro_torch.nn.act import fast_sigmoid, fast_tanh, uniform_from_bits
+
+NEG_INF = -1e30
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, scale=None):
+    """q (BH, T, D); k, v (BH, S, D[v]) -> (BH, T, Dv) in q's dtype. Naive
+    softmax in float32 over the whole (T, S) score matrix."""
+    D = q.shape[-1]
+    scale = (D ** -0.5) if scale is None else scale
+    s = torch.einsum("btd,bsd->bts", q.float(), k.float()) * scale
+    if causal:
+        T, S = q.shape[1], k.shape[1]
+        mask = (torch.arange(T, device=q.device)[:, None]
+                >= torch.arange(S, device=q.device)[None, :])
+        s = s.masked_fill(~mask[None], NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bts,bsd->btd", p, v.float()).to(q.dtype)
+
+
+def flash_attention_mha_ref(q, k, v, *, causal: bool = True, scale=None):
+    """q (B, T, H, D); k, v (B, S, KH, D[v]) -> (B, T, H, Dv): (B, H)
+    flattened into the batch and each KV head repeated over its
+    query-head group, as the JAX wrapper ``ops.flash_attention_mha``
+    does, then ``flash_attention_ref``."""
+    B, T, H, D = q.shape
+    S, KH, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    G = H // KH
+    qf = q.transpose(1, 2).reshape(B * H, T, D)
+    kf = k.transpose(1, 2)[:, :, None].expand(B, KH, G, S, D).reshape(
+        B * H, S, D)
+    vf = v.transpose(1, 2)[:, :, None].expand(B, KH, G, S, Dv).reshape(
+        B * H, S, Dv)
+    o = flash_attention_ref(qf, kf, vf, causal=causal, scale=scale)
+    return o.reshape(B, H, T, Dv).transpose(1, 2)
+
+
+def gru_sequence_ref(x, wx, wh, b, h0):
+    """x (B, T, D); wx (D, 3H); wh (H, 3H); b (3H,); h0 (B, H) -> (hs
+    (B, T, H), h_T): the GRU cell applied T times, in the inputs' dtype."""
+    h, hs = h0, []
+    for t in range(x.shape[1]):
+        h = _gru_cell_ref(wx, wh, b, h, x[:, t])
+        hs.append(h)
+    return torch.stack(hs, dim=1), h
+
+
+def rmsnorm_ref(x, g, *, eps: float = 1e-6):
+    """x (..., d), g (d,) -> x * rsqrt(mean(x^2) + eps) * g in float32,
+    rounded once to x's dtype."""
+    x32 = x.float()
+    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    return ((x32 * torch.rsqrt(var + eps)) * g.float()).to(x.dtype)
 
 
 def _sample(logits, bits, trace=None):

@@ -1,5 +1,6 @@
-"""Dense layers as plain dicts of tensors (counterpart of
-``repro/nn/module.py``'s ``dense_init`` / ``dense``).
+"""Dense layers and RMSNorm as plain dicts of tensors (counterpart of
+``repro/nn/module.py``'s ``dense_init`` / ``dense`` / ``rmsnorm_init`` /
+``rmsnorm``).
 
 Layout is the JAX package's: ``w`` is (d_in, d_out) and ``y = x @ w + b``,
 so parameters carry across (``repro_torch/convert.py``) without a
@@ -11,6 +12,8 @@ import math
 from typing import Any, Dict
 
 import torch
+
+from repro_torch import resolve_device
 
 Params = Dict[str, Any]
 
@@ -39,3 +42,20 @@ def dense(p: Params, x: torch.Tensor) -> torch.Tensor:
         b = p["b"]
         y = y + (b[:, None, :] if b.dim() == 2 and y.dim() == 3 else b)
     return y
+
+
+def rmsnorm_init(d: int, *, dtype=torch.float32, device="cuda") -> Params:
+    return {"g": torch.ones((d,), dtype=dtype,
+                            device=resolve_device(device))}
+
+
+def rmsnorm(p: Params, x: torch.Tensor, *,
+            eps: float = 1e-6) -> torch.Tensor:
+    """The XLA path's order: normalise in float32, round to x's dtype,
+    THEN multiply by g in x's dtype (the kernel, ``kernels.ops.rmsnorm``,
+    multiplies by g in float32 and rounds once; the two differ in
+    bfloat16)."""
+    dt = x.dtype
+    x32 = x.float()
+    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    return (x32 * torch.rsqrt(var + eps)).to(dt) * p["g"].to(dt)

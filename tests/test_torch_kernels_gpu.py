@@ -2,7 +2,10 @@
 card, at test size (both cells, A in {1, 3}, resets inside the horizon),
 with the lane and flip rule of ``chip_smoke.py``; the serving kernels
 at both domains' widths with the three bitwise contracts of the
-serving tier (pad contents, lane position, multi vs single policy).
+serving tier (pad contents, lane position, multi vs single policy); the
+layer kernels (``gru_sequence``, ``rmsnorm``, ``flash_attention``) through
+``kernels.ops`` at ``chip_smoke.py``'s test-size cases, f32 and bf16,
+and the flash kernel's (BH, T, D) entry, the Pallas kernel's own layout.
 These tests need a CUDA card and ``nvcc``: they carry the ``gpu`` marker
 and skip without a card.
 They import no JAX, so on a machine without it they run without the
@@ -16,7 +19,16 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
+import chip_smoke  # noqa: E402  (imports nothing but the standard library)
+
 pytestmark = pytest.mark.gpu
+# the layer cases at test size (the configuration-width ones run in
+# chip_smoke.py's phase 7)
+_BIG = ("main", "qwen3_4b non-causal", "qwen3_4b f32", "qk-norm")
+LAYER_CASES = [(op, label) for op, cases in (
+    ("gru_sequence", chip_smoke.GRU_CASES), ("rmsnorm", chip_smoke.RMS_CASES),
+    ("flash_attention", chip_smoke.FLASH_CASES))
+    for label in cases if label not in _BIG]
 
 
 @pytest.fixture
@@ -29,7 +41,6 @@ def dev():
 @pytest.mark.parametrize("kind", ["gru", "fnn"])
 @pytest.mark.parametrize("A", [1, 3])
 def test_rollout_kernel_matches_plain(kind, A, dev):
-    import chip_smoke
     case = chip_smoke.Case(kind, A, 20, 16, seed=A, dev=dev)
     flips, err = chip_smoke.check_rollout(case, f"rollout {kind} A={A}")
     assert err <= chip_smoke.ATOL
@@ -38,7 +49,6 @@ def test_rollout_kernel_matches_plain(kind, A, dev):
 @pytest.mark.parametrize("kind", ["gru", "fnn"])
 @pytest.mark.parametrize("A", [1, 3])
 def test_policy_rollout_kernel_matches_plain(kind, A, dev):
-    import chip_smoke
     case = chip_smoke.Case(kind, A, 20, 48, seed=10 + A, dev=dev)
     assert bool(case.done.any())
     flips, err = chip_smoke.check_policy(case, f"policy {kind} A={A}")
@@ -47,7 +57,6 @@ def test_policy_rollout_kernel_matches_plain(kind, A, dev):
 
 @pytest.mark.parametrize("A", [1, 3])
 def test_aip_step_kernel_matches_plain(A, dev):
-    import chip_smoke
     rec = chip_smoke.check_aip_step(A, 20, seed=20 + A, dev=dev)
     assert rec["max_abs_err"] <= chip_smoke.ATOL
 
@@ -57,9 +66,40 @@ def test_aip_step_kernel_matches_plain(A, dev):
 @pytest.mark.parametrize("N", [1, 3])
 def test_serve_kernels_match_plain_and_hold_the_contracts(domain, S, N,
                                                           dev):
-    import chip_smoke
     case = chip_smoke.ServeCase(domain, S, N, seed=30 + S + N, dev=dev)
     for multi in ((False, True) if N == 1 else (True,)):
         flips, err = chip_smoke.check_serve(
             case, multi, f"serve multi={multi} {domain} S={S} N={N}")
         assert err <= chip_smoke.ATOL and flips <= 1
+
+
+@pytest.mark.parametrize("op,label", LAYER_CASES)
+def test_layer_kernel_matches_plain(op, label, dev):
+    from repro_torch.kernels import aip_step as cuda
+    cases = {"gru_sequence": chip_smoke.GRU_CASES,
+             "rmsnorm": chip_smoke.RMS_CASES,
+             "flash_attention": chip_smoke.FLASH_CASES}[op]
+    case = chip_smoke.LayerCase(op, cases[label], seed=len(label), dev=dev)
+    cuda.reset_launches()
+    chip_smoke.check_layer(case, f"{op} {label}")   # raises if outside tol
+    assert cuda.LAUNCHES[op] == 1
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_bh_entry_matches_plain(causal, dtype, dev):
+    """``flash_attention`` on heads pre-flattened into the batch (head
+    stride 0, one head): T != S, Dv != D, against ``flash_attention_ref``."""
+    from repro_torch.kernels import aip_step as cuda
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    g = torch.Generator(device=dev)
+    g.manual_seed(40 + causal)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.randn(shape, generator=g, device=dev).to(dt)
+               for shape in ((6, 128, 64), (6, 192, 64), (6, 192, 32)))
+    cuda.reset_launches()
+    out = fa.flash_attention(q, k, v, causal=causal, bq=64, bk=64)
+    assert cuda.LAUNCHES["flash_attention"] == 1
+    chip_smoke._near(out, ref.flash_attention_ref(q, k, v, causal=causal),
+                     chip_smoke.LAYER_TOL["flash_attention"], "flash (BH)")

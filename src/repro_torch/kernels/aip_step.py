@@ -6,8 +6,11 @@ replace).
 the GRU and FNN whole-horizon rollouts, the actor-in-the-loop rollout for
 each cell, and the serving tier's masked slot forward for one policy and
 for N); ``csrc/layer_kernels.cu`` the three layer ops (``gru_sequence``,
-``rmsnorm``, ``flash_attention``, bound in the modules of those names);
-both include ``csrc/gates.cuh``. At first use each source is compiled
+``rmsnorm``, ``flash_attention`` on the CUDA cores, bound in the modules
+of those names); ``csrc/flash_wgmma.cu`` the tensor-core
+``flash_attention`` for bf16 (``wgmma`` fed by TMA). The first two
+include ``csrc/gates.cuh``, the last two ``csrc/flash_args.cuh``. At
+first use each source is compiled
 with ``nvcc`` for ``sm_90a`` (all at once, one process each) and the
 objects are linked into ONE shared library with a plain C interface,
 keyed by a hash of the sources, header and flags, under
@@ -36,17 +39,20 @@ from pathlib import Path
 import torch
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = ("ials_kernels.cu", "layer_kernels.cu")
-_HEADERS = ("gates.cuh",)
+_SOURCES = ("ials_kernels.cu", "layer_kernels.cu", "flash_wgmma.cu")
+_HEADERS = ("gates.cuh", "flash_args.cuh", "wgmma.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
-# launches per entry point since the last ``reset_launches()``
+# launches per entry point since the last ``reset_launches()``;
+# "flash_attention" counts every flash launch, "flash_attention[wgmma]" and
+# "flash_attention[f32]" the tensor-core and the CUDA-core kernel's
 LAUNCHES = {"aip_step": 0, "aip_rollout_multi": 0, "fnn_rollout": 0,
             "policy_rollout_fnn": 0, "policy_rollout_gru": 0,
             "serve_forward": 0, "serve_forward_multi": 0,
-            "gru_sequence": 0, "rmsnorm": 0, "flash_attention": 0}
+            "gru_sequence": 0, "rmsnorm": 0, "flash_attention": 0,
+            "flash_attention[wgmma]": 0, "flash_attention[f32]": 0}
 
 
 def reset_launches():
@@ -88,6 +94,8 @@ _LAYER_ENTRIES = {
     "layer_rmsnorm": [_P, _P, _P, _I, _I, ctypes.c_float, _C_INT, _P],
     # args, bf16, stream
     "layer_flash_attention": [_P, _C_INT, _P],
+    # args, stream
+    "layer_flash_attention_tc": [_P, _P],
 }
 _lib = None
 _lib_lock = threading.Lock()
@@ -206,9 +214,10 @@ def check(t, name, dtype, shape):
     return t.contiguous()
 
 
-def launch(entry: str, counter: str, device, *args):
+def launch(entry: str, counters, device, *args):
     """Call ``entry(*args, stream)`` on the current stream of ``device``
-    and count the launch; raises if it returned a CUDA error. The
+    and count the launch in ``counters`` (a name or a tuple of names);
+    raises if it returned a CUDA error. The
     wrapper's locals keep every buffer alive until the (asynchronous)
     launch has been enqueued, and the caching allocator orders later
     reuse on the same stream."""
@@ -218,7 +227,8 @@ def launch(entry: str, counter: str, device, *args):
         err = getattr(lib, entry)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{entry} failed to launch: CUDA error {err}")
-    LAUNCHES[counter] += 1
+    for name in (counters,) if isinstance(counters, str) else counters:
+        LAUNCHES[name] += 1
 
 
 def _traffic_leaves(ls, L, domain, prefix=()):

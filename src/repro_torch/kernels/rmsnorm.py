@@ -3,11 +3,18 @@
 replaces): ``layer_rmsnorm`` in ``csrc/layer_kernels.cu``, built and
 loaded by ``aip_step.library()``.
 
-One pass per row: one warp a row for d <= 1024, one block a row above;
-any N. ``x * (1 / sqrt(mean(x^2) + eps)) * g`` in float32, rounded once
-to x's dtype, as ``ref.rmsnorm_ref``. The Pallas kernel's row block
-``br`` is a TPU tiling choice that halves until it divides N and never
-refuses a shape, so it has no counterpart here. CUDA tensors only:
+What bounds it on the card: bytes (x read once, out written once, g).
+So each row is read once with 16-byte loads and kept in registers from
+the sum of squares to the scale, written with 16-byte stores, and g
+stays in registers across the rows a warp (16 lanes a row for 16 vectors
+or fewer, a warp up to 10 vectors a lane: d <= 2560 in bf16) or a block
+(up to 8 vectors a thread) walks. Rows that are not a whole number of
+16-byte vectors, tensors not 16-byte aligned, and wider rows take the
+scalar kernels (a warp or a block a row, the row read twice); any N.
+``x * (1 / sqrt(mean(x^2) + eps)) * g`` in float32 on every route,
+rounded once to x's dtype, as ``ref.rmsnorm_ref``. The Pallas kernel's
+row block ``br`` is a TPU tiling choice that halves until it divides N
+and never refuses a shape, so it has no counterpart here. CUDA tensors only:
 ``ops.py`` sends CPU tensors to the plain version.
 """
 from __future__ import annotations

@@ -4,8 +4,10 @@ with the lane and flip rule of ``chip_smoke.py``; the serving kernels
 at both domains' widths with the three bitwise contracts of the
 serving tier (pad contents, lane position, multi vs single policy); the
 layer kernels (``gru_sequence``, ``rmsnorm``, ``flash_attention``) through
-``kernels.ops`` at ``chip_smoke.py``'s test-size cases, f32 and bf16,
-and the flash kernel's (BH, T, D) entry, the Pallas kernel's own layout.
+``kernels.ops`` at ``chip_smoke.py``'s test-size cases, f32 and bf16
+(bf16 flash cases with head widths in steps of 16 take the tensor-core
+kernel), the flash kernel's (BH, T, D) entry, the Pallas kernel's own
+layout, and the route counters of the two flash kernels.
 These tests need a CUDA card and ``nvcc``: they carry the ``gpu`` marker
 and skip without a card.
 They import no JAX, so on a machine without it they run without the
@@ -103,3 +105,27 @@ def test_flash_attention_bh_entry_matches_plain(causal, dtype, dev):
     assert cuda.LAUNCHES["flash_attention"] == 1
     chip_smoke._near(out, ref.flash_attention_ref(q, k, v, causal=causal),
                      chip_smoke.LAYER_TOL["flash_attention"], "flash (BH)")
+
+
+@pytest.mark.parametrize("dtype,D,route", [
+    ("bfloat16", 128, "flash_attention[wgmma]"),
+    ("float32", 128, "flash_attention[f32]"),
+    ("bfloat16", 40, "flash_attention[f32]"),
+])
+def test_flash_attention_counts_the_route_it_took(dtype, D, route, dev):
+    """bf16 with D in steps of 16 moves the tensor-core counter and not
+    the CUDA-core one; f32, or a width off the steps, the reverse."""
+    from repro_torch.kernels import aip_step as cuda
+    from repro_torch.kernels import ops
+    g = torch.Generator(device=dev)
+    g.manual_seed(50 + D)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.randn((1, 128, 4, D), generator=g, device=dev).to(dt)
+               for _ in range(3))
+    cuda.reset_launches()
+    ops.flash_attention_mha(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    other = ({"flash_attention[wgmma]", "flash_attention[f32]"}
+             - {route}).pop()
+    assert cuda.LAUNCHES[route] == 1 and cuda.LAUNCHES[other] == 0
+    assert cuda.LAUNCHES["flash_attention"] == 1

@@ -31,13 +31,18 @@ Phases, each printing its result and time on its own line:
   5. the serving kernels against their plain versions: ``serve_forward``
      and ``serve_forward_multi`` (N = 1 and 4) at the traffic (D = 41,
      2 actions) and warehouse (D = 296, 5 actions) widths, hidden 128,
-     slots S in {1, 16, 64, 128, 256, 4096} with a random mask and
-     unroutable lanes: floats within ATOL, an action may differ only where
+     slots S in {1, 13, 16, 48, 64, 128, 256, 4096} with a random mask
+     and unroutable lanes; at S = 128, N = 4 a slot where one policy has
+     no lane, one where every lane routes to one policy and an all-masked
+     one; hidden 66 (rows staged by plain loads) at S = 48, N = 1 and 3:
+     floats within ATOL, an action may differ only where
      the plain version's top-two logits are within FLIP_EPS, pad and
      unroutable lanes exactly 0, and on the card bitwise: a real lane is
      the same whatever the pad lanes hold and wherever it sits, and a
      lane of the multi kernel is the single-policy kernel's for its own
-     checkpoint. Timed at the main serving shape (traffic, S = 128);
+     checkpoint. Timed (event and device ms, with the launch plan each
+     took) at S = 128 and 4096 at both widths, N = 1 and 4; the main
+     serving shape (traffic, S = 128) goes into the JSON line;
   6. the serving path ``policy_serve`` in-process at full width, counters
      zeroed before each run and read after: the fixed 128-lane slot (wall
      clock), the calibrated bimodal buckets with 4 policies, the chaos
@@ -96,6 +101,7 @@ PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 SOURCE = "src/repro_torch/kernels/csrc/ials_kernels.cu"
 LAYER_SOURCE = "src/repro_torch/kernels/csrc/layer_kernels.cu"
 TC_SOURCE = "src/repro_torch/kernels/csrc/flash_wgmma.cu"
+SERVE_SOURCE = "src/repro_torch/kernels/csrc/serve_kernels.cu"
 # the layer kernels' tolerances against their plain versions, (f32, bf16):
 # the reference tests' own (flash f32 2e-5, rmsnorm 1e-2), GRU f32 at
 # ATOL for matmul order over T steps, rmsnorm f32 1e-5; bf16 outputs may
@@ -120,7 +126,9 @@ REPLACES = {
     "flash_attention": "src/repro/kernels/flash_attention.py:69",
     "flash_attention[f32]": "src/repro/kernels/flash_attention.py:69",
 }
-SOURCES = {"gru_sequence": LAYER_SOURCE, "rmsnorm": LAYER_SOURCE,
+SOURCES = {"serve_forward": SERVE_SOURCE,
+           "serve_forward_multi": SERVE_SOURCE,
+           "gru_sequence": LAYER_SOURCE, "rmsnorm": LAYER_SOURCE,
            "flash_attention": TC_SOURCE, "flash_attention[f32]": LAYER_SOURCE}
 PATHS = {"serve_forward": "policy_serve", "serve_forward_multi":
          "policy_serve", "policy_rollout[fnn]": "rl_train",
@@ -129,7 +137,9 @@ PATHS = {"serve_forward": "policy_serve", "serve_forward_multi":
          "flash_attention[f32]": "kernels.ops"}
 # the serving widths: (frame width D, actions); policy hidden 128
 SERVE_WIDTHS = {"traffic": (41, 2), "warehouse": (37 * 8, 5)}
-SERVE_SLOTS = (1, 16, 64, 128, 256, 4096)
+SERVE_SLOTS = (1, 13, 16, 48, 64, 128, 256, 4096)
+SERVE_TIMED_SLOTS = (128, 4096)
+SERVE_ROUTES = ("skip", "one", "masked")   # at S = 128, N = 4
 SERVE_HP = 128
 
 
@@ -691,10 +701,14 @@ def phase_engine(dev):
 class ServeCase:
     """One serving slot at (domain widths, S, N) on the card: frames, a
     random mask, per-lane policy indices with unroutable lanes, and N
-    policies made from a seed (init plus noise, so every weight and the
-    head matter)."""
+    policies of hidden width ``hp`` made from a seed (init plus noise, so
+    every weight and the head matter). ``route`` shapes the slot:
+    "random" as above, "skip" (no lane routes to the last policy), "one"
+    (every lane live and routed to policy 0), "masked" (every lane
+    masked off)."""
 
-    def __init__(self, domain, S, N, seed, dev):
+    def __init__(self, domain, S, N, seed, dev, route="random",
+                 hp=SERVE_HP):
         import torch
         from repro_torch.kernels.ref import fuse_head
         from repro_torch.rl import ppo
@@ -702,7 +716,8 @@ class ServeCase:
         g.manual_seed(seed)
         D, NA = SERVE_WIDTHS[domain]
         self.domain, self.S, self.N, self.D, self.NA = domain, S, N, D, NA
-        cfg = ppo.PPOConfig(obs_dim=D, n_actions=NA, hidden=SERVE_HP)
+        self.hp, self.route = hp, route
+        cfg = ppo.PPOConfig(obs_dim=D, n_actions=NA, hidden=hp)
         pols = []
         for _ in range(N):
             p = ppo.init_policy(cfg, g)
@@ -718,6 +733,15 @@ class ServeCase:
                                   dtype=torch.int32)
         self.pidx[3::7] = N                       # unroutable lanes
         self.pidx[5::11] = -1
+        if route == "skip":
+            self.pidx[self.pidx == N - 1] = N
+        elif route == "one":
+            self.mask.fill_(1)
+            self.pidx.zero_()
+        elif route == "masked":
+            self.mask.zero_()
+        elif route != "random":
+            raise ValueError(f"unknown route {route!r}")
 
     def call(self, multi, plain=False, frames=None, mask=None, pidx=None):
         from repro_torch.kernels import aip_step as cuda
@@ -746,10 +770,9 @@ class ServeCase:
         """(FLOPs, bytes) this call needs: one forward per answered lane;
         inputs (frames, mask, pidx, every policy's weights) read once and
         outputs written once."""
-        D, NH = self.D, self.NA + 1
+        D, NH, hp = self.D, self.NA + 1, self.hp
         lanes = int(self.live(multi).sum())
-        flops = 2 * lanes * (D * SERVE_HP + SERVE_HP * SERVE_HP
-                             + SERVE_HP * NH)
+        flops = 2 * lanes * (D * hp + hp * hp + hp * NH)
         w = self.stacked if multi else self.single[0]
         by = nbytes(self.frames, self.mask, w) + self.S * NH * 4
         if multi:
@@ -807,49 +830,74 @@ def check_serve(case, multi, name):
     return int(diff.sum()), err
 
 
+def serve_plan_text(case, multi):
+    """The launch plan the kernel takes for ``case``, as one line."""
+    from repro_torch.kernels.aip_step import serve_plan
+    p = serve_plan(case.S, case.D, case.hp, case.NA + 1,
+                   case.N if multi else 1)
+    return (f"lanes/tile {p.lanes}, register tile {p.rows_per_thread} rows"
+            f" x {p.cols_per_thread} cols, chunk rows {p.chunk_rows}, "
+            f"stages {p.stages}/{p.chunks}, threads {p.threads}, grid "
+            f"{p.grid}, smem {p.smem}, bulk ring/head {int(p.ring_bulk)}/"
+            f"{int(p.head_bulk)}")
+
+
 @phase("serving kernels against their plain versions")
 def phase_serve_kernels(dev):
     recs = {"serve_forward": dict(flips=0, lanes=0, max_abs_err=0.0),
             "serve_forward_multi": dict(flips=0, lanes=0, max_abs_err=0.0)}
-    seed = 100
+
+    def check(case, multi):
+        name = "serve_forward_multi" if multi else "serve_forward"
+        flips, err = check_serve(
+            case, multi, f"{name} {case.domain} S={case.S} N={case.N} "
+            f"{case.route} hp={case.hp}")
+        r = recs[name]
+        r["flips"] += flips
+        r["lanes"] += case.S
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+
+    seed, timed = 100, []
     for domain in SERVE_WIDTHS:
         for S in SERVE_SLOTS:
             for N in (1, 4):
                 seed += 1
                 case = ServeCase(domain, S, N, seed, dev)
-                kinds = ((False, True) if N == 1 else (True,))
-                for multi in kinds:
-                    name = "serve_forward_multi" if multi else \
-                        "serve_forward"
-                    flips, err = check_serve(
-                        case, multi, f"{name} {domain} S={S} N={N}")
-                    r = recs[name]
-                    r["flips"] += flips
-                    r["lanes"] += S
-                    r["max_abs_err"] = max(r["max_abs_err"], err)
-                if domain == "traffic" and S == 128:
-                    for multi in kinds:
-                        if multi and N == 1:
-                            continue
-                        name = "serve_forward_multi" if multi else \
-                            "serve_forward"
-                        recs[name]["ms"] = time_cuda(
-                            lambda: case.call(multi), reps=50, warmup=5)
-                        recs[name]["device_ms"] = device_ms(
-                            lambda: case.call(multi), reps=50, warmup=5)
-                        recs[name]["plain_ms"] = time_cuda(
-                            lambda: case.call(multi, plain=True), reps=50,
-                            warmup=5)
-                        recs[name]["flops"], recs[name]["bytes"] = \
-                            case.work(multi)
-                        recs[name]["timed_at"] = f"traffic S=128 N={N}"
+                for multi in ((False, True) if N == 1 else (True,)):
+                    check(case, multi)
+                if S in SERVE_TIMED_SLOTS:
+                    timed.append(case)
+        for route in SERVE_ROUTES:
+            seed += 1
+            check(ServeCase(domain, 128, 4, seed, dev, route=route), True)
+        # rows of 66 floats are no 16-byte multiple: plain-load staging
+        for N in (1, 3):
+            seed += 1
+            case = ServeCase(domain, 48, N, seed, dev, hp=66)
+            for multi in ((False, True) if N == 1 else (True,)):
+                check(case, multi)
+    for case in timed:
+        for multi in ((False,) if case.N == 1 else (True,)):
+            name = "serve_forward_multi" if multi else "serve_forward"
+            ms = time_cuda(lambda: case.call(multi), reps=50, warmup=5)
+            dms = device_ms(lambda: case.call(multi), reps=50, warmup=5)
+            at = f"{case.domain} S={case.S} N={case.N}"
+            log(f"[serve] {name} {at}: ms {ms:.4f}, device {dms}; plan "
+                f"{serve_plan_text(case, multi)}")
+            if (case.domain, case.S) == ("traffic", 128):
+                recs[name].update(
+                    ms=ms, device_ms=dms, timed_at=at,
+                    plain_ms=time_cuda(lambda: case.call(multi, plain=True),
+                                       reps=50, warmup=5))
+                recs[name]["flops"], recs[name]["bytes"] = case.work(multi)
     for name, r in recs.items():
         if r["flips"] > MAX_FLIP_SHARE * r["lanes"]:
             raise AssertionError(f"{name}: {r['flips']} flips in "
                                  f"{r['lanes']} lanes")
         log(f"[kernel] {name}: {r['lanes']} lanes over {len(SERVE_WIDTHS)}"
-            f" widths x {len(SERVE_SLOTS)} slots, flips {r['flips']}, max "
-            f"err {r['max_abs_err']:.3g}, ms {r['ms']:.4f} (device "
+            f" widths x {len(SERVE_SLOTS)} slots, the routes "
+            f"{', '.join(SERVE_ROUTES)} and hidden 66, flips {r['flips']}, "
+            f"max err {r['max_abs_err']:.3g}, ms {r['ms']:.4f} (device "
             f"{r['device_ms']}, plain {r['plain_ms']:.4f}) at "
             f"{r['timed_at']}; pad/unroutable "
             f"zeros and the bitwise contracts held")

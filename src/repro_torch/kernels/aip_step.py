@@ -2,13 +2,15 @@
 of ``repro/kernels/aip_step.py``, whose Pallas TPU kernels these
 replace).
 
-``csrc/ials_kernels.cu`` holds the seven entry points (one GRU AIP tick,
-the GRU and FNN whole-horizon rollouts, the actor-in-the-loop rollout for
-each cell, and the serving tier's masked slot forward for one policy and
-for N); ``csrc/layer_kernels.cu`` the three layer ops (``gru_sequence``,
-``rmsnorm``, ``flash_attention`` on the CUDA cores, bound in the modules
-of those names); ``csrc/flash_wgmma.cu`` the tensor-core
-``flash_attention`` for bf16 (``wgmma`` fed by TMA). The first two
+``csrc/ials_kernels.cu`` holds five entry points (one GRU AIP tick, the
+GRU and FNN whole-horizon rollouts, the actor-in-the-loop rollout for
+each cell); ``csrc/serve_kernels.cu`` the serving tier's masked slot
+forward for one policy and for N, launched by the plan of
+``serve_plan``; ``csrc/layer_kernels.cu`` the three layer ops
+(``gru_sequence``, ``rmsnorm``, ``flash_attention`` on the CUDA cores,
+bound in the modules of those names); ``csrc/flash_wgmma.cu`` the
+tensor-core ``flash_attention`` for bf16 (``wgmma`` fed by TMA). The
+first two share ``csrc/ials_args.cuh``; they and ``layer_kernels.cu``
 include ``csrc/gates.cuh``, the last two ``csrc/flash_args.cuh``. At
 first use each source is compiled
 with ``nvcc`` for ``sm_90a`` (all at once, one process each) and the
@@ -28,6 +30,8 @@ bits are int32-stored uint32 values; LS leaves are kernel-encoded int32
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import hashlib
 import os
 import shutil
@@ -39,8 +43,9 @@ from pathlib import Path
 import torch
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = ("ials_kernels.cu", "layer_kernels.cu", "flash_wgmma.cu")
-_HEADERS = ("gates.cuh", "flash_args.cuh", "wgmma.cuh")
+_SOURCES = ("ials_kernels.cu", "serve_kernels.cu", "layer_kernels.cu",
+            "flash_wgmma.cu")
+_HEADERS = ("gates.cuh", "ials_args.cuh", "flash_args.cuh", "wgmma.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -64,11 +69,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_longlong
 _INT_FIELDS = ("T", "A", "B", "D", "H", "M", "stack", "S", "obs_dim", "Hp",
                "n_act", "domain", "lane_len", "ext_influence", "fast_gates",
-               "n_pol")
+               "n_pol", "serve_lanes", "serve_rows_per_thread",
+               "serve_cols_per_thread", "serve_chunk_rows", "serve_stages",
+               "serve_threads", "serve_smem", "serve_policy_blocks",
+               "serve_flags")
 
 
 class IalsArgs(ctypes.Structure):
-    """Mirror of ``IalsArgs`` in ``csrc/ials_kernels.cu`` (every field 8
+    """Mirror of ``IalsArgs`` in ``csrc/ials_args.cuh`` (every field 8
     bytes, so the two layouts cannot disagree on padding)."""
     _fields_ = ([("ls_in", _P * 4), ("ls_out", _P * 4),
                  ("reset_ls", _P * 4), ("noise", _P * 4),
@@ -216,15 +224,19 @@ def check(t, name, dtype, shape):
 
 def launch(entry: str, counters, device, *args):
     """Call ``entry(*args, stream)`` on the current stream of ``device``
-    and count the launch in ``counters`` (a name or a tuple of names);
-    raises if it returned a CUDA error. The
+    (entering ``device`` only when it is not the current one) and count
+    the launch in ``counters`` (a name or a tuple of names); raises if it
+    returned a CUDA error. The
     wrapper's locals keep every buffer alive until the (asynchronous)
     launch has been enqueued, and the caching allocator orders later
     reuse on the same stream."""
     lib = library()
     stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
+    if device.index is None or device.index == torch.cuda.current_device():
         err = getattr(lib, entry)(*args, stream)
+    else:
+        with torch.cuda.device(device):
+            err = getattr(lib, entry)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{entry} failed to launch: CUDA error {err}")
     for name in (counters,) if isinstance(counters, str) else counters:
@@ -423,7 +435,182 @@ def policy_rollout(ls, s0, frames0, aip_w, pol_w, gumbel, bits, done,
     return ((lanes_out, phase_out), s_out, f_out, x, a, logits, v, r)
 
 
-def _serve(entry, counter, frames, mask, pidx, pol_w, *, fast_gates, lead):
+# the serving kernels' launch plan (csrc/serve_kernels.cu reads it from
+# IalsArgs and refuses one it cannot run)
+SERVE_SMEM_MAX = 232_448    # dynamic shared bytes a block may use (H100)
+SERVE_MAX_LANES = 32        # lanes per tile: one warp's ballot compacts them
+SERVE_MIN_LANES = 2
+SERVE_MAX_THREADS = 512
+SERVE_TARGET_TILES = 64     # tiles a slot aims for: lanes ~ S / this
+SERVE_CHUNK_BYTES = 32_768  # a K-chunk of [w1; w2]: whole rows, at most
+SERVE_MAX_STAGES = 64
+SERVE_MAX_POLICY_BLOCKS = 65_535   # the grid's y limit
+SERVE_WAVE_BLOCKS = 264     # about the blocks the card holds at once:
+#                             a policy axis past it costs a second wave
+
+
+def _round16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+@dataclasses.dataclass(frozen=True)
+class ServePlan:
+    """How one serving launch covers a slot of S lanes at widths (D, Hp,
+    NH) over N policies (``serve_plan``)."""
+    S: int
+    D: int
+    Hp: int
+    NH: int
+    N: int
+    lanes: int            # lanes per tile (grid x = ceil(S / lanes))
+    rows_per_thread: int  # rows of a thread's register tile
+    cols_per_thread: int  # columns of it (RP x CP independent chains)
+    chunk_rows: int       # rows of [w1; w2] per K-chunk
+    chunks: int           # K-chunks of one policy
+    stages: int           # ring buffers (== chunks when every chunk fits)
+    threads: int
+    policy_blocks: int    # grid y: blocks on the policy axis
+    smem: int             # dynamic shared bytes
+    ring_bulk: bool       # [w1; w2] by bulk copies (rows of 16-byte multiples)
+    head_bulk: bool       # the head by one bulk copy
+
+    @property
+    def grid(self):
+        return (-(-self.S // self.lanes), self.policy_blocks)
+
+
+def _serve_smem(R, D, Hp, NH, kc, ns):
+    """Dynamic shared bytes of ``serve_kernels.cu::serve_smem``: barriers,
+    compacted lanes, the ring, the head, the tile's frames (rows padded
+    to an odd stride) and the routed lanes' (k-major), h1^T and h2^T,
+    each region rounded up to 16 bytes."""
+    return (_round16(8 * (ns + 1)) + _round16(4 * (R + 1))
+            + _round16(4 * ns * kc * Hp) + _round16(4 * Hp * NH)
+            + _round16(4 * (D | 1) * R) + _round16(4 * D * R)
+            + 2 * _round16(4 * Hp * R))
+
+
+def _threads(R, RP, CP, Hp, NH):
+    """Threads of a block: a register tile of CP columns of each hidden
+    layer (Hp / CP tiles), and one column of the head (NH), for each of
+    the R / RP row groups, in whole warps."""
+    return -(-max(Hp // CP, NH) * (R // RP) // 32) * 32
+
+
+def _tile(R, Hp, NH):
+    """(rows, columns, threads) of a thread's register tile: all R rows
+    up to 8, and the fewest columns (1, 2 or 4, dividing Hp) whose block
+    fits SERVE_MAX_THREADS -> None if none does. More warps hide more
+    latency: on the card a tile of one column beat 4 at 32 lanes."""
+    RP = min(R, 8)
+    for CP in (1, 2, 4):
+        T = _threads(R, RP, CP, Hp, NH)
+        if Hp % CP == 0 and T <= SERVE_MAX_THREADS:
+            return RP, CP, T
+    return None
+
+
+def serve_plan(S: int, D: int, Hp: int, NH: int, N: int, *,
+               lanes: int | None = None,
+               policy_axis: bool | None = None) -> ServePlan:
+    """The launch plan of ``serve_forward`` (N = 1) and
+    ``serve_forward_multi`` for a slot of S lanes, frame width D, policy
+    hidden Hp, head width NH = n_act + 1: lanes per tile from the slot
+    (about ``SERVE_TARGET_TILES`` tiles, each with N blocks; ``lanes``
+    overrides), a thread's register tile (``_tile``) and the threads, the
+    K-chunk ring as deep as shared memory holds beside the lane tile
+    (every chunk resident when it fits), and one block per (tile, policy)
+    while that grid fits one wave of the card (``SERVE_WAVE_BLOCKS``),
+    else one block per tile that walks the policies (``policy_axis``
+    overrides). Raises ValueError for widths it cannot hold."""
+    for name, v in (("S", S), ("D", D), ("Hp", Hp), ("NH", NH), ("N", N)):
+        if v < 1:
+            raise ValueError(f"serve_plan: {name} = {v} < 1")
+    if NH < 2:
+        raise ValueError("serve_plan: the head needs an action and v")
+    if lanes is None:
+        R = SERVE_MIN_LANES
+        while R < SERVE_MAX_LANES and R * SERVE_TARGET_TILES < S:
+            R *= 2
+    elif lanes in (1, 2, 4, 8, 16, 32):
+        R = lanes
+    else:
+        raise ValueError(f"serve_plan: lanes = {lanes} is not a power of "
+                         f"two up to {SERVE_MAX_LANES}")
+    rows = D + Hp
+    chunks = -(-rows // max(1, SERVE_CHUNK_BYTES // (4 * Hp)))
+    kc = -(-rows // chunks)
+    while True:
+        tile = _tile(R, Hp, NH)
+        ns = min(chunks, SERVE_MAX_STAGES)
+        while ns >= 1 and _serve_smem(R, D, Hp, NH, kc, ns) > SERVE_SMEM_MAX:
+            ns -= 1
+        if tile is not None and ns >= 1:
+            break
+        if lanes is not None or R == 1:
+            raise ValueError(
+                f"serve_plan: widths D={D}, Hp={Hp}, NH={NH} at {R} lanes "
+                f"a tile do not fit one block ({SERVE_MAX_THREADS} threads,"
+                f" {SERVE_SMEM_MAX} shared bytes)")
+        R //= 2
+    RP, CP, T = tile
+    if policy_axis is None:
+        policy_axis = -(-S // R) * N <= SERVE_WAVE_BLOCKS
+    return ServePlan(
+        S=S, D=D, Hp=Hp, NH=NH, N=N, lanes=R, rows_per_thread=RP,
+        cols_per_thread=CP, chunk_rows=kc, chunks=chunks, stages=ns,
+        threads=T,
+        policy_blocks=min(N, SERVE_MAX_POLICY_BLOCKS) if policy_axis else 1,
+        smem=_serve_smem(R, D, Hp, NH, kc, ns),
+        ring_bulk=(4 * Hp) % 16 == 0, head_bulk=(4 * Hp * NH) % 16 == 0)
+
+
+def serve_pieces(plan: ServePlan):
+    """The bulk copies one block makes for policy n, for every n: (tensor,
+    byte offset into the stacked tensor, bytes), in the kernel's order
+    (``serve_kernels.cu::stage_bulk`` for each chunk, then the head).
+    Empty where the plan stages a piece by plain loads."""
+    D, Hp, NH, kc = plan.D, plan.Hp, plan.NH, plan.chunk_rows
+    row = 4 * Hp
+    out = []
+    for n in range(plan.N):
+        if plan.ring_bulk:
+            for j in range(plan.chunks):
+                a, b = j * kc, min((j + 1) * kc, D + Hp)
+                if a < D:
+                    out.append(("w1", 4 * n * D * Hp + a * row,
+                                (min(b, D) - a) * row))
+                a2 = max(a, D)
+                if a2 < b:
+                    out.append(("w2", 4 * n * Hp * Hp + (a2 - D) * row,
+                                (b - a2) * row))
+        if plan.head_bulk:
+            out.append(("head", 4 * n * Hp * NH, 4 * Hp * NH))
+    return out
+
+
+@functools.lru_cache(maxsize=512)
+def _serve_template(S, D, Hp, NH, N, fast_gates, lanes, policy_axis):
+    """The plan and an IalsArgs with every integer field of one slot
+    shape set, copied and filled per call."""
+    plan = serve_plan(S, D, Hp, NH, N, lanes=lanes, policy_axis=policy_axis)
+    args = IalsArgs(
+        B=S, S=D, Hp=Hp, n_act=NH - 1, fast_gates=int(fast_gates), n_pol=N,
+        serve_lanes=plan.lanes, serve_rows_per_thread=plan.rows_per_thread,
+        serve_cols_per_thread=plan.cols_per_thread,
+        serve_chunk_rows=plan.chunk_rows, serve_stages=plan.stages,
+        serve_threads=plan.threads, serve_smem=plan.smem,
+        serve_policy_blocks=plan.policy_blocks,
+        serve_flags=int(plan.ring_bulk) | 2 * int(plan.head_bulk))
+    return plan, args
+
+
+def serve_args(frames, mask, pidx, pol_w, *, fast_gates, lead, lanes=None,
+               policy_axis=None):
+    """Check the serving inputs, allocate the outputs and fill the
+    launch's IalsArgs -> (args, logits, v, plan, inputs kept alive). A
+    weight piece whose base is not 16-byte aligned is staged by plain
+    loads."""
     S, D = frames.shape
     if S < 1:
         raise ValueError("an empty slot has no lanes to serve")
@@ -431,24 +618,36 @@ def _serve(entry, counter, frames, mask, pidx, pol_w, *, fast_gates, lead):
     Hp, NH = w1.shape[-1], hw.shape[-1]
     frames = _f32(frames, "frames", (S, D))
     mask = _i32(mask, "mask", (S,))
-    ws = [_f32(w1, "w1", lead + (D, Hp)), _f32(b1, "b1", lead + (Hp,)),
+    ws = (_f32(w1, "w1", lead + (D, Hp)), _f32(b1, "b1", lead + (Hp,)),
           _f32(w2, "w2", lead + (Hp, Hp)), _f32(b2, "b2", lead + (Hp,)),
           _f32(hw, "[pi|v] w", lead + (Hp, NH)),
-          _f32(hb, "[pi|v] b", lead + (NH,))]
+          _f32(hb, "[pi|v] b", lead + (NH,)))
+    plan, tmpl = _serve_template(S, D, Hp, NH, lead[0] if lead else 1,
+                                 bool(fast_gates), lanes, policy_axis)
     logits = torch.empty((S, NH - 1), dtype=torch.float32,
                          device=frames.device)
     v = torch.empty((S,), dtype=torch.float32, device=frames.device)
-    args = IalsArgs(B=S, S=D, Hp=Hp, n_act=NH - 1,
-                    fast_gates=int(fast_gates),
-                    n_pol=lead[0] if lead else 1)
+    args = IalsArgs.from_buffer_copy(tmpl)
+    ptrs = [w.data_ptr() for w in ws]
+    if (ptrs[0] | ptrs[2]) % 16:
+        args.serve_flags &= ~1
+    if ptrs[4] % 16:
+        args.serve_flags &= ~2
+    args.pw[:] = ptrs
     args.frames0, args.mask = frames.data_ptr(), mask.data_ptr()
     if pidx is not None:
         pidx = _i32(pidx, "pidx", (S,))
         args.pidx = pidx.data_ptr()
-    for i, w in enumerate(ws):
-        args.pw[i] = w.data_ptr()
     args.logits_out, args.v_out = logits.data_ptr(), v.data_ptr()
-    launch(entry, counter, frames.device, ctypes.byref(args))
+    # the last item keeps every input (or its contiguous copy) alive
+    # until the caller has enqueued the launch
+    return args, logits, v, plan, (frames, mask, pidx, ws)
+
+
+def _serve(entry, counter, frames, mask, pidx, pol_w, *, fast_gates, lead):
+    args, logits, v, _, keep = serve_args(frames, mask, pidx, pol_w,
+                                          fast_gates=fast_gates, lead=lead)
+    launch(entry, counter, keep[0].device, ctypes.byref(args))
     return logits, v
 
 

@@ -1,22 +1,21 @@
-// Hand-written Hopper (sm_90a) kernels of the IALS training and serving
-// paths: the CUDA counterparts of the six Pallas TPU kernels in
-// src/repro/kernels/aip_step.py.
+// Hand-written Hopper (sm_90a) kernels of the IALS training path: the
+// CUDA counterparts of four Pallas TPU kernels in
+// src/repro/kernels/aip_step.py (the two serving kernels of that file are
+// in serve_kernels.cu).
 //
 //   ials_aip_step            <- aip_step.py::aip_step (one GRU AIP tick)
 //   ials_aip_rollout_multi   <- aip_step.py::aip_rollout_multi (GRU horizon)
 //   ials_fnn_rollout         <- aip_step.py::fnn_rollout (FNN horizon)
 //   ials_policy_rollout_gru  <- aip_step.py::policy_rollout (kind="gru")
 //   ials_policy_rollout_fnn  <- aip_step.py::policy_rollout (kind="fnn")
-//   ials_serve_forward       <- aip_step.py::serve_forward (masked slot)
-//   ials_serve_forward_multi <- aip_step.py::serve_forward_multi (N policies)
 //
 // One source holds the shared device code, templated over the AIP cell
 // (GruCell / FnnCell) and the local-simulator domain (TrafficDomain):
 // uniform_from_bits, the three cells of
 // aip_step.py:73-135, and the traffic functor (dset, tick, obs) that the
 // Pallas kernels trace from envs/traffic.py. Plain C entry points take
-// one IalsArgs struct (every field 8 bytes, mirrored by ctypes in
-// repro_torch/kernels/aip_step.py), launch on the caller's stream and
+// one IalsArgs struct (ials_args.cuh: every field 8 bytes, mirrored by
+// ctypes in repro_torch/kernels/aip_step.py), launch on the caller's stream and
 // return cudaGetLastError(). The rational gates and the GRU gate update
 // come from gates.cuh, shared with layer_kernels.cu's gru_sequence.
 //
@@ -57,41 +56,7 @@
 #include <stdint.h>
 
 #include "gates.cuh"
-
-constexpr int kMaxLeaves = 4;
-
-// the one argument of every entry point; mirrored field for field by
-// repro_torch/kernels/aip_step.py::IalsArgs
-struct IalsArgs {
-  const int* ls_in[kMaxLeaves];      // LS leaves (L, ...) int32
-  int* ls_out[kMaxLeaves];
-  const int* reset_ls[kMaxLeaves];   // (T, L, ...) streamed reset leaves
-  const void* noise[kMaxLeaves];     // (T, L, ...) LS noise (none: traffic)
-  const float* s0;                   // (L, SD) AIP state
-  float* s_out;
-  const float* frames0;              // (L, S) policy frame stack
-  float* frames_out;
-  const float* aw[6];                // stacked (A, ...) AIP weights
-  const float* pw[6];                // w1, b1, w2, b2, [pi|v] w, [pi|v] b
-  const int* actions;                // (T, L)
-  const int* bits;                   // (T, L, M) uint32 bits as int32
-  const float* gumbel;               // (T, L, NA)
-  const int* done;                   // (T, L)
-  float* x_out;                      // (T, L, S)
-  int* a_out;                        // (T, L)
-  float* logits_out;                 // (T, L, NA)
-  float* v_out;                      // (T, L)
-  float* rew_out;                    // (T, L)
-  const float* d;                    // aip_step: (B, A, D)
-  const float* h;                    //           (B, A, H)
-  float* h2;
-  float* logits;                     //           (B, A, M)
-  float* u;
-  const int* mask;                   // serve: (B,) lane validity
-  const int* pidx;                   // serve_multi: (B,) policy per lane
-  long long T, A, B, D, H, M, stack, S, obs_dim, Hp, n_act;
-  long long domain, lane_len, ext_influence, fast_gates, n_pol;
-};
+#include "ials_args.cuh"
 
 namespace {
 
@@ -596,117 +561,6 @@ aip_step_kernel(IalsArgs p, Layout lay) {
   }
 }
 
-// ---------------------------------------------------------------------------
-// masked fixed-slot policy forward (aip_step.py::_serve_forward_kernel and
-// _serve_forward_multi_kernel): frames (B, S) f32 with the slot's B lanes,
-// mask (B,), pidx (B,) or null, weights stacked over n_pol policies
-// (w1 (N, S, Hp), b1 (N, Hp), w2 (N, Hp, Hp), b2 (N, Hp), [pi|v] head
-// (N, Hp, n_act + 1) and its bias) -> logits_out (B, n_act), v_out (B,).
-//
-// One block per kRows lanes; the tile's frames and both hidden layers stay
-// in shared memory (36 KB at the warehouse width S = 296). For each policy
-// that some lane of the tile routes to, the block runs the three GEMMs of
-// policy_rollout_kernel's forward over the whole tile and writes the rows
-// that chose it; lanes that are masked off or route to no policy are
-// written 0.0 here, inside the kernel. Every output is one sequential fmaf
-// chain over k in gemm_rows, whatever the row, the tile or the policy
-// count, so a lane's outputs are bitwise independent of the other lanes
-// (pad contents, position) and bitwise the single-policy launch's. Work
-// per lane is 2*(S*Hp + Hp*Hp + Hp*(n_act+1)) FLOPs (44,032 at the
-// traffic widths) per policy present in its tile; at a 128-lane slot the
-// bound is operations at ~0.1 us, far below one launch: the time is
-// launch and per-layer barrier latency, which this first version accepts.
-// ---------------------------------------------------------------------------
-
-struct ServeLayout {
-  int x, h1, h2, out;
-  int total_bytes;
-};
-
-ServeLayout make_serve_layout(const IalsArgs& p) {
-  ServeLayout l{};
-  int off = 0;
-  auto take = [&](int n) { int o = off; off += n; return o; };
-  l.x = take(kRows * (int)p.S);
-  l.h1 = take(kRows * (int)p.Hp);
-  l.h2 = take(kRows * (int)p.Hp);
-  l.out = take(kRows * (int)(p.n_act + 1));
-  l.total_bytes = off * (int)sizeof(float);
-  return l;
-}
-
-__global__ void __launch_bounds__(kThreads)
-serve_forward_kernel(IalsArgs p, ServeLayout lay) {
-  extern __shared__ float smem[];
-  __shared__ int pol[kRows];          // the lane's policy, -1 = zeros
-  const int D = (int)p.S, Hp = (int)p.Hp, NA = (int)p.n_act, NH = NA + 1;
-  const int N = (int)p.n_pol;
-  const int gate = p.fast_gates ? kFastTanh : kTanh;
-  const long long row0 = (long long)blockIdx.x * kRows;
-  const long long left = p.B - row0;
-  const int nvalid = left < kRows ? (int)left : kRows;
-  float* x = smem + lay.x;
-  float* h1 = smem + lay.h1;
-  float* h2 = smem + lay.h2;
-  float* out = smem + lay.out;
-  for (int i = threadIdx.x; i < kRows * D; i += blockDim.x) {
-    const int r = i / D;
-    x[i] = r < nvalid ? p.frames0[(row0 + r) * D + i % D] : 0.0f;
-  }
-  for (int r = threadIdx.x; r < kRows; r += blockDim.x) {
-    int n = -1;
-    if (r < nvalid && p.mask[row0 + r] != 0) {
-      n = p.pidx != nullptr ? p.pidx[row0 + r] : 0;
-      if (n < 0 || n >= N) n = -1;
-    }
-    pol[r] = n;
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < nvalid * NH; i += blockDim.x) {
-    const int r = i / NH, j = i % NH;
-    if (pol[r] >= 0) continue;
-    if (j < NA) p.logits_out[(row0 + r) * NA + j] = 0.0f;
-    else p.v_out[row0 + r] = 0.0f;
-  }
-  for (int n = 0; n < N; ++n) {
-    // block-uniform: skip the policies no lane of this tile routes to
-    if (!__syncthreads_or(threadIdx.x < kRows && pol[threadIdx.x] == n))
-      continue;
-    const float* w1 = p.pw[0] + (size_t)n * D * Hp;
-    const float* b1 = p.pw[1] + (size_t)n * Hp;
-    const float* w2 = p.pw[2] + (size_t)n * Hp * Hp;
-    const float* b2 = p.pw[3] + (size_t)n * Hp;
-    const float* hw = p.pw[4] + (size_t)n * Hp * NH;
-    const float* hb = p.pw[5] + (size_t)n * NH;
-    gemm(x, D, w1, b1, D, Hp, h1, Hp, gate);
-    __syncthreads();
-    gemm(h1, Hp, w2, b2, Hp, Hp, h2, Hp, gate);
-    __syncthreads();
-    gemm(h2, Hp, hw, hb, Hp, NH, out, NH, kNone);
-    __syncthreads();
-    for (int i = threadIdx.x; i < nvalid * NH; i += blockDim.x) {
-      const int r = i / NH, j = i % NH;
-      if (pol[r] != n) continue;
-      if (j < NA) p.logits_out[(row0 + r) * NA + j] = out[i];
-      else p.v_out[row0 + r] = out[i];
-    }
-    __syncthreads();   // h1, h2 and out are rewritten by the next policy
-  }
-}
-
-int launch_serve(const IalsArgs* args, void* stream) {
-  if (args->B < 1 || args->n_pol < 1) return (int)cudaErrorInvalidValue;
-  const ServeLayout lay = make_serve_layout(*args);
-  cudaError_t e = cudaFuncSetAttribute(
-      serve_forward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      lay.total_bytes);
-  if (e != cudaSuccess) return (int)e;
-  const unsigned grid = (unsigned)((args->B + kRows - 1) / kRows);
-  serve_forward_kernel<<<grid, kThreads, lay.total_bytes,
-                         (cudaStream_t)stream>>>(*args, lay);
-  return (int)cudaGetLastError();
-}
-
 dim3 rollout_grid(const IalsArgs& p) {
   return dim3((unsigned)(p.A * ((p.B + kRows - 1) / kRows)));
 }
@@ -774,17 +628,6 @@ int ials_policy_rollout_gru(const IalsArgs* args, void* stream) {
 
 int ials_policy_rollout_fnn(const IalsArgs* args, void* stream) {
   return launch_policy_rollout<FnnCell>(args, stream, true);
-}
-
-int ials_serve_forward(const IalsArgs* args, void* stream) {
-  if (args->n_pol != 1 || args->pidx != nullptr)
-    return (int)cudaErrorInvalidValue;
-  return launch_serve(args, stream);
-}
-
-int ials_serve_forward_multi(const IalsArgs* args, void* stream) {
-  if (args->pidx == nullptr) return (int)cudaErrorInvalidValue;
-  return launch_serve(args, stream);
 }
 
 int ials_args_size(void) { return (int)sizeof(IalsArgs); }

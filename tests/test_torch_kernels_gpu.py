@@ -1,7 +1,9 @@
 """Each CUDA kernel of the port against its plain PyTorch version, on the
 card, at test size (both cells, A in {1, 3}, resets inside the horizon),
 with the lane and flip rule of ``chip_smoke.py``; the serving kernels
-at both domains' widths with the three bitwise contracts of the
+at both domains' widths, slots of 1 to 4096 lanes, 1, 3 and 4 policies,
+shaped slots (an empty policy, one policy, all masked), plain-load
+staging, hidden layers of 256 and 512 and a refused launch, with the three bitwise contracts of the
 serving tier (pad contents, lane position, multi vs single policy); the
 layer kernels (``gru_sequence``, ``rmsnorm``, ``flash_attention``) through
 ``kernels.ops`` at ``chip_smoke.py``'s test-size cases, f32 and bf16
@@ -64,15 +66,81 @@ def test_aip_step_kernel_matches_plain(A, dev):
 
 
 @pytest.mark.parametrize("domain", ["traffic", "warehouse"])
-@pytest.mark.parametrize("S", [1, 13, 48])
-@pytest.mark.parametrize("N", [1, 3])
+@pytest.mark.parametrize("S", [1, 13, 48, 128, 4096])
+@pytest.mark.parametrize("N", [1, 3, 4])
 def test_serve_kernels_match_plain_and_hold_the_contracts(domain, S, N,
                                                           dev):
+    """Each regime of the launch plan (4 to 32 lanes a tile, every chunk
+    resident at the traffic widths, a ring at the warehouse widths), with
+    pidx of -1 and N among the lanes from S = 13 on."""
     case = chip_smoke.ServeCase(domain, S, N, seed=30 + S + N, dev=dev)
     for multi in ((False, True) if N == 1 else (True,)):
         flips, err = chip_smoke.check_serve(
             case, multi, f"serve multi={multi} {domain} S={S} N={N}")
+        assert err <= chip_smoke.ATOL and flips <= max(
+            1, chip_smoke.MAX_FLIP_SHARE * S)
+
+
+@pytest.mark.parametrize("domain", ["traffic", "warehouse"])
+@pytest.mark.parametrize("route", ["skip", "one", "masked"])
+def test_serve_kernels_on_shaped_slots(domain, route, dev):
+    """A slot where one policy has no lane, one where every lane routes to
+    one policy, and an all-masked slot (every lane must come back 0)."""
+    case = chip_smoke.ServeCase(domain, 128, 4, seed=60, dev=dev,
+                                route=route)
+    flips, err = chip_smoke.check_serve(case, True,
+                                        f"serve {domain} {route}")
+    assert err <= chip_smoke.ATOL and flips <= 1
+    if route == "masked":
+        single = chip_smoke.ServeCase(domain, 128, 1, seed=61, dev=dev,
+                                      route=route)
+        chip_smoke.check_serve(single, False, f"serve {domain} masked")
+
+
+@pytest.mark.parametrize("domain", ["traffic", "warehouse"])
+@pytest.mark.parametrize("N", [1, 3])
+def test_serve_kernels_stage_unaligned_rows_by_plain_loads(domain, N, dev):
+    """Hidden 66: rows of 264 bytes and a 792- or 1,584-byte head are no
+    16-byte multiples, so the plan stages them by plain loads."""
+    from repro_torch.kernels.aip_step import serve_plan
+    D, NA = chip_smoke.SERVE_WIDTHS[domain]
+    plan = serve_plan(48, D, 66, NA + 1, N)
+    assert not plan.ring_bulk
+    case = chip_smoke.ServeCase(domain, 48, N, seed=70 + N, dev=dev, hp=66)
+    for multi in ((False, True) if N == 1 else (True,)):
+        flips, err = chip_smoke.check_serve(case, multi,
+                                            f"serve {domain} hp=66")
         assert err <= chip_smoke.ATOL and flips <= 1
+
+
+@pytest.mark.parametrize("hp,cols", [(256, 2), (512, 4)])
+def test_serve_kernels_at_wide_hidden_layers(hp, cols, dev):
+    """4096 lanes at hidden 256 and 512: a ring of K-chunks, and register
+    tiles of 2 and 4 columns a thread to stay within 512 threads."""
+    from repro_torch.kernels.aip_step import serve_plan
+    assert serve_plan(4096, 41, hp, 3, 1).cols_per_thread == cols
+    case = chip_smoke.ServeCase("traffic", 4096, 1, seed=90 + cols, dev=dev,
+                                hp=hp)
+    for multi in (False, True):
+        flips, err = chip_smoke.check_serve(case, multi,
+                                            f"serve hidden {hp}")
+        assert err <= chip_smoke.ATOL and flips <= max(
+            1, chip_smoke.MAX_FLIP_SHARE * case.S)
+
+
+def test_serve_launch_refused_raises(dev):
+    """A plan the kernel cannot run is refused and the wrapper raises:
+    no fallback."""
+    import ctypes
+    from repro_torch.kernels import aip_step as cuda
+    case = chip_smoke.ServeCase("traffic", 128, 1, seed=80, dev=dev)
+    args, *_, keep = cuda.serve_args(case.frames, case.mask, None,
+                                     case.single[0], fast_gates=True,
+                                     lead=())
+    args.serve_threads = 1024
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        cuda.launch("ials_serve_forward", "serve_forward", dev,
+                    ctypes.byref(args))
 
 
 @pytest.mark.parametrize("op,label", LAYER_CASES)

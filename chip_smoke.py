@@ -18,12 +18,15 @@ Phases, each printing its result and time on its own line:
      MAX_FLIP_SHARE of the lanes, fails. Kernel and plain-version times
      (CUDA events around each call, median after warm-up) and the
      kernel's device time (``torch.profiler``, without the host's enqueue
-     time) are measured here;
+     time) are measured here; the ``[kernel]`` line of each horizon
+     kernel (``fnn_rollout``, ``policy_rollout``) names the launch plan
+     it took (``aip_step.rollout_plan``);
   3. the main path: ``rl_train --domain traffic --simulator ials`` at full
-     width (FNN AIP, A = 1; then GRU AIP, A = 25), with the launch counters
-     zeroed before each run and read after it: ``policy_rollout`` must
-     launch once per PPO iteration, losses must be finite and the GS
-     evaluation reward in [0, 1];
+     width (FNN AIP, A = 1, twice with the same seed; then GRU AIP,
+     A = 25), with the launch counters zeroed before each run and read
+     after it: ``policy_rollout`` must launch once per PPO iteration,
+     losses must be finite, the GS evaluation reward in [0, 1], and the
+     two FNN runs must give the same losses and GS evaluation bitwise;
   4. the engine's own entry points (``engine.rollout`` per backbone,
      ``engine.step`` with the GRU AIP), counters zeroed before and read
      after: ``fnn_rollout``, ``aip_rollout_multi`` and ``aip_step`` must
@@ -72,7 +75,7 @@ replaces, launches on its path, max error, times and the card's bound;
 ``flash_attention[f32]`` the CUDA-core one, timed at ``qwen3_4b f32``;
 ``flips`` counts the decisions that flipped for the kernels that make
 decisions, phases 2 and 5, and is null for the layer kernels, which make
-none),
+none; ``plan`` is the launch plan of the horizon kernels, else null),
 the ``nvidia-smi`` line, and last ``{"ok": true, "device": ...}``. Any
 failure prints its reason on stderr and as a ``chip_smoke: FAILED`` line
 on stdout, and exits 1.
@@ -249,6 +252,7 @@ class Case:
         g = torch.Generator(device=dev)
         g.manual_seed(seed)
         self.kind, self.A, self.B, self.T = kind, A, B, T
+        self.fast_gates = True     # the policy's gates (False: tanh)
         L = A * B
         self.ls_env = make_batched_local_traffic_env(TrafficConfig(), dev)
         spec = self.ls_env.spec
@@ -323,11 +327,11 @@ class Case:
                 self.gumbel, self.bits, self.done, (), self.reset_ls)
         if plain:
             return ref.policy_rollout_ref(
-                *args, kind=self.kind, n_agents=self.A, fast_gates=True,
-                tick_fn=self.io.tick_fn, dset_fn=self.io.dset_fn,
-                obs_fn=self.io.obs_fn, trace=trace)
+                *args, kind=self.kind, n_agents=self.A,
+                fast_gates=self.fast_gates, tick_fn=self.io.tick_fn,
+                dset_fn=self.io.dset_fn, obs_fn=self.io.obs_fn, trace=trace)
         return cuda.policy_rollout(*args, kind=self.kind, n_agents=self.A,
-                                   fast_gates=True,
+                                   fast_gates=self.fast_gates,
                                    domain=self.ls_env.kernel_domain)
 
     def flops_per_lane_tick(self, policy):
@@ -473,10 +477,12 @@ def run_case(name, kind, A, B, T, seed, dev, policy, timed):
     check = check_policy if policy else check_rollout
     flips, err = check(case, f"{name} A={A} B={B} T={T}")
     rec = dict(max_abs_err=err, flips=flips)
+    if policy or kind == "fnn":
+        rec["plan"] = rollout_plan_text(case, policy)
     call = case.policy_call if policy else case.rollout_call
     if timed:
         rec["ms"] = time_cuda(call)
-        rec["device_ms"] = device_ms(call, reps=3, warmup=1)
+        rec["device_ms"] = device_ms(call, reps=10, warmup=2)
         rec["plain_ms"] = time_cuda(lambda: call(plain=True), reps=3,
                                     warmup=1)
         out = call()
@@ -489,8 +495,22 @@ def run_case(name, kind, A, B, T, seed, dev, policy, timed):
         f"max err {err:.3g}"
         + (f", ms {rec['ms']:.3f} (device {rec['device_ms']}), plain ms "
            f"{rec['plain_ms']:.3f}"
-           if timed else ""))
+           if timed else "")
+        + (f"; plan {rec['plan']}" if "plan" in rec else ""))
     return rec
+
+
+def rollout_plan_text(case, policy):
+    """The launch plan a horizon kernel takes for ``case``, as one line."""
+    from repro_torch.kernels.aip_step import RolloutWidths, rollout_plan
+    a, c = case.acfg, case.pcfg
+    w = RolloutWidths(D=a.d_in, H=a.hidden, M=a.n_out, stack=a.stack,
+                      S=case.frames0.shape[1], obs_dim=c.obs_dim,
+                      Hp=c.hidden, n_act=c.n_actions)
+    p = rollout_plan(case.A, case.B, w, case.kind, policy)
+    return (f"lanes/tile {p.lanes}, cluster {p.cluster}, grid {p.grid}, "
+            f"threads {p.threads}, K-splits {p.splits}, smem "
+            f"{p.smem_roles[0]}/{p.smem_roles[1]}")
 
 
 # ---------------------------------------------------------------------------
@@ -614,6 +634,8 @@ def _train(argv):
     torch.cuda.synchronize()
     launches = dict(cuda.LAUNCHES)
     hist = out["history"]
+    launches["history"] = [(r["loss"], r.get("gs_eval_reward"))
+                           for r in hist]
     for row in hist:
         if not math.isfinite(row["loss"]):
             raise AssertionError(f"non-finite loss: {row}")
@@ -638,6 +660,13 @@ def phase_main_path():
               "--eval-every", "1", "--collect-episodes", "64",
               "--aip-epochs", "2", "--device", "cuda", "--seed", "0"]
     fnn, n_fnn = _train(common + ["--iterations", "3", "--aip", "fnn"])
+    again, _ = _train(common + ["--iterations", "3", "--aip", "fnn"])
+    hist = fnn.pop("history")
+    if hist != again.pop("history") or again != fnn:
+        raise AssertionError("the FNN main path does not repeat itself "
+                             "bitwise with the same seed")
+    log(f"[train] the FNN main path repeated itself bitwise: (loss, GS "
+        f"eval) per iteration {hist!r}, launch counts equal")
     gru, n_gru = _train(common + ["--iterations", "2", "--n-agents", "25",
                                   "--aip", "gru"])
     if fnn["policy_rollout_fnn"] != n_fnn:
@@ -648,6 +677,7 @@ def phase_main_path():
         raise AssertionError(f"policy_rollout[gru] launched "
                              f"{gru['policy_rollout_gru']} times in "
                              f"{n_gru} iterations")
+    gru.pop("history")
     log(f"[counts] main path FNN A=1: {fnn}; GRU A=25: {gru}")
     return {"policy_rollout[fnn]": fnn["policy_rollout_fnn"],
             "policy_rollout[gru]": gru["policy_rollout_gru"]}
@@ -1387,7 +1417,7 @@ def main():
             "device_ms": rec["device_ms"],
             "library_device_ms": rec.get("library_device_ms"),
             "path": PATHS.get(name, "engine entry points"),
-            "flips": rec["flips"]})
+            "flips": rec["flips"], "plan": rec.get("plan")})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

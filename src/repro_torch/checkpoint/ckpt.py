@@ -14,8 +14,11 @@ checkpoints. Leaves are visited in ``tree.tree_leaves`` order and named by
 and ``keystr`` paths, and the metadata goes through ``mpack`` (byte-equal
 to ``msgpack.packb``): a checkpoint written by either package is read by
 the other. Leaves are tensors (or Python scalars) and come back as
-tensors of the target leaf's dtype on its device. Dtypes that numpy only
-knows through ``ml_dtypes`` (bfloat16, the float8 family) raise.
+tensors of the target leaf's dtype on its device. A leaf of a dtype that
+numpy knows only through ``ml_dtypes`` (bfloat16, the float8 family) is
+stored as the reference stores it, as its raw bytes under JAX's dtype
+name, and restored bitwise through torch's dtype of that name, so no
+``ml_dtypes`` is needed; a dtype that torch cannot name raises.
 """
 from __future__ import annotations
 
@@ -37,24 +40,37 @@ _NP_DTYPES = frozenset((
     "bool", "int8", "int16", "int32", "int64", "uint8", "uint16", "uint32",
     "uint64", "float16", "float32", "float64", "complex64", "complex128"))
 
+# dtypes numpy holds only through ml_dtypes, which torch names the same
+# way (JAX's names): stored as raw bytes, viewed back through torch
+_TORCH_ONLY = {name: getattr(torch, name) for name in (
+    "bfloat16", "float8_e4m3fn", "float8_e5m2", "float8_e4m3fnuz",
+    "float8_e5m2fnuz", "float8_e8m0fnu") if hasattr(torch, name)}
+
 
 def _leaf_key(i: int) -> str:
     return f"leaf_{i:05d}"
 
 
-def _no_ml_dtypes(dtype: str, what: str) -> ValueError:
-    return ValueError(f"{what}: dtype {dtype} needs ml_dtypes, which the "
-                      f"port does not use (the policy and optimizer leaves "
-                      f"are float32)")
+def _unnamed(dtype: str, what: str) -> ValueError:
+    return ValueError(f"{what}: dtype {dtype} has no torch counterpart, so "
+                      f"the port can neither write nor read it")
 
 
-def _to_numpy(x, path: str) -> np.ndarray:
+def _to_bytes(x, path: str):
+    """A leaf -> (flat uint8 array of its bytes, dtype name, shape)."""
     if isinstance(x, torch.Tensor):
         name = str(x.dtype).removeprefix("torch.")
+        x = x.detach().cpu().contiguous()
+        if name in _TORCH_ONLY:
+            raw = x.reshape(-1).view(torch.uint8).numpy()
+            return raw, name, list(x.shape)
         if name not in _NP_DTYPES:
-            raise _no_ml_dtypes(name, f"leaf {path}")
-        return x.detach().cpu().numpy()
-    return np.asarray(x)
+            raise _unnamed(name, f"leaf {path}")
+        x = x.numpy()
+    x = np.asarray(x)
+    arr = np.ascontiguousarray(x)
+    # the original shape (ascontiguousarray makes a 0-d leaf 1-d)
+    return arr.view(np.uint8).reshape(-1), str(arr.dtype), list(x.shape)
 
 
 def save(ckpt_dir: str | Path, step: int, tree: Any,
@@ -70,12 +86,11 @@ def save(ckpt_dir: str | Path, step: int, tree: Any,
     with_paths = tree_leaves_with_path(tree)
     arrays, paths, dtypes, shapes = {}, [], [], []
     for i, (path, x) in enumerate(with_paths):
-        np_x = _to_numpy(x, path)
-        arr = np.ascontiguousarray(np_x)
+        raw, dtype, shape = _to_bytes(x, path)
         paths.append(path)
-        dtypes.append(str(arr.dtype))
-        shapes.append(list(np_x.shape))  # original shape (0-d stays 0-d)
-        arrays[_leaf_key(i)] = arr.view(np.uint8).reshape(-1)
+        dtypes.append(dtype)
+        shapes.append(shape)
+        arrays[_leaf_key(i)] = raw
     np.savez(tmp / "arrays.npz", **arrays)
     meta = {"step": step, "n_leaves": len(with_paths), "paths": paths,
             "dtypes": dtypes, "shapes": shapes, "user": metadata or {}}
@@ -167,19 +182,25 @@ def _leaf(data, meta: Dict, i: int, ref, name: str):
     """Leaf ``i`` of the payload as ``ref``'s kind: a tensor of its dtype
     on its device (uint32 bits keep their int32 storage), or a Python
     scalar for a scalar ``ref``."""
-    dtype = meta["dtypes"][i]
-    if dtype not in _NP_DTYPES:
-        raise _no_ml_dtypes(dtype, f"leaf {name}")
-    arr = data[_leaf_key(i)].view(np.dtype(dtype)).reshape(meta["shapes"][i])
-    if tuple(arr.shape) != tuple(np.shape(ref)):
-        raise ValueError(f"leaf {name}: checkpoint shape {arr.shape} "
+    dtype, shape = meta["dtypes"][i], tuple(meta["shapes"][i])
+    raw = data[_leaf_key(i)]
+    if dtype in _TORCH_ONLY:
+        t = torch.from_numpy(np.array(raw)).view(_TORCH_ONLY[dtype])
+        t = t.reshape(shape)
+    elif dtype in _NP_DTYPES:
+        arr = raw.view(np.dtype(dtype)).reshape(shape)
+        if arr.dtype == np.uint32 and isinstance(ref, torch.Tensor) \
+                and ref.dtype == torch.int32:
+            arr = arr.view(np.int32)
+        t = torch.from_numpy(np.array(arr))
+    else:
+        raise _unnamed(dtype, f"leaf {name}")
+    if tuple(t.shape) != tuple(np.shape(ref)):
+        raise ValueError(f"leaf {name}: checkpoint shape {tuple(t.shape)} "
                          f"!= target {tuple(np.shape(ref))}")
     if not isinstance(ref, torch.Tensor):
-        return type(ref)(arr.item())
-    if arr.dtype == np.uint32 and ref.dtype == torch.int32:
-        arr = arr.view(np.int32)
-    return torch.from_numpy(np.array(arr)).to(device=ref.device,
-                                              dtype=ref.dtype)
+        return type(ref)(t.item())
+    return t.to(device=ref.device, dtype=ref.dtype)
 
 
 def restore(ckpt_dir: str | Path, target: Any, step: Optional[int] = None):

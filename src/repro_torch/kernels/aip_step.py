@@ -4,14 +4,16 @@ replace).
 
 ``csrc/ials_kernels.cu`` holds five entry points (one GRU AIP tick, the
 GRU and FNN whole-horizon rollouts, the actor-in-the-loop rollout for
-each cell); ``csrc/serve_kernels.cu`` the serving tier's masked slot
-forward for one policy and for N, launched by the plan of
-``serve_plan``; ``csrc/layer_kernels.cu`` the three layer ops
+each cell; the FNN rollout and the actor-in-the-loop ones launched by
+the plan of ``rollout_plan``); ``csrc/serve_kernels.cu`` the serving
+tier's masked slot forward for one policy and for N, launched by the
+plan of ``serve_plan``; ``csrc/layer_kernels.cu`` the three layer ops
 (``gru_sequence``, ``rmsnorm``, ``flash_attention`` on the CUDA cores,
 bound in the modules of those names); ``csrc/flash_wgmma.cu`` the
 tensor-core ``flash_attention`` for bf16 (``wgmma`` fed by TMA). The
-first two share ``csrc/ials_args.cuh``; they and ``layer_kernels.cu``
-include ``csrc/gates.cuh``, the last two ``csrc/flash_args.cuh``. At
+first two share ``csrc/ials_args.cuh`` and ``csrc/smem.cuh`` (mbarriers,
+bulk copies); they and ``layer_kernels.cu`` include ``csrc/gates.cuh``,
+the last two ``csrc/flash_args.cuh``. At
 first use each source is compiled
 with ``nvcc`` for ``sm_90a`` (all at once, one process each) and the
 objects are linked into ONE shared library with a plain C interface,
@@ -45,7 +47,8 @@ import torch
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCES = ("ials_kernels.cu", "serve_kernels.cu", "layer_kernels.cu",
             "flash_wgmma.cu")
-_HEADERS = ("gates.cuh", "ials_args.cuh", "flash_args.cuh", "wgmma.cuh")
+_HEADERS = ("gates.cuh", "ials_args.cuh", "flash_args.cuh", "wgmma.cuh",
+            "smem.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -72,7 +75,8 @@ _INT_FIELDS = ("T", "A", "B", "D", "H", "M", "stack", "S", "obs_dim", "Hp",
                "n_pol", "serve_lanes", "serve_rows_per_thread",
                "serve_cols_per_thread", "serve_chunk_rows", "serve_stages",
                "serve_threads", "serve_smem", "serve_policy_blocks",
-               "serve_flags")
+               "serve_flags", "roll_lanes", "roll_rows_per_thread",
+               "roll_cluster", "roll_threads", "roll_smem")
 
 
 class IalsArgs(ctypes.Structure):
@@ -87,7 +91,8 @@ class IalsArgs(ctypes.Structure):
                  ("logits_out", _P), ("v_out", _P), ("rew_out", _P),
                  ("d", _P), ("h", _P), ("h2", _P), ("logits", _P),
                  ("u", _P), ("mask", _P), ("pidx", _P)]
-                + [(n, _I) for n in _INT_FIELDS])
+                + [(n, _I) for n in _INT_FIELDS]
+                + [("roll_split", _I * 6)])
 
 
 _DOMAINS = {"traffic": 0}
@@ -293,8 +298,14 @@ def aip_step(d, h, wx, wh, b, hw, hb, bits):
     return tuple(o[:, 0] for o in out)
 
 
-def _rollout(entry, counter, ls, s0, weights, actions, bits, noise, *,
-             n_agents, domain, D, H, M, stack):
+def rollout_args(ls, s0, weights, actions, bits, noise, *, n_agents,
+                 domain, D, H, M, stack, cell=None, lanes=None,
+                 threads=None):
+    """Check a whole-horizon rollout's inputs, allocate its outputs and
+    fill its IalsArgs -> (args, outputs, inputs kept alive). With
+    ``cell`` ("fnn") the launch plan of ``rollout_plan`` goes into the
+    arguments (``lanes`` / ``threads`` override it); without, the first
+    body's fixed tile (``aip_rollout_multi``)."""
     if noise:
         raise NotImplementedError("LS noise leaves have no device functor "
                                   "yet (traffic draws none)")
@@ -303,15 +314,19 @@ def _rollout(entry, counter, ls, s0, weights, actions, bits, noise, *,
     if L % A:
         raise ValueError(f"lane count {L} not divisible by n_agents={A}")
     T = actions.shape[0]
-    lanes, phase = _traffic_leaves(ls, L, domain)
+    lanes_in, phase = _traffic_leaves(ls, L, domain)
     s0 = _f32(s0, "s0", (L, SD))
     actions = _i32(actions, "actions", (T, L))
     bits = _i32(bits, "bits", (T, L, M))
-    lanes_out, phase_out = torch.empty_like(lanes), torch.empty_like(phase)
+    lanes_out, phase_out = torch.empty_like(lanes_in), torch.empty_like(phase)
     s_out = torch.empty_like(s0)
     rew = torch.empty((T, L), dtype=torch.float32, device=s0.device)
     args = _base_args(A, L // A, D, H, M, domain, T=T, stack=stack)
-    args.ls_in[0], args.ls_in[1] = lanes.data_ptr(), phase.data_ptr()
+    if cell is not None:
+        _set_plan(args, rollout_plan(
+            A, L // A, RolloutWidths(D=D, H=H, M=M, stack=stack), cell,
+            False, lanes=lanes, threads=threads))
+    args.ls_in[0], args.ls_in[1] = lanes_in.data_ptr(), phase.data_ptr()
     args.ls_out[0], args.ls_out[1] = (lanes_out.data_ptr(),
                                       phase_out.data_ptr())
     args.s0, args.s_out = s0.data_ptr(), s_out.data_ptr()
@@ -319,8 +334,8 @@ def _rollout(entry, counter, ls, s0, weights, actions, bits, noise, *,
         args.aw[i] = w.data_ptr()
     args.actions, args.bits = actions.data_ptr(), bits.data_ptr()
     args.rew_out = rew.data_ptr()
-    launch(entry, counter, s0.device, ctypes.byref(args))
-    return (lanes_out, phase_out), s_out, rew
+    return (args, ((lanes_out, phase_out), s_out, rew),
+            (lanes_in, phase, s0, actions, bits, weights))
 
 
 def aip_rollout_multi(ls, h0, wx, wh, b, hw, hb, actions, bits, noise, *,
@@ -334,15 +349,19 @@ def aip_rollout_multi(ls, h0, wx, wh, b, hw, hb, actions, bits, noise, *,
     ws = [_f32(wx, "wx", (A, D, 3 * H)), _f32(wh, "wh", (A, H, 3 * H)),
           _f32(b, "b", (A, 3 * H)), _f32(hw, "hw", (A, H, M)),
           _f32(hb, "hb", (A, M))]
-    return _rollout("ials_aip_rollout_multi", "aip_rollout_multi", ls, h0,
-                    ws, actions, bits, noise, n_agents=n_agents,
-                    domain=domain, D=D, H=H, M=M, stack=1)
+    args, out, keep = rollout_args(ls, h0, ws, actions, bits, noise,
+                                   n_agents=n_agents, domain=domain, D=D,
+                                   H=H, M=M, stack=1)
+    launch("ials_aip_rollout_multi", "aip_rollout_multi", keep[2].device,
+           ctypes.byref(args))
+    return out
 
 
 def fnn_rollout(ls, buf0, w1, b1, w2, b2, hw, hb, actions, bits, noise, *,
                 n_agents: int, domain):
-    """Whole-horizon IALS rollout, FNN backbone, ONE launch: buf0 (L,
-    stack*d_in) flat frame buffers; otherwise as ``aip_rollout_multi``."""
+    """Whole-horizon IALS rollout, FNN backbone, ONE launch by the plan of
+    ``rollout_plan``: buf0 (L, stack*d_in) flat frame buffers; otherwise
+    as ``aip_rollout_multi``."""
     A, SD, K = w1.shape
     M = hw.shape[2]
     D = 4 * domain.lane_len if domain is not None else 0
@@ -352,19 +371,22 @@ def fnn_rollout(ls, buf0, w1, b1, w2, b2, hw, hb, actions, bits, noise, *,
     ws = [_f32(w1, "w1", (A, SD, K)), _f32(b1, "b1", (A, K)),
           _f32(w2, "w2", (A, K, K)), _f32(b2, "b2", (A, K)),
           _f32(hw, "hw", (A, K, M)), _f32(hb, "hb", (A, M))]
-    return _rollout("ials_fnn_rollout", "fnn_rollout", ls, buf0, ws,
-                    actions, bits, noise, n_agents=n_agents, domain=domain,
-                    D=D, H=K, M=M, stack=SD // D)
+    args, out, keep = rollout_args(ls, buf0, ws, actions, bits, noise,
+                                   n_agents=n_agents, domain=domain, D=D,
+                                   H=K, M=M, stack=SD // D, cell="fnn")
+    launch("ials_fnn_rollout", "fnn_rollout", keep[2].device,
+           ctypes.byref(args))
+    return out
 
 
-def policy_rollout(ls, s0, frames0, aip_w, pol_w, gumbel, bits, done,
-                   noise, reset_ls, *, kind: str, n_agents: int,
-                   fast_gates: bool, domain):
-    """A whole PPO acting horizon in ONE launch (policy forward,
-    Gumbel-argmax, AIP cell ``kind`` and draw, LS tick, frame refill,
-    streamed resets). Layout as ``ref.policy_rollout_ref`` -> (final ls,
-    s_T, frames_T, x (T, L, S), a (T, L) int32, logits (T, L, NA),
-    v (T, L), r (T, L))."""
+def policy_rollout_args(ls, s0, frames0, aip_w, pol_w, gumbel, bits, done,
+                        noise, reset_ls, *, kind: str, n_agents: int,
+                        fast_gates: bool, domain, lanes=None, cluster=None,
+                        threads=None):
+    """Check ``policy_rollout``'s inputs, allocate its outputs and fill
+    its IalsArgs with the launch plan of ``rollout_plan`` (``lanes``,
+    ``cluster``, ``threads`` override it) -> (entry, counter, args,
+    outputs, plan, inputs kept alive)."""
     if noise:
         raise NotImplementedError("LS noise leaves have no device functor "
                                   "yet (traffic draws none)")
@@ -374,7 +396,7 @@ def policy_rollout(ls, s0, frames0, aip_w, pol_w, gumbel, bits, done,
         raise ValueError(f"lane count {L} not divisible by n_agents={A}")
     T, _, NA = gumbel.shape
     S = frames0.shape[1]
-    lanes, phase = _traffic_leaves(ls, L, domain)
+    lanes_in, phase = _traffic_leaves(ls, L, domain)
     r_lanes, r_phase = _traffic_leaves(reset_ls, L, domain, prefix=(T,))
     D = 4 * domain.lane_len
     obs_dim = D + 1
@@ -405,7 +427,10 @@ def policy_rollout(ls, s0, frames0, aip_w, pol_w, gumbel, bits, done,
     bits = _i32(bits, "bits", (T, L, M))
     done = _i32(done, "done", (T, L))
     dev = s0.device
-    lanes_out, phase_out = torch.empty_like(lanes), torch.empty_like(phase)
+    plan = rollout_plan(A, L // A, RolloutWidths(
+        D=D, H=H, M=M, stack=stack, S=S, obs_dim=obs_dim, Hp=Hp, n_act=NA),
+        kind, True, lanes=lanes, cluster=cluster, threads=threads)
+    lanes_out, phase_out = torch.empty_like(lanes_in), torch.empty_like(phase)
     s_out, f_out = torch.empty_like(s0), torch.empty_like(frames0)
     x = torch.empty((T, L, S), dtype=torch.float32, device=dev)
     a = torch.empty((T, L), dtype=torch.int32, device=dev)
@@ -415,7 +440,8 @@ def policy_rollout(ls, s0, frames0, aip_w, pol_w, gumbel, bits, done,
     args = _base_args(A, L // A, D, H, M, domain, T=T, stack=stack, S=S,
                       obs_dim=obs_dim, Hp=Hp, n_act=NA,
                       fast_gates=int(fast_gates))
-    args.ls_in[0], args.ls_in[1] = lanes.data_ptr(), phase.data_ptr()
+    _set_plan(args, plan)
+    args.ls_in[0], args.ls_in[1] = lanes_in.data_ptr(), phase.data_ptr()
     args.ls_out[0], args.ls_out[1] = (lanes_out.data_ptr(),
                                       phase_out.data_ptr())
     args.reset_ls[0], args.reset_ls[1] = (r_lanes.data_ptr(),
@@ -431,8 +457,266 @@ def policy_rollout(ls, s0, frames0, aip_w, pol_w, gumbel, bits, done,
     args.x_out, args.a_out, args.logits_out = (x.data_ptr(), a.data_ptr(),
                                                logits.data_ptr())
     args.v_out, args.rew_out = v.data_ptr(), r.data_ptr()
-    launch(entry, counter, dev, ctypes.byref(args))
-    return ((lanes_out, phase_out), s_out, f_out, x, a, logits, v, r)
+    out = ((lanes_out, phase_out), s_out, f_out, x, a, logits, v, r)
+    keep = (lanes_in, phase, r_lanes, r_phase, s0, frames0, aw, pw, gumbel,
+            bits, done)
+    return entry, counter, args, out, plan, keep
+
+
+def policy_rollout(ls, s0, frames0, aip_w, pol_w, gumbel, bits, done,
+                   noise, reset_ls, *, kind: str, n_agents: int,
+                   fast_gates: bool, domain):
+    """A whole PPO acting horizon in ONE launch (policy forward,
+    Gumbel-argmax, AIP cell ``kind`` and draw, LS tick, frame refill,
+    streamed resets), by the plan of ``rollout_plan``. Layout as
+    ``ref.policy_rollout_ref`` -> (final ls, s_T, frames_T, x (T, L, S),
+    a (T, L) int32, logits (T, L, NA), v (T, L), r (T, L))."""
+    entry, counter, args, out, _, keep = policy_rollout_args(
+        ls, s0, frames0, aip_w, pol_w, gumbel, bits, done, noise, reset_ls,
+        kind=kind, n_agents=n_agents, fast_gates=fast_gates, domain=domain)
+    launch(entry, counter, keep[4].device, ctypes.byref(args))
+    return out
+
+
+# the rollout kernels' launch plan (csrc/ials_kernels.cu reads it from
+# IalsArgs and refuses one it cannot run)
+ROLL_SMEM_MAX = 232_448     # dynamic shared bytes a block may use (H100)
+ROLL_SMS = 132              # SMs: the plan widens tiles to stay one wave
+ROLL_SM_SMEM = 233_472      # shared bytes an SM holds (228 KB), 1 KB of it
+ROLL_CTA_RESERVED = 1_024   # reserved for each resident CTA
+ROLL_SM_THREADS = 2_048
+ROLL_SM_REGS = 65_536       # registers an SM holds; the kernel may take
+ROLL_THREAD_REGS = 128      # 65,536 / ROLL_MAX_THREADS a thread
+ROLL_LANES = (1, 2, 4, 8, 16, 32)
+ROLL_THREADS = 256          # threads a CTA for tiles of up to 16 lanes,
+ROLL_THREADS_WIDE = 512     # and of 32 (tools/rollout_ablation.py: 256
+#                             beat 512 by 5-13 % at 4-16 lanes a tile and
+#                             lost by 5-12 % at 32)
+ROLL_MAX_THREADS = 512      # the kernel's __launch_bounds__
+ROLL_MAX_SPLIT = 16         # K-parts of one product at most
+ROLL_MIN_CHAIN = 8          # k-steps a part at least
+TRAFFIC_STATE_INTS = 5      # TrafficDomain::kStateInts
+
+
+@dataclasses.dataclass(frozen=True)
+class RolloutWidths:
+    """The widths a rollout launch runs at: the AIP's d-set D, hidden H
+    and influence sources M, the FNN's stack; with the policy its frame
+    width S, the observation obs_dim, hidden Hp and actions n_act."""
+    D: int
+    H: int
+    M: int
+    stack: int = 1
+    S: int = 0
+    obs_dim: int = 0
+    Hp: int = 0
+    n_act: int = 0
+    state_ints: int = TRAFFIC_STATE_INTS
+
+
+@dataclasses.dataclass(frozen=True)
+class RolloutPlan:
+    """How one ``fnn_rollout`` / ``policy_rollout`` launch covers A x B
+    lanes (``rollout_plan``)."""
+    A: int
+    B: int
+    cell: str
+    with_policy: bool
+    lanes: int            # lanes a tile (one agent's)
+    rows_per_thread: int  # rows of a thread's register tile
+    cluster: int          # CTAs a tile: 1 (one CTA runs it all) or 2
+    #                       (rank 0 the policy, rank 1 the AIP and LS)
+    threads: int
+    splits: tuple         # K-parts of the six products (policy l1, l2,
+    #                       head; AIP l1 / gx, l2 / gh, head)
+    layers: tuple         # their (K, N); (0, 0) where a product is absent
+    smem_roles: tuple     # dynamic shared bytes of (policy, AIP) roles
+    smem: int             # dynamic shared bytes of the launch
+
+    @property
+    def tiles(self):
+        return self.A * -(-self.B // self.lanes)
+
+    @property
+    def grid(self):
+        return self.tiles * self.cluster
+
+
+def _layers(w: RolloutWidths, cell: str, with_policy: bool):
+    pol = ((w.S, w.Hp), (w.Hp, w.Hp), (w.Hp, w.n_act + 1)) if with_policy \
+        else ((0, 0),) * 3
+    if cell == "fnn":
+        aip = ((w.stack * w.D, w.H), (w.H, w.H), (w.H, w.M))
+    else:
+        aip = ((w.D, 3 * w.H), (w.H, 3 * w.H), (w.H, w.M))
+    return pol + aip
+
+
+def _split(K, N, G, threads):
+    """K-parts of one product: the most (a power of two up to
+    ROLL_MAX_SPLIT) whose items (row groups x columns x parts) still fit
+    the block in one pass, each part at least ROLL_MIN_CHAIN k-steps."""
+    ks = 1
+    while (ks * 2 <= ROLL_MAX_SPLIT and G * N * ks * 2 <= threads
+           and K // (ks * 2) >= ROLL_MIN_CHAIN):
+        ks *= 2
+    return ks
+
+
+def _r16(n_bytes):
+    return (n_bytes + 15) // 16 * 16
+
+
+def roll_smem(w: RolloutWidths, cell: str, R: int, splits, layers):
+    """Dynamic shared bytes of (the policy role, the AIP role): the order
+    and sizes of ``ials_kernels.cu::roll_layout`` (each region rounded up
+    to 16 bytes; the barrier's 16 bytes counted in each role). The
+    policy's bytes are 0 without it."""
+    f = 4
+
+    def part(idx):
+        return [splits[i] * layers[i][1] * R if splits[i] > 1 else 0
+                for i in idx]
+    pol = 0
+    if layers[0][0]:
+        NH = w.n_act + 1
+        pol = (16 + sum(_r16(f * n) for n in (
+            w.S * w.Hp, w.Hp, w.Hp * w.Hp, w.Hp, w.Hp * NH, NH))
+            + sum(_r16(f * n) for n in (
+                2 * w.S * R, w.Hp * R, w.Hp * R, NH * R, w.obs_dim * R,
+                R * w.n_act, R, max(part((0, 1, 2))))))
+    if cell == "fnn":
+        SD = w.stack * w.D
+        pieces = (SD * w.H, w.H, w.H * w.H, w.H, w.H * w.M, w.M)
+        state = (SD * R, 0, w.H * R, w.H * R)
+        p3, p4, p5 = part((3, 4, 5))
+        scratch = max(p3, p4, p5)
+    else:
+        G3 = 3 * w.H
+        pieces = (w.D * G3, w.H * G3, G3, w.H * w.M, w.M)
+        state = (w.H * R, w.D * R, G3 * R, G3 * R)
+        p3, p4, p5 = part((3, 4, 5))
+        scratch = max(p3 + p4, p5)
+    aip = (16 + sum(_r16(f * n) for n in pieces)
+           + sum(_r16(f * n) for n in state + (
+               w.M * R, R * w.M, R * w.state_ints, R, R, scratch)))
+    return pol, aip
+
+
+def roll_resident(cluster: int, threads: int, smem: int) -> int:
+    """CTAs of a horizon launch the card holds at once: one an SM; with
+    the policy (a cluster of two), two clusters share an SM where both fit
+    (each role waits on the other once a tick, and the other cluster's CTA
+    fills that wait)."""
+    if cluster == 1:
+        return ROLL_SMS
+    per_sm = min(ROLL_SM_THREADS // threads,
+                 ROLL_SM_REGS // (ROLL_THREAD_REGS * threads),
+                 ROLL_SM_SMEM // (smem + ROLL_CTA_RESERVED), 2)
+    return ROLL_SMS * max(per_sm, 1)
+
+
+def rollout_plan(A: int, B: int, widths: RolloutWidths, cell: str,
+                 with_policy: bool, *, lanes: int | None = None,
+                 cluster: int | None = None,
+                 threads: int | None = None) -> RolloutPlan:
+    """The launch plan of ``fnn_rollout`` (``with_policy`` False, cell
+    "fnn") and ``policy_rollout`` (either cell) over A agents x B lanes:
+    a tile of lanes of one agent per CTA, or per cluster of two CTAs with
+    the policy; lanes a tile the fewest whose grid the card holds at once
+    (``roll_resident``; fewer lanes a tile, shorter ticks:
+    tools/rollout_ablation.py), halved
+    while the weights and state do not fit shared memory; ROLL_THREADS
+    threads a CTA (ROLL_THREADS_WIDE at 32 lanes); the K-parts of each
+    product from ``_split``. ``lanes``, ``cluster`` and ``threads``
+    override. Raises ValueError for a plan that cannot fit."""
+    w = widths
+    if cell not in ("fnn", "gru"):
+        raise ValueError(f"rollout_plan: unknown cell {cell!r}")
+    if not with_policy and cell != "fnn":
+        raise ValueError("rollout_plan: only fnn_rollout runs this body "
+                         "without the policy")
+    for name in ("D", "H", "M", "stack") + (
+            ("S", "obs_dim", "Hp", "n_act") if with_policy else ()):
+        if getattr(w, name) < 1:
+            raise ValueError(f"rollout_plan: {name} = {getattr(w, name)}")
+    if A < 1 or B < 1:
+        raise ValueError(f"rollout_plan: A = {A}, B = {B}")
+    if with_policy and (w.n_act < 2 or w.obs_dim > w.S):
+        raise ValueError("rollout_plan: the policy needs two actions and "
+                         "a frame of at least one observation")
+    if cluster is None:
+        cluster = 2 if with_policy else 1
+    if cluster not in ((1, 2) if with_policy else (1,)):
+        raise ValueError(f"rollout_plan: cluster = {cluster} (1, or 2 with "
+                         f"the policy)")
+    if threads is not None and (threads % 32 or
+                                not 32 <= threads <= ROLL_MAX_THREADS):
+        raise ValueError(f"rollout_plan: threads = {threads}")
+    if lanes is not None and lanes not in ROLL_LANES:
+        raise ValueError(f"rollout_plan: lanes = {lanes} not in "
+                         f"{ROLL_LANES}")
+    layers = _layers(w, cell, with_policy)
+
+    def attempt(R):
+        nt = threads or (ROLL_THREADS_WIDE if R > 16 else ROLL_THREADS)
+        RP = min(R, 4)
+        G = R // RP
+        splits = tuple(_split(K, N, G, nt) if K else 1 for K, N in layers)
+        pol, aip = roll_smem(w, cell, R, splits, layers)
+        smem = max(pol, aip) if cluster == 2 else pol + aip
+        return nt, RP, splits, (pol, aip), smem
+
+    if lanes is None:
+        R = 1
+        while R < ROLL_LANES[-1]:
+            nt, _, _, _, smem = attempt(R)
+            if A * -(-B // R) * cluster <= roll_resident(cluster, nt,
+                                                         smem):
+                break
+            R *= 2
+        while R > 1 and attempt(R)[4] > ROLL_SMEM_MAX:
+            R //= 2
+    else:
+        R = lanes
+    nt, RP, splits, roles, smem = attempt(R)
+    need = max(R * w.M, R * (w.n_act if with_policy else 0), R)
+    if smem > ROLL_SMEM_MAX or nt < need:
+        raise ValueError(
+            f"rollout_plan: cell {cell} at widths {w} with{'' if with_policy else 'out'} "
+            f"the policy, {R} lanes a tile, cluster {cluster}, {nt} threads "
+            f"needs {smem} shared bytes (at most {ROLL_SMEM_MAX}) and "
+            f"{need} threads")
+    return RolloutPlan(A=A, B=B, cell=cell, with_policy=with_policy,
+                       lanes=R, rows_per_thread=RP, cluster=cluster,
+                       threads=nt, splits=splits, layers=layers,
+                       smem_roles=roles, smem=smem)
+
+
+def rollout_items(plan: RolloutPlan, layer: int):
+    """The (row, column, part) items product ``layer`` hands to the
+    threads, as ``ials_kernels.cu::gemm_items`` enumerates them: item i
+    -> column i % N, row group (i / N) % G, part i / (N G); a part covers
+    k in [part * ceil(K / KS), ...). -> {thread: [(rows, n, (k0, k1))]}"""
+    K, N = plan.layers[layer]
+    R, RP, KS = plan.lanes, plan.rows_per_thread, plan.splits[layer]
+    G = R // RP
+    kl = -(-K // KS)
+    out = {}
+    for i in range(G * N * KS):
+        n, g, part = i % N, (i // N) % G, i // (N * G)
+        out.setdefault(i % plan.threads, []).append(
+            (tuple(range(g * RP, (g + 1) * RP)), n,
+             (min(K, part * kl), min(K, (part + 1) * kl))))
+    return out
+
+
+def _set_plan(args, plan: RolloutPlan):
+    args.roll_lanes, args.roll_rows_per_thread = (plan.lanes,
+                                                  plan.rows_per_thread)
+    args.roll_cluster, args.roll_threads = plan.cluster, plan.threads
+    args.roll_smem = plan.smem
+    args.roll_split[:] = plan.splits
 
 
 # the serving kernels' launch plan (csrc/serve_kernels.cu reads it from

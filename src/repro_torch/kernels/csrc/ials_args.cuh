@@ -44,4 +44,12 @@ struct IalsArgs {
   long long serve_lanes, serve_rows_per_thread, serve_cols_per_thread;
   long long serve_chunk_rows, serve_stages, serve_threads, serve_smem;
   long long serve_policy_blocks, serve_flags;
+  // the horizon kernels' launch plan (aip_step.py::rollout_plan): lanes a
+  // tile, rows of a thread's register tile, CTAs a tile (1, or 2: the
+  // policy on rank 0, the AIP and LS on rank 1), threads per CTA,
+  // dynamic shared bytes, K-parts of the six products (policy l1, l2,
+  // head; AIP l1 / gx, l2 / gh, head)
+  long long roll_lanes, roll_rows_per_thread, roll_cluster, roll_threads;
+  long long roll_smem;
+  long long roll_split[6];
 };

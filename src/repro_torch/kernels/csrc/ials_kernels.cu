@@ -9,9 +9,8 @@
 //   ials_policy_rollout_gru  <- aip_step.py::policy_rollout (kind="gru")
 //   ials_policy_rollout_fnn  <- aip_step.py::policy_rollout (kind="fnn")
 //
-// One source holds the shared device code, templated over the AIP cell
-// (GruCell / FnnCell) and the local-simulator domain (TrafficDomain):
-// uniform_from_bits, the three cells of
+// One source holds the shared device code, templated over the local-
+// simulator domain (TrafficDomain): uniform_from_bits, the AIP cells of
 // aip_step.py:73-135, and the traffic functor (dset, tick, obs) that the
 // Pallas kernels trace from envs/traffic.py. Plain C entry points take
 // one IalsArgs struct (ials_args.cuh: every field 8 bytes, mirrored by
@@ -19,44 +18,65 @@
 // return cudaGetLastError(). The rational gates and the GRU gate update
 // come from gates.cuh, shared with layer_kernels.cu's gru_sequence.
 //
-// Design (first version, simply right). The Pallas grid (A*nB, T) runs T
-// in order on one TPU core with state in VMEM scratch. Here the lane
-// blocks become CUDA blocks of kRows simulation lanes of ONE agent (the
-// agent is blockIdx.x / blocks_per_agent, so it indexes its own stacked
-// weights), and T becomes a loop inside the block. The tile's LS state,
-// AIP state and policy frame stack stay in shared memory for the whole
-// horizon; only the streamed inputs (actions or Gumbel noise, bits, done,
-// reset states) and the per-tick outputs touch device memory. Each small
-// GEMM splits its output columns over the threads; a thread keeps one
-// weight in a register and applies it to the rows of the tile, so every
-// weight is read once per tile per tick through __ldg (the weights,
-// 99 KB FNN + 87 KB policy, stay L2-resident).
-//
 // Work per lane-tick (fp32 FLOPs at the slice's widths: obs 41, policy
 // hidden 128, two actions; AIP hidden 64, d-set 40, M = 4, FNN stack 8):
 //   policy forward  2*(41*128 + 128*128 + 128*3) = 44,032
 //   FNN AIP         2*(320*64 + 64*64 + 64*4)    = 49,664
 //   GRU AIP         2*(40*192 + 64*192 + 64*4)   = 40,448
-// Bytes streamed per lane-tick: rollout 4 (action) + 16 (bits) in, 4
-// (reward) out; policy_rollout 8 (gumbel) + 16 (bits) + 4 (done) + 164
-// (reset LS leaves) in, 164 (x) + 4 (a) + 8 (logits) + 4 (v) + 4 (r) out.
-// At ~250 FLOP per byte these are far above the card's fp32 ridge (67
-// TFLOP/s over 3.35 TB/s = 20 FLOP/B): the bound is operations, and in
-// practice the latency of T dependent ticks, each a chain of K-long FMA
-// loops and block barriers. Keeping every state on chip is what this
-// design does about it; spreading a tick over more threads (or tensor
-// cores) is later work.
+// At ~250 FLOP per streamed byte these are far above the card's fp32
+// ridge (20 FLOP/B), but the ticks depend on one another: the real bound
+// is T times the critical path of one tick.
+//
+// aip_step and aip_rollout_multi keep the first body (simply right): the
+// Pallas grid (A*nB, T) becomes CUDA blocks of kRows = 16 lanes of ONE
+// agent with T a loop inside the block, all state in shared memory; each
+// small GEMM gives a thread one output column and reads every weight
+// with __ldg inside its K loop, so each k-step waits on L2.
+//
+// fnn_rollout and policy_rollout (both cells) run the horizon kernel
+// (horizon_kernel, launch plan aip_step.py::rollout_plan):
+//  - Weights on chip for the whole horizon: each CTA stages its role's
+//    weights into shared memory once, by bulk asynchronous copies on an
+//    mbarrier (plain loads for a piece that is not 16-byte aligned), and
+//    no product reads global memory after that.
+//  - Two roles: the policy (forward, Gumbel-argmax, frames) and the AIP
+//    and LS (dset, AIP cell and draw, LS tick, resets). With the policy
+//    the plan puts them on the two CTAs of a cluster (the policy's 89 KB
+//    and the FNN AIP's 100 KB do not fit one SM beside the state); they
+//    run the tick's two products side by side, since dset does not read
+//    the action, and meet twice a tick at a cluster barrier: the action
+//    goes to the LS CTA's shared memory, the next observation to the
+//    policy CTA's (distributed shared memory, map_shared_rank).
+//  - A tile is roll_lanes lanes, the fewest whose grid the card holds at
+//    once (fewer lanes, shorter ticks): one lane a tile at the main
+//    path's A = 1, B = 16 (16 clusters), 4 at A = 25, B = 16.
+//  - A product spreads over the block's 256 threads (512 at 32 lanes):
+//    item = (column, row group of up to 4 rows, K-part); a thread's chain
+//    runs its K-part with up to 4 independent accumulators, one shared
+//    weight load (no bank conflict) and one broadcast vector load of the
+//    k-major activations a step. Narrow products (the heads) are cut into
+//    up to 16 K-parts, summed afterwards in part order, so a launch
+//    repeats bitwise. Item coordinates come from a float-reciprocal
+//    divider and shifts (lanes are a power of two), not integer division.
+//  - Streamed inputs of a tick (done, bits, Gumbel noise, actions) are
+//    loaded at the tick's start and used after the products.
+//  - The FNN's frame stack is a ring in shared memory (the new d-set
+//    overwrites the oldest frame), not a shifted copy.
+// Where a tick's time goes: tools/rollout_ablation.py (clock64 marks
+// per phase, weights from L2, no products, other plans).
 //
 // Arithmetic is fp32 throughout. Elementwise gate math uses the _rn
 // intrinsics so the compiler contracts nothing and it rounds exactly as
 // torch's elementwise ops; only the GEMM reduction order differs from
 // the plain PyTorch version.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "gates.cuh"
 #include "ials_args.cuh"
+#include "smem.cuh"
 
 namespace {
 
@@ -199,15 +219,15 @@ struct TrafficDomain {
 };
 
 // ---------------------------------------------------------------------------
-// AIP cells (aip_step.py::_gru_cell / _fnn_cell). Each works on the tile
-// in shared memory: d (kRows, D) -> state update, u (kRows, M). The caller
+// The GRU AIP cell of the first body (aip_step.py::_gru_cell) on the tile
+// in shared memory: d (kRows, D) -> h update, u (kRows, M). The caller
 // has synchronised d; the cell ends synchronised.
 // ---------------------------------------------------------------------------
 
-struct Scratch {        // float offsets into the dynamic shared buffer
-  float* s[2];          // AIP state (ping-pong for the FNN shift)
-  float* c1;            // GRU gx / FNN h1
-  float* c2;            // GRU gh / FNN h2
+struct Scratch {        // regions of the dynamic shared buffer
+  float* h;             // AIP state
+  float* c1;            // gx
+  float* c2;            // gh
   float* d;
   float* logits;
   float* u;
@@ -229,10 +249,8 @@ __device__ void sample_u(const IalsArgs& p, Scratch& sc, const int* bits_row0,
 
 struct GruCell {
   // aw = wx (A, D, 3H), wh (A, H, 3H), b (A, 3H), hw (A, H, M), hb (A, M)
-  static __device__ int state_dim(const IalsArgs& p) { return (int)p.H; }
-
   static __device__ void step(const IalsArgs& p, int agent, Scratch& sc,
-                              int& cur, const int* bits_row0, int nvalid,
+                              const int* bits_row0, int nvalid,
                               long long bits_stride) {
     const int D = (int)p.D, H = (int)p.H, M = (int)p.M, G3 = 3 * H;
     const float* wx = p.aw[0] + (size_t)agent * D * G3;
@@ -240,7 +258,7 @@ struct GruCell {
     const float* b = p.aw[2] + (size_t)agent * G3;
     const float* hw = p.aw[3] + (size_t)agent * H * M;
     const float* hb = p.aw[4] + (size_t)agent * M;
-    float* h = sc.s[cur];
+    float* h = sc.h;
     gemm(sc.d, D, wx, b, D, G3, sc.c1, G3, kNone);     // gx = d @ wx + b
     gemm(h, H, wh, nullptr, H, G3, sc.c2, G3, kNone);  // gh = h @ wh
     __syncthreads();
@@ -259,76 +277,28 @@ struct GruCell {
   }
 };
 
-struct FnnCell {
-  // aw = w1 (A, SD, K), b1 (A, K), w2 (A, K, K), b2 (A, K), hw (A, K, M),
-  // hb (A, M); the state is the flat (stack * D) frame buffer
-  static __device__ int state_dim(const IalsArgs& p) {
-    return (int)(p.stack * p.D);
-  }
-
-  static __device__ void step(const IalsArgs& p, int agent, Scratch& sc,
-                              int& cur, const int* bits_row0, int nvalid,
-                              long long bits_stride) {
-    const int D = (int)p.D, K = (int)p.H, M = (int)p.M;
-    const int SD = (int)(p.stack * p.D);
-    const float* w1 = p.aw[0] + (size_t)agent * SD * K;
-    const float* b1 = p.aw[1] + (size_t)agent * K;
-    const float* w2 = p.aw[2] + (size_t)agent * K * K;
-    const float* b2 = p.aw[3] + (size_t)agent * K;
-    const float* hw = p.aw[4] + (size_t)agent * K * M;
-    const float* hb = p.aw[5] + (size_t)agent * M;
-    const float* src = sc.s[cur];
-    float* buf = sc.s[cur ^ 1];
-    for (int i = threadIdx.x; i < kRows * SD; i += blockDim.x) {
-      const int r = i / SD, j = i % SD;
-      buf[i] = j < SD - D ? src[r * SD + j + D] : sc.d[r * D + j - (SD - D)];
-    }
-    cur ^= 1;
-    __syncthreads();
-    gemm(buf, SD, w1, b1, SD, K, sc.c1, K, kRelu);
-    __syncthreads();
-    gemm(sc.c1, K, w2, b2, K, K, sc.c2, K, kRelu);
-    __syncthreads();
-    gemm(sc.c2, K, hw, hb, K, M, sc.logits, M, kNone);
-    __syncthreads();
-    sample_u(p, sc, bits_row0, nvalid, bits_stride);
-    __syncthreads();
-  }
-};
-
 // ---------------------------------------------------------------------------
 // shared-memory layout of a rollout block
 // ---------------------------------------------------------------------------
 
 struct Layout {
-  int s0, s1, c1, c2, d, logits, u;           // AIP part
-  int f0, f1, ph1, ph2, pout, obs;            // policy part
+  int s0, c1, c2, d, logits, u;               // GRU AIP state and scratch
   int ints;                                   // int region (LS state, a)
   int total_bytes;
 };
 
-Layout make_layout(const IalsArgs& p, bool fnn, bool policy) {
+Layout make_layout(const IalsArgs& p) {
   Layout l{};
   const int R = kRows;
-  const int SD = fnn ? (int)(p.stack * p.D) : (int)p.H;
-  const int c = fnn ? (int)p.H : 3 * (int)p.H;
+  const int c = 3 * (int)p.H;
   int off = 0;
   auto take = [&](int n) { int o = off; off += n; return o; };
-  l.s0 = take(R * SD);
-  l.s1 = fnn ? take(R * SD) : l.s0;
+  l.s0 = take(R * (int)p.H);
   l.c1 = take(R * c);
   l.c2 = take(R * c);
   l.d = take(R * (int)p.D);
   l.logits = take(R * (int)p.M);
   l.u = take(R * (int)p.M);
-  if (policy) {
-    l.f0 = take(R * (int)p.S);
-    l.f1 = take(R * (int)p.S);
-    l.ph1 = take(R * (int)p.Hp);
-    l.ph2 = take(R * (int)p.Hp);
-    l.pout = take(R * (int)(p.n_act + 1));
-    l.obs = take(R * (int)p.obs_dim);
-  }
   l.ints = off;
   const int n_ints = R * (TrafficDomain::kStateInts + 2);
   l.total_bytes = (off + n_ints) * (int)sizeof(float);
@@ -383,19 +353,18 @@ __device__ void store_states(const IalsArgs& p, const Domain& dom,
 // d_t = dset(ls), AIP cell + Bernoulli draw, LS tick + reward.
 // ---------------------------------------------------------------------------
 
-template <class Cell, class Domain>
+template <class Domain>
 __global__ void __launch_bounds__(kThreads)
 rollout_kernel(IalsArgs p, Layout lay, Domain dom) {
   extern __shared__ float smem[];
   const Tile tile = tile_of_block(p);
   const long long L = p.A * p.B;
-  const int SD = Cell::state_dim(p), D = (int)p.D, M = (int)p.M;
-  Scratch sc{{smem + lay.s0, smem + lay.s1}, smem + lay.c1, smem + lay.c2,
-             smem + lay.d, smem + lay.logits, smem + lay.u};
+  const int H = (int)p.H, D = (int)p.D, M = (int)p.M;
+  Scratch sc{smem + lay.s0, smem + lay.c1, smem + lay.c2, smem + lay.d,
+             smem + lay.logits, smem + lay.u};
   int* ls = reinterpret_cast<int*>(smem + lay.ints);
   int* act = ls + kRows * Domain::kStateInts;
-  int cur = 0;
-  load_states(p, dom, tile, sc.s[0], SD, ls);
+  load_states(p, dom, tile, sc.h, H, ls);
   __syncthreads();
   for (long long t = 0; t < p.T; ++t) {
     for (int r = threadIdx.x; r < kRows; r += blockDim.x)
@@ -404,8 +373,8 @@ rollout_kernel(IalsArgs p, Layout lay, Domain dom) {
     for (int i = threadIdx.x; i < kRows * D; i += blockDim.x)
       sc.d[i] = dom.dset_at(ls + (i / D) * Domain::kStateInts, i % D);
     __syncthreads();
-    Cell::step(p, tile.agent, sc, cur, p.bits + (t * L + tile.lane0) * M,
-               tile.nvalid, M);
+    GruCell::step(p, tile.agent, sc, p.bits + (t * L + tile.lane0) * M,
+                  tile.nvalid, M);
     for (int r = threadIdx.x; r < tile.nvalid; r += blockDim.x) {
       const float rew = dom.tick(ls + r * Domain::kStateInts, act[r],
                                  sc.u + r * M, p.noise, t * L + tile.lane0 + r);
@@ -413,110 +382,7 @@ rollout_kernel(IalsArgs p, Layout lay, Domain dom) {
     }
     __syncthreads();
   }
-  store_states(p, dom, tile, sc.s[cur], SD, ls);
-}
-
-// ---------------------------------------------------------------------------
-// actor-in-the-loop rollout (aip_step.py::_policy_rollout_kernel): per
-// tick policy forward on the frame stack -> Gumbel-argmax action -> AIP
-// cell + draw -> LS tick + reward -> obs refills the frame stack -> the
-// streamed done merges in the streamed reset state (AIP state zeroed).
-// ---------------------------------------------------------------------------
-
-template <class Cell, class Domain>
-__global__ void __launch_bounds__(kThreads)
-policy_rollout_kernel(IalsArgs p, Layout lay, Domain dom) {
-  extern __shared__ float smem[];
-  const Tile tile = tile_of_block(p);
-  const long long L = p.A * p.B;
-  const int SD = Cell::state_dim(p), D = (int)p.D, M = (int)p.M;
-  const int S = (int)p.S, Hp = (int)p.Hp, NA = (int)p.n_act, NH = NA + 1;
-  const int d_obs = (int)p.obs_dim;
-  const int gate = p.fast_gates ? kFastTanh : kTanh;
-  Scratch sc{{smem + lay.s0, smem + lay.s1}, smem + lay.c1, smem + lay.c2,
-             smem + lay.d, smem + lay.logits, smem + lay.u};
-  float* fr[2] = {smem + lay.f0, smem + lay.f1};
-  float* ph1 = smem + lay.ph1;
-  float* ph2 = smem + lay.ph2;
-  float* pout = smem + lay.pout;
-  float* obs = smem + lay.obs;
-  int* ls = reinterpret_cast<int*>(smem + lay.ints);
-  int* act = ls + kRows * Domain::kStateInts;
-  int* dn = act + kRows;
-  int cur = 0, fc = 0;
-  load_states(p, dom, tile, sc.s[0], SD, ls);
-  for (int i = threadIdx.x; i < kRows * S; i += blockDim.x) {
-    const int r = i / S;
-    fr[0][i] = r < tile.nvalid ? p.frames0[(tile.lane0 + r) * S + i % S]
-                               : 0.0f;
-  }
-  __syncthreads();
-  for (long long t = 0; t < p.T; ++t) {
-    const long long row0 = t * L + tile.lane0;   // stream row of tile row 0
-    const float* x = fr[fc];
-    // policy forward: two gated layers, then the fused [pi|v] head
-    gemm(x, S, p.pw[0], p.pw[1], S, Hp, ph1, Hp, gate);
-    __syncthreads();
-    gemm(ph1, Hp, p.pw[2], p.pw[3], Hp, Hp, ph2, Hp, gate);
-    __syncthreads();
-    gemm(ph2, Hp, p.pw[4], p.pw[5], Hp, NH, pout, NH, kNone);
-    __syncthreads();
-    for (int r = threadIdx.x; r < kRows; r += blockDim.x) {
-      int best = 0;
-      if (r < tile.nvalid) {
-        const float* g = p.gumbel + (row0 + r) * NA;
-        float bv = __fadd_rn(pout[r * NH], g[0]);
-        for (int j = 1; j < NA; ++j) {
-          const float v = __fadd_rn(pout[r * NH + j], g[j]);
-          if (v > bv) { bv = v; best = j; }
-        }
-        p.a_out[row0 + r] = best;
-        p.v_out[row0 + r] = pout[r * NH + NA];
-        dn[r] = p.done[row0 + r];
-      } else {
-        dn[r] = 0;
-      }
-      act[r] = best;
-    }
-    __syncthreads();   // dset may read the action
-    for (int i = threadIdx.x; i < tile.nvalid * S; i += blockDim.x)
-      p.x_out[row0 * S + i] = x[i];
-    for (int i = threadIdx.x; i < tile.nvalid * NA; i += blockDim.x)
-      p.logits_out[row0 * NA + i] = pout[(i / NA) * NH + i % NA];
-    for (int i = threadIdx.x; i < kRows * D; i += blockDim.x)
-      sc.d[i] = dom.dset_at(ls + (i / D) * Domain::kStateInts, i % D);
-    __syncthreads();
-    Cell::step(p, tile.agent, sc, cur, p.bits + row0 * M, tile.nvalid, M);
-    for (int r = threadIdx.x; r < tile.nvalid; r += blockDim.x) {
-      int* st = ls + r * Domain::kStateInts;
-      p.rew_out[row0 + r] = dom.tick(st, act[r], sc.u + r * M, p.noise,
-                                     row0 + r);
-      if (dn[r]) {
-        const int* rl[kMaxLeaves];
-        for (int k = 0; k < kMaxLeaves; ++k) rl[k] = p.reset_ls[k];
-        // the reset leaves are (T, L, ...): lane index t*L + lane
-        dom.load(rl, row0 + r, st);
-      }
-    }
-    __syncthreads();
-    float* s = sc.s[cur];
-    for (int i = threadIdx.x; i < kRows * SD; i += blockDim.x)
-      if (dn[i / SD]) s[i] = 0.0f;
-    for (int i = threadIdx.x; i < kRows * d_obs; i += blockDim.x)
-      obs[i] = dom.obs_at(ls + (i / d_obs) * Domain::kStateInts, i % d_obs);
-    __syncthreads();
-    float* nx = fr[fc ^ 1];
-    for (int i = threadIdx.x; i < kRows * S; i += blockDim.x) {
-      const int r = i / S, j = i % S;
-      nx[i] = j >= S - d_obs ? obs[r * d_obs + j - (S - d_obs)]
-                             : (dn[r] ? 0.0f : x[r * S + j + d_obs]);
-    }
-    fc ^= 1;
-    __syncthreads();
-  }
-  store_states(p, dom, tile, sc.s[cur], SD, ls);
-  for (int i = threadIdx.x; i < tile.nvalid * S; i += blockDim.x)
-    p.frames_out[tile.lane0 * S + i] = fr[fc][i];
+  store_states(p, dom, tile, sc.h, H, ls);
 }
 
 // ---------------------------------------------------------------------------
@@ -532,8 +398,8 @@ aip_step_kernel(IalsArgs p, Layout lay) {
   const long long left = p.B - b0;
   const int nvalid = left < kRows ? (int)left : kRows;
   const int A = (int)p.A, D = (int)p.D, H = (int)p.H, M = (int)p.M;
-  Scratch sc{{smem + lay.s0, smem + lay.s1}, smem + lay.c1, smem + lay.c2,
-             smem + lay.d, smem + lay.logits, smem + lay.u};
+  Scratch sc{smem + lay.s0, smem + lay.c1, smem + lay.c2, smem + lay.d,
+             smem + lay.logits, smem + lay.u};
   for (int i = threadIdx.x; i < kRows * D; i += blockDim.x) {
     const int r = i / D;
     sc.d[i] = r < nvalid ? p.d[((long long)(b0 + r) * A + agent) * D + i % D]
@@ -541,17 +407,16 @@ aip_step_kernel(IalsArgs p, Layout lay) {
   }
   for (int i = threadIdx.x; i < kRows * H; i += blockDim.x) {
     const int r = i / H;
-    sc.s[0][i] = r < nvalid
+    sc.h[i] = r < nvalid
                      ? p.h[((long long)(b0 + r) * A + agent) * H + i % H]
                      : 0.0f;
   }
   __syncthreads();
-  int cur = 0;
-  GruCell::step(p, agent, sc, cur, p.bits + ((long long)b0 * A + agent) * M,
+  GruCell::step(p, agent, sc, p.bits + ((long long)b0 * A + agent) * M,
                 nvalid, (long long)A * M);
   for (int i = threadIdx.x; i < nvalid * H; i += blockDim.x) {
     const int r = i / H;
-    p.h2[((long long)(b0 + r) * A + agent) * H + i % H] = sc.s[0][i];
+    p.h2[((long long)(b0 + r) * A + agent) * H + i % H] = sc.h[i];
   }
   for (int i = threadIdx.x; i < nvalid * M; i += blockDim.x) {
     const int r = i / M;
@@ -572,38 +437,667 @@ TrafficDomain traffic_of(const IalsArgs& p) {
   return dom;
 }
 
-template <class Cell>
-int launch_rollout(const IalsArgs* args, void* stream, bool fnn) {
-  if (args->domain != 0) return (int)cudaErrorInvalidValue;
-  const Layout lay = make_layout(*args, fnn, false);
-  auto k = rollout_kernel<Cell, TrafficDomain>;
-  cudaError_t e = cudaFuncSetAttribute(
-      k, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.total_bytes);
-  if (e != cudaSuccess) return (int)e;
-  k<<<rollout_grid(*args), kThreads, lay.total_bytes,
-      (cudaStream_t)stream>>>(*args, lay, traffic_of(*args));
-  return (int)cudaGetLastError();
+// ---------------------------------------------------------------------------
+// The horizon kernels of fnn_rollout and policy_rollout (both cells):
+// weights staged on chip once a launch, a tick spread over the block, the
+// policy and the AIP on two CTAs of a cluster. See the design note at the
+// top of this file; the launch plan is aip_step.py::rollout_plan.
+// ---------------------------------------------------------------------------
+
+constexpr int kRollMaxThreads = 512;
+constexpr int kRollMaxSplit = 16;
+constexpr int kRollMaxSmem = 232448;
+constexpr int kRollMaxDevices = 64;
+
+__host__ __device__ __forceinline__ int round16(int bytes) {
+  return (bytes + 15) & ~15;
 }
 
-template <class Cell>
-int launch_policy_rollout(const IalsArgs* args, void* stream, bool fnn) {
-  if (args->domain != 0) return (int)cudaErrorInvalidValue;
-  const Layout lay = make_layout(*args, fnn, true);
-  auto k = policy_rollout_kernel<Cell, TrafficDomain>;
-  cudaError_t e = cudaFuncSetAttribute(
-      k, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.total_bytes);
-  if (e != cudaSuccess) return (int)e;
-  k<<<rollout_grid(*args), kThreads, lay.total_bytes,
-      (cudaStream_t)stream>>>(*args, lay, traffic_of(*args));
-  return (int)cudaGetLastError();
+__host__ __device__ __forceinline__ int imax(int a, int b) {
+  return a > b ? a : b;
 }
 
+// Byte offsets of a CTA's dynamic shared memory, per role, in the order
+// and sizes of aip_step.py::roll_smem: the policy role (rank 0 of a
+// cluster of two) from its base, the AIP role (rank 1) from its; with
+// one CTA a tile the AIP role's base follows the policy role's bytes.
+struct RollLayout {
+  int pbar, pw[6], fr, h1, h2, pout, obs, gum, pdn, ppart, pol_bytes;
+  int ebar, aw[6], state, d, c1, c2, lg, u, ls, act, edn, epart, aip_bytes;
+  int n_aw;
+};
+
+__host__ __device__ inline int roll_part(const IalsArgs& p, int i, int N) {
+  return p.roll_split[i] > 1 ? (int)p.roll_split[i] * N * (int)p.roll_lanes
+                             : 0;
+}
+
+__host__ __device__ inline RollLayout roll_layout(const IalsArgs& p,
+                                                  bool fnn, bool policy) {
+  RollLayout l{};
+  const int R = (int)p.roll_lanes, D = (int)p.D, H = (int)p.H;
+  const int M = (int)p.M, S = (int)p.S, Hp = (int)p.Hp;
+  const int NA = (int)p.n_act, NH = NA + 1, SI = TrafficDomain::kStateInts;
+  int off = 0;
+  auto take = [&](int floats) {
+    const int o = off;
+    off += round16(4 * floats);
+    return o;
+  };
+  if (policy) {
+    l.pbar = take(4);
+    const int pieces[6] = {S * Hp, Hp, Hp * Hp, Hp, Hp * NH, NH};
+    for (int i = 0; i < 6; ++i) l.pw[i] = take(pieces[i]);
+    l.fr = take(2 * S * R);
+    l.h1 = take(Hp * R);
+    l.h2 = take(Hp * R);
+    l.pout = take(NH * R);
+    l.obs = take((int)p.obs_dim * R);
+    l.gum = take(R * NA);
+    l.pdn = take(R);
+    int part = 0;
+    const int pn[3] = {Hp, Hp, NH};
+    for (int i = 0; i < 3; ++i) part = imax(part, roll_part(p, i, pn[i]));
+    l.ppart = take(part);
+    l.pol_bytes = off;
+  }
+  off = 0;
+  l.ebar = take(4);
+  const int SD = (int)(p.stack * p.D), G3 = 3 * H;
+  if (fnn) {
+    const int pieces[6] = {SD * H, H, H * H, H, H * M, M};
+    l.n_aw = 6;
+    for (int i = 0; i < 6; ++i) l.aw[i] = take(pieces[i]);
+    l.state = take(SD * R);
+    l.d = take(0);
+    l.c1 = take(H * R);
+    l.c2 = take(H * R);
+  } else {
+    const int pieces[5] = {D * G3, H * G3, G3, H * M, M};
+    l.n_aw = 5;
+    for (int i = 0; i < 5; ++i) l.aw[i] = take(pieces[i]);
+    l.state = take(H * R);
+    l.d = take(D * R);
+    l.c1 = take(G3 * R);
+    l.c2 = take(G3 * R);
+  }
+  l.lg = take(M * R);
+  l.u = take(R * M);
+  l.ls = take(R * SI);
+  l.act = take(R);
+  l.edn = take(R);
+  const int N34 = fnn ? H : G3;
+  const int p3 = roll_part(p, 3, N34), p4 = roll_part(p, 4, N34);
+  const int p5 = roll_part(p, 5, M);
+  l.epart = take(fnn ? imax(imax(p3, p4), p5) : imax(p3 + p4, p5));
+  l.aip_bytes = off;
+  return l;
+}
+
+// x / d for 0 <= x < 2^22 by a float reciprocal and one fix-up (the
+// estimate is within one of the quotient there): the items' coordinates
+// without the ~20-instruction integer division
+struct FastDiv {
+  int d;
+  float inv;
+  __device__ explicit FastDiv(int d_) : d(d_), inv(1.0f / (float)d_) {}
+  __device__ __forceinline__ int div(int x) const {
+#ifdef IALS_ROLL_PLAIN_DIV
+    return x / d;
+#else
+    int q = (int)((float)x * inv);
+    const int r = x - q * d;
+    if (r >= d) ++q;
+    else if (r < 0) --q;
+    return q;
+#endif
+  }
+};
+
+// One product y = act(x @ W + b) over the tile's R rows, activations
+// k-major: x^T (K x R) and y^T (N x R). x may be a ring of nseg segments
+// of seg rows: logical row k sits in physical segment (head + k / seg) %
+// nseg (the FNN's frame stack; one segment otherwise). With KS > 1 the K
+// range is cut into KS parts whose partial sums go to part (KS x N x R)
+// and are summed in part order by prod_finish.
+struct Prod {
+  const float* W;   // K x N, row-major
+  const float* b;   // N, or null
+  int K, N, KS, act;
+  const float* x;
+  int seg, nseg, head;
+  float* y;
+  float* part;
+};
+
+// acc[r] = fmaf(x[k][r], w[k], acc[r]) for k in order: one shared load of
+// the weight (consecutive threads, consecutive columns: no conflict) and
+// one vector load of RP activations (the same for the warp: a broadcast)
+template <int RP>
+__device__ __forceinline__ void chain_rows(float (&acc)[RP], const float* w,
+                                           int ldw, const float* x, int R,
+                                           int len) {
+#pragma unroll 4
+  for (int k = 0; k < len; ++k) {
+    const float wk = *w;
+    float v[RP];
+    load_vec<RP>(v, x);
+#pragma unroll
+    for (int r = 0; r < RP; ++r) acc[r] = fmaf(v[r], wk, acc[r]);
+    w += ldw;
+    x += R;
+  }
+}
+
+// The items of one product: item i -> column i % N, row group (i / N) %
+// G, part i / (N G); each thread walks items i = tid, tid + nthreads, ...
+// (aip_step.py::rollout_items enumerates the same).
+template <int RP>
+__device__ void gemm_items(const Prod& q, int R) {
+  const int G = R / RP;   // a power of two
+  const int items = G * q.N * q.KS;
+  const int kl = (q.K + q.KS - 1) / q.KS;
+  const FastDiv byN(q.N), byNG(q.N * G), bySeg(q.seg);
+  for (int it = threadIdx.x; it < items; it += blockDim.x) {
+    const int c = byN.div(it);
+    const int n = it - c * q.N, g = c & (G - 1), part = byNG.div(it);
+    const int k0 = min(q.K, part * kl), k1 = min(q.K, k0 + kl);
+    float acc[RP];
+#pragma unroll
+    for (int r = 0; r < RP; ++r) acc[r] = 0.0f;
+#ifndef IALS_ROLL_NO_PRODUCTS
+    for (int k = k0; k < k1;) {
+      const int s = bySeg.div(k), e = min(k1, (s + 1) * q.seg);
+      const int phys = q.head + s >= q.nseg ? q.head + s - q.nseg
+                                            : q.head + s;
+      const float* x = q.x + ((size_t)phys * q.seg + (k - s * q.seg)) * R +
+                       g * RP;
+      chain_rows<RP>(acc, q.W + (size_t)k * q.N + n, q.N, x, R, e - k);
+      k = e;
+    }
+#endif
+    if (q.KS == 1) {
+      const float bb = q.b != nullptr ? q.b[n] : 0.0f;
+#pragma unroll
+      for (int r = 0; r < RP; ++r)
+        q.y[n * R + g * RP + r] =
+            activate(q.b != nullptr ? __fadd_rn(acc[r], bb) : acc[r], q.act);
+    } else {
+#pragma unroll
+      for (int r = 0; r < RP; ++r)
+        q.part[((size_t)part * q.N + n) * R + g * RP + r] = acc[r];
+    }
+  }
+}
+
+__device__ __forceinline__ void prod_items(const Prod& q, int R, int RP) {
+  if (RP == 4) gemm_items<4>(q, R);
+  else if (RP == 2) gemm_items<2>(q, R);
+  else gemm_items<1>(q, R);
+}
+
+// y = act(part[0] + part[1] + ... + b), the parts summed in order
+__device__ void prod_finish(const Prod& q, int R) {
+  const int lgR = 31 - __clz(R);
+  for (int i = threadIdx.x; i < q.N * R; i += blockDim.x) {
+    float s = q.part[i];
+    for (int j = 1; j < q.KS; ++j)
+      s = __fadd_rn(s, q.part[(size_t)j * q.N * R + i]);
+    q.y[i] =
+        activate(q.b != nullptr ? __fadd_rn(s, q.b[i >> lgR]) : s, q.act);
+  }
+}
+
+// one product with its block barriers: the items, then (KS > 1) the sums
+__device__ void prod_run(const Prod& q, int R, int RP) {
+  prod_items(q, R, RP);
+  __syncthreads();
+  if (q.KS > 1) {
+    prod_finish(q, R);
+    __syncthreads();
+  }
+}
+
+__device__ __forceinline__ bool bulk_ok(const float* src, int n) {
+  return ((uintptr_t)src & 15) == 0 && (4 * n) % 16 == 0;
+}
+
+// Stage np weight pieces (src global, dst shared, n floats each) on
+// `bar`: thread 0 issues a bulk copy for each piece whose base and size
+// are 16-byte multiples; every thread copies the others by plain loads.
+// The caller waits on the barrier (parity 0), then a block barrier.
+__device__ void stage_pieces(float* const* dst, const float* const* src,
+                             const int* n, int np, uint64_t* bar) {
+  if (threadIdx.x == 0) {
+    uint32_t bytes = 0;
+    for (int i = 0; i < np; ++i)
+      if (bulk_ok(src[i], n[i])) bytes += 4u * n[i];
+    mbar_expect_tx(bar, bytes);
+    for (int i = 0; i < np; ++i)
+      if (bulk_ok(src[i], n[i]) && n[i] > 0)
+        bulk_copy(dst[i], src[i], 4u * n[i], bar);
+  }
+  for (int i = 0; i < np; ++i) {
+    if (bulk_ok(src[i], n[i])) continue;
+    for (int j = threadIdx.x; j < n[i]; j += blockDim.x)
+      dst[i][j] = __ldg(src[i] + j);
+  }
+}
+
+#ifdef IALS_ROLL_TIMELINE
+// clock64 marks: thread 0 of each CTA adds the cycles since the last mark
+// to phase i; the sums go to the int64 buffer behind p.h2 at the end
+#define ROLL_MARK(i)                    \
+  do {                                  \
+    if (threadIdx.x == 0) {             \
+      const long long now_ = clock64(); \
+      tl_sum[i] += now_ - tl_last;      \
+      tl_last = now_;                   \
+    }                                   \
+  } while (0)
+#else
+#define ROLL_MARK(i) \
+  do {               \
+  } while (0)
+#endif
+
+__device__ __forceinline__ void cross_sync(int C) {
+  if (C == 2) cooperative_groups::this_cluster().sync();
+  else __syncthreads();
+}
+
+template <bool kFnn, bool kPolicy, class Domain>
+__global__ void __launch_bounds__(kRollMaxThreads, 1)
+horizon_kernel(IalsArgs p, Domain dom) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+#ifdef IALS_ROLL_TIMELINE
+  long long tl_sum[16] = {};
+  long long tl_last = clock64();
+#endif
+  const RollLayout lay = roll_layout(p, kFnn, kPolicy);
+  const int C = (int)p.roll_cluster;
+  const int rank = (int)(blockIdx.x % C);
+  const bool doP = kPolicy && (C == 1 || rank == 0);
+  const bool doE = !kPolicy || C == 1 || rank == 1;
+  {
+    uint32_t dyn;
+    asm("mov.u32 %0, %%dynamic_smem_size;" : "=r"(dyn));
+    const int need = C == 2 ? (doP ? lay.pol_bytes : lay.aip_bytes)
+                            : lay.pol_bytes + lay.aip_bytes;
+    if ((uint32_t)need > dyn) __trap();   // plan and kernel disagree
+  }
+  unsigned char* pb = smem_raw;
+  unsigned char* eb = smem_raw + (C == 1 ? lay.pol_bytes : 0);
+  auto pf = [&](int off) { return reinterpret_cast<float*>(pb + off); };
+  auto ef = [&](int off) { return reinterpret_cast<float*>(eb + off); };
+
+  const int R = (int)p.roll_lanes, RP = (int)p.roll_rows_per_thread;
+  const int lgR = 31 - __clz(R), mR = R - 1;   // R is a power of two
+  const long long B = p.B, L = p.A * p.B;
+  const int per_agent = (int)((B + R - 1) / R);
+  const int tile = (int)(blockIdx.x / C);
+  const int agent = tile / per_agent;
+  const int b0 = (tile % per_agent) * R;
+  const int nvalid = (int)min((long long)R, B - b0);
+  const long long lane0 = (long long)agent * B + b0;
+  const int tid = threadIdx.x;
+  const int D = (int)p.D, H = (int)p.H, M = (int)p.M;
+  const int SI = Domain::kStateInts;
+  const int stack = kFnn ? (int)p.stack : 1;
+  const int SD = kFnn ? stack * D : H;
+  const int S = (int)p.S, Hp = (int)p.Hp, NA = (int)p.n_act, NH = NA + 1;
+  const int d_obs = (int)p.obs_dim;
+  const int gate = p.fast_gates ? kFastTanh : kTanh;
+  const FastDiv byS(kPolicy ? S : 1), byNA(kPolicy ? NA : 1);
+
+  // the policy role's buffers
+  float* pw[6];
+  for (int i = 0; i < 6; ++i) pw[i] = pf(lay.pw[i]);
+  float* fr[2] = {pf(lay.fr), pf(lay.fr) + S * R};
+  float* h1T = pf(lay.h1);
+  float* h2T = pf(lay.h2);
+  float* poutT = pf(lay.pout);
+  float* obsT = pf(lay.obs);
+  float* gum = pf(lay.gum);
+  int* pdn = reinterpret_cast<int*>(pb + lay.pdn);
+  float* ppart = pf(lay.ppart);
+  uint64_t* pbar = reinterpret_cast<uint64_t*>(pb + lay.pbar);
+  // the AIP role's
+  float* aw[6];
+  for (int i = 0; i < 6; ++i) aw[i] = ef(lay.aw[i]);
+  float* state = ef(lay.state);   // FNN: the frame ring; GRU: h^T
+  float* dT = ef(lay.d);
+  float* c1T = ef(lay.c1);
+  float* c2T = ef(lay.c2);
+  float* lgT = ef(lay.lg);
+  float* u = ef(lay.u);
+  int* ls = reinterpret_cast<int*>(eb + lay.ls);
+  int* act = reinterpret_cast<int*>(eb + lay.act);
+  int* edn = reinterpret_cast<int*>(eb + lay.edn);
+  float* epart = ef(lay.epart);
+  uint64_t* ebar = reinterpret_cast<uint64_t*>(eb + lay.ebar);
+  // where the action and the next observation go: the other CTA's
+  // shared memory (distributed shared memory) in a cluster of two
+  int* act_dst = act;
+  float* obs_dst = obsT;
+  if (C == 2) {
+    cooperative_groups::cluster_group cl = cooperative_groups::this_cluster();
+    if (doP)
+      act_dst = cl.map_shared_rank(
+          reinterpret_cast<int*>(smem_raw + lay.act), 1);
+    if (doE)
+      obs_dst = cl.map_shared_rank(
+          reinterpret_cast<float*>(smem_raw + lay.obs), 0);
+  }
+  int na[6];   // the AIP pieces' floats
+  {
+    const int G3 = 3 * H;
+    const int fnn_n[6] = {SD * H, H, H * H, H, H * M, M};
+    const int gru_n[6] = {D * G3, H * G3, G3, H * M, M, 0};
+    for (int i = 0; i < 6; ++i) na[i] = kFnn ? fnn_n[i] : gru_n[i];
+  }
+  const float* aw_src[6];
+  for (int i = 0; i < 6; ++i)
+    aw_src[i] = i < lay.n_aw ? p.aw[i] + (size_t)agent * na[i] : nullptr;
+  // the weights the products read: staged (the design), or from global
+  // memory in the ablation build that measures what staging saves
+  const float* pwr[6];
+  const float* awr[6];
+  for (int i = 0; i < 6; ++i) {
+#ifdef IALS_ROLL_WEIGHTS_FROM_L2
+    pwr[i] = p.pw[i];
+    awr[i] = aw_src[i];
+#else
+    pwr[i] = pw[i];
+    awr[i] = aw[i];
+#endif
+  }
+
+  // ---- prologue: weights staged once, states in -------------------------
+  if (tid == 0) {
+    if (doP) mbar_init(pbar, 1);
+    if (doE) mbar_init(ebar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (doP) {
+    const int n[6] = {S * Hp, Hp, Hp * Hp, Hp, Hp * NH, NH};
+    stage_pieces(pw, p.pw, n, 6, pbar);
+  }
+  if (doE) {
+    stage_pieces(aw, aw_src, na, lay.n_aw, ebar);
+    // LS state (lane-major ints) and the AIP state (k-major; the FNN's
+    // frames in logical order, ring head 0); pad lanes zero
+    for (int r = tid; r < R; r += blockDim.x) {
+      int* st = ls + r * SI;
+      if (r < nvalid) {
+        dom.load(p.ls_in, lane0 + r, st);
+      } else {
+        for (int k = 0; k < SI; ++k) st[k] = 0;
+      }
+    }
+    for (int i = tid; i < R * SD; i += blockDim.x) {
+      const int r = i / SD, k = i % SD;
+      state[k * R + r] = r < nvalid ? p.s0[(lane0 + r) * SD + k] : 0.0f;
+    }
+  }
+  if (doP) {
+    for (int i = tid; i < R * S; i += blockDim.x) {
+      const int r = i / S, k = i % S;
+      fr[0][k * R + r] = r < nvalid ? p.frames0[(lane0 + r) * S + k] : 0.0f;
+    }
+  }
+  if (doP) mbar_wait(pbar, 0);
+  if (doE) mbar_wait(ebar, 0);
+  __syncthreads();
+  // both CTAs of a cluster are running before either writes to the other
+  if (C == 2) cooperative_groups::this_cluster().sync();
+  ROLL_MARK(0);
+
+  int head = 0, fc = 0;
+  for (long long t = 0; t < p.T; ++t) {
+    const long long row0 = t * L + lane0;   // stream row of tile row 0
+    // the tick's streamed inputs, loaded now and used later
+    const int dv = kPolicy && tid < nvalid ? __ldg(p.done + row0 + tid) : 0;
+    int bv = 0, av = 0;
+    float gv = 0.0f;
+    if (doE && tid < nvalid * M) bv = __ldg(p.bits + row0 * M + tid);
+    if (!kPolicy && tid < nvalid) av = __ldg(p.actions + row0 + tid);
+    if (doP && tid < nvalid * NA) gv = __ldg(p.gumbel + row0 * NA + tid);
+
+    if (doP) {
+      // policy forward: two gated layers, then the fused [pi|v] head
+      const float* x = fr[fc];
+      prod_run(Prod{pwr[0], pwr[1], S, Hp, (int)p.roll_split[0], gate, x, S,
+                    1, 0, h1T, ppart}, R, RP);
+      ROLL_MARK(1);
+      prod_run(Prod{pwr[2], pwr[3], Hp, Hp, (int)p.roll_split[1], gate, h1T,
+                    Hp, 1, 0, h2T, ppart}, R, RP);
+      ROLL_MARK(2);
+      if (tid < R * NA) gum[tid] = gv;
+      if (tid < R) pdn[tid] = dv;
+      prod_run(Prod{pwr[4], pwr[5], Hp, NH, (int)p.roll_split[2], kNone, h2T,
+                    Hp, 1, 0, poutT, ppart}, R, RP);
+      ROLL_MARK(3);
+      // Gumbel-argmax (the first of equal maxima), the streamed outputs
+      if (tid < nvalid) {
+        int best = 0;
+        float top = __fadd_rn(poutT[tid], gum[tid * NA]);
+        for (int j = 1; j < NA; ++j) {
+          const float v = __fadd_rn(poutT[j * R + tid], gum[tid * NA + j]);
+          if (v > top) {
+            top = v;
+            best = j;
+          }
+        }
+        p.a_out[row0 + tid] = best;
+        p.v_out[row0 + tid] = poutT[NA * R + tid];
+        act_dst[tid] = best;
+      }
+      for (int i = tid; i < nvalid * NA; i += blockDim.x) {
+        const int r = byNA.div(i);
+        p.logits_out[row0 * NA + i] = poutT[(i - r * NA) * R + r];
+      }
+      for (int i = tid; i < nvalid * S; i += blockDim.x) {
+        const int r = byS.div(i);
+        p.x_out[row0 * S + i] = x[(i - r * S) * R + r];
+      }
+      ROLL_MARK(4);
+    }
+    if (doE) {
+      // d_t = dset(ls): into the FNN's ring (the oldest frame's slot) or dT
+      for (int i = tid; i < D * R; i += blockDim.x) {
+        const int k = i >> lgR, r = i & mR;
+        const float v = dom.dset_at(ls + r * SI, k);
+        if (kFnn) state[(head * D + k) * R + r] = v;
+        else dT[i] = v;
+      }
+      if (kFnn) head = head + 1 == stack ? 0 : head + 1;
+      __syncthreads();
+      ROLL_MARK(5);
+      if (kFnn) {
+        prod_run(Prod{awr[0], awr[1], SD, H, (int)p.roll_split[3], kRelu,
+                      state, D, stack, head, c1T, epart}, R, RP);
+        prod_run(Prod{awr[2], awr[3], H, H, (int)p.roll_split[4], kRelu, c1T,
+                      H, 1, 0, c2T, epart}, R, RP);
+        prod_run(Prod{awr[4], awr[5], H, M, (int)p.roll_split[5], kNone, c2T,
+                      H, 1, 0, lgT, epart}, R, RP);
+      } else {
+        const int G3 = 3 * H;
+        const Prod gx{awr[0], awr[2], D, G3, (int)p.roll_split[3], kNone, dT,
+                      D, 1, 0, c1T, epart};
+        const Prod gh{awr[1], nullptr, H, G3, (int)p.roll_split[4], kNone,
+                      state, H, 1, 0, c2T, epart + roll_part(p, 3, G3)};
+        prod_items(gx, R, RP);
+        prod_items(gh, R, RP);
+        __syncthreads();
+        if (gx.KS > 1 || gh.KS > 1) {
+          if (gx.KS > 1) prod_finish(gx, R);
+          if (gh.KS > 1) prod_finish(gh, R);
+          __syncthreads();
+        }
+        for (int i = tid; i < H * R; i += blockDim.x) {
+          const int j = i >> lgR, r = i & mR;
+          state[i] = gru_gate(c1T[i], c1T[(H + j) * R + r],
+                              c1T[(2 * H + j) * R + r], c2T[i],
+                              c2T[(H + j) * R + r], c2T[(2 * H + j) * R + r],
+                              state[i]);
+        }
+        __syncthreads();
+        prod_run(Prod{awr[3], awr[4], H, M, (int)p.roll_split[5], kNone,
+                      state, H, 1, 0, lgT, epart}, R, RP);
+      }
+      ROLL_MARK(6);
+      // the Bernoulli draw of u: thread i = r * M + m
+      if (tid < R * M) {
+        const int r = tid / M, m = tid % M;
+        float uu = 0.0f;
+        if (r < nvalid)
+          uu = uniform_from_bits(bv) < fast_sigmoid(lgT[m * R + r]) ? 1.0f
+                                                                     : 0.0f;
+        u[tid] = uu;
+      }
+      if (!kPolicy && tid < R) act[tid] = av;
+      ROLL_MARK(7);
+    }
+    // the action has reached the LS, u is drawn
+    cross_sync(C);
+    ROLL_MARK(8);
+    if (doE) {
+      // LS tick and reward; the streamed done merges in the reset state
+      if (tid < nvalid) {
+        int* st = ls + tid * SI;
+        p.rew_out[row0 + tid] =
+            dom.tick(st, act[tid], u + tid * M, p.noise, row0 + tid);
+        if (kPolicy) {
+          edn[tid] = dv;
+          if (dv) {
+            const int* rl[kMaxLeaves];
+            for (int k = 0; k < kMaxLeaves; ++k) rl[k] = p.reset_ls[k];
+            // the reset leaves are (T, L, ...): lane index t*L + lane
+            dom.load(rl, row0 + tid, st);
+          }
+        }
+      }
+      __syncthreads();
+      ROLL_MARK(9);
+      if (kPolicy) {
+        // a reset lane's AIP state back to zeros; the next observation
+        // to the policy's frames
+        for (int i = tid; i < SD * R; i += blockDim.x)
+          if (edn[i & mR]) state[i] = 0.0f;
+        for (int i = tid; i < d_obs * R; i += blockDim.x) {
+          const int k = i >> lgR, r = i & mR;
+          obs_dst[i] = dom.obs_at(ls + r * SI, k);
+        }
+      }
+      ROLL_MARK(10);
+    }
+    if (kPolicy) {
+      cross_sync(C);   // the observation has reached the policy
+      ROLL_MARK(11);
+    }
+    if (doP) {
+      // the frame stack shifts by one observation; a reset lane restarts
+      // from zeros and its reset observation
+      const float* x = fr[fc];
+      float* nx = fr[fc ^ 1];
+      for (int i = tid; i < S * R; i += blockDim.x) {
+        const int k = i >> lgR, r = i & mR;
+        nx[i] = k >= S - d_obs ? obsT[(k - (S - d_obs)) * R + r]
+                               : (pdn[r] ? 0.0f : x[(k + d_obs) * R + r]);
+      }
+      fc ^= 1;
+      __syncthreads();
+      ROLL_MARK(12);
+    }
+  }
+
+  // ---- epilogue: final states out ----------------------------------------
+  if (doE) {
+    for (int r = tid; r < nvalid; r += blockDim.x)
+      dom.store(p.ls_out, lane0 + r, ls + r * SI);
+    for (int i = tid; i < nvalid * SD; i += blockDim.x) {
+      const int r = i / SD, k = i % SD;
+      int phys = k;
+      if (kFnn) {
+        const int j = k / D;
+        const int s = head + j >= stack ? head + j - stack : head + j;
+        phys = s * D + k % D;
+      }
+      p.s_out[(lane0 + r) * SD + k] = state[phys * R + r];
+    }
+  }
+  if (doP) {
+    for (int i = tid; i < nvalid * S; i += blockDim.x) {
+      const int r = i / S, k = i % S;
+      p.frames_out[(lane0 + r) * S + k] = fr[fc][k * R + r];
+    }
+  }
+#ifdef IALS_ROLL_TIMELINE
+  if (tid == 0)
+    for (int i = 0; i < 16; ++i)
+      reinterpret_cast<long long*>(p.h2)[blockIdx.x * 16 + i] = tl_sum[i];
+#endif
+}
+
+// A plan the kernel cannot run is refused, never adapted: the plan is
+// aip_step.py::rollout_plan's, and the wrapper raises on the error.
+template <bool kFnn, bool kPolicy>
+int launch_horizon(const IalsArgs* a, void* stream) {
+  if (a->domain != 0) return (int)cudaErrorInvalidValue;
+  const long long R = a->roll_lanes, C = a->roll_cluster;
+  const long long nt = a->roll_threads;
+  bool ok = (R == 1 || R == 2 || R == 4 || R == 8 || R == 16 || R == 32) &&
+            a->roll_rows_per_thread == (R < 4 ? R : 4) &&
+            (C == 1 || (kPolicy && C == 2)) && nt % 32 == 0 && nt >= 32 &&
+            nt <= kRollMaxThreads && nt >= R * a->M && nt >= R &&
+            (!kPolicy || (nt >= R * a->n_act && a->n_act >= 1 &&
+                          a->obs_dim >= 1 && a->obs_dim <= a->S)) &&
+            a->A >= 1 && a->B >= 1 && a->D >= 1 && a->H >= 1 && a->M >= 1 &&
+            (!kFnn || a->stack >= 1) && a->roll_smem <= kRollMaxSmem &&
+            a->T >= 0;
+  for (int i = 0; i < 6; ++i)
+    ok = ok && a->roll_split[i] >= 1 && a->roll_split[i] <= kRollMaxSplit;
+  if (!ok) return (int)cudaErrorInvalidValue;
+  const RollLayout lay = roll_layout(*a, kFnn, kPolicy);
+  const int need = C == 2 ? imax(lay.pol_bytes, lay.aip_bytes)
+                          : lay.pol_bytes + lay.aip_bytes;
+  if (need > a->roll_smem) return (int)cudaErrorInvalidValue;
+  auto k = horizon_kernel<kFnn, kPolicy, TrafficDomain>;
+  static int raised[kRollMaxDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= kRollMaxDevices || a->roll_smem > raised[dev]) {
+    e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)a->roll_smem);
+    if (e != cudaSuccess) return (int)e;
+    if (dev < kRollMaxDevices) raised[dev] = (int)a->roll_smem;
+  }
+  const long long tiles = a->A * ((a->B + R - 1) / R);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(tiles * C));
+  cfg.blockDim = dim3((unsigned)nt);
+  cfg.dynamicSmemBytes = (size_t)a->roll_smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, k, *a, traffic_of(*a));
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
 }  // namespace
 
 extern "C" {
 
 int ials_aip_step(const IalsArgs* args, void* stream) {
-  const Layout lay = make_layout(*args, false, false);
+  const Layout lay = make_layout(*args);
   cudaError_t e = cudaFuncSetAttribute(
       aip_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       lay.total_bytes);
@@ -615,19 +1109,27 @@ int ials_aip_step(const IalsArgs* args, void* stream) {
 }
 
 int ials_aip_rollout_multi(const IalsArgs* args, void* stream) {
-  return launch_rollout<GruCell>(args, stream, false);
+  if (args->domain != 0) return (int)cudaErrorInvalidValue;
+  const Layout lay = make_layout(*args);
+  auto k = rollout_kernel<TrafficDomain>;
+  cudaError_t e = cudaFuncSetAttribute(
+      k, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.total_bytes);
+  if (e != cudaSuccess) return (int)e;
+  k<<<rollout_grid(*args), kThreads, lay.total_bytes,
+      (cudaStream_t)stream>>>(*args, lay, traffic_of(*args));
+  return (int)cudaGetLastError();
 }
 
 int ials_fnn_rollout(const IalsArgs* args, void* stream) {
-  return launch_rollout<FnnCell>(args, stream, true);
+  return launch_horizon<true, false>(args, stream);
 }
 
 int ials_policy_rollout_gru(const IalsArgs* args, void* stream) {
-  return launch_policy_rollout<GruCell>(args, stream, false);
+  return launch_horizon<false, true>(args, stream);
 }
 
 int ials_policy_rollout_fnn(const IalsArgs* args, void* stream) {
-  return launch_policy_rollout<FnnCell>(args, stream, true);
+  return launch_horizon<true, true>(args, stream);
 }
 
 int ials_args_size(void) { return (int)sizeof(IalsArgs); }

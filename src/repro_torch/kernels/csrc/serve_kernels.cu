@@ -76,6 +76,7 @@
 
 #include "gates.cuh"
 #include "ials_args.cuh"
+#include "smem.cuh"
 
 namespace {
 
@@ -90,47 +91,6 @@ enum Gate { kFastTanh = 0, kTanh = 1 };
 
 __device__ __forceinline__ float gate_of(float v, int gate) {
   return gate == kFastTanh ? fast_tanh(v) : tanhf(v);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(smem_addr(bar)), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
-}
-
-// Wait until the phase of `bar` with this parity has completed. A wait
-// that never ends (a protocol fault) traps instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_addr(bar);
-  for (uint32_t spin = 0;; ++spin) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(a), "r"(parity) : "memory");
-    if (done) return;
-    if (spin == (1u << 28)) __trap();
-  }
-}
-
-// `bytes` (a multiple of 16) from global `src` to shared `dst` (both
-// 16-byte aligned), counted in bytes on `bar`
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n"
-      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
 }
 
 __device__ __forceinline__ int round16(int bytes) {
@@ -213,28 +173,6 @@ __device__ __forceinline__ void stage_plain(const Ring& rg, int j) {
   for (int i = threadIdx.x; i < (b - a) * rg.Hp; i += blockDim.x) {
     const int v = a * rg.Hp + i;
     dst[i] = v < n1 ? __ldg(rg.w1 + v) : __ldg(rg.w2 + (v - n1));
-  }
-}
-
-// N consecutive floats at a (aligned to their size up to 16 bytes), as
-// vector loads
-template <int N>
-__device__ __forceinline__ void load_vec(float (&v)[N], const float* a) {
-  if constexpr (N == 1) {
-    v[0] = a[0];
-  } else if constexpr (N == 2) {
-    const float2 t = *reinterpret_cast<const float2*>(a);
-    v[0] = t.x;
-    v[1] = t.y;
-  } else {
-#pragma unroll
-    for (int i = 0; i < N / 4; ++i) {
-      const float4 t = reinterpret_cast<const float4*>(a)[i];
-      v[4 * i] = t.x;
-      v[4 * i + 1] = t.y;
-      v[4 * i + 2] = t.z;
-      v[4 * i + 3] = t.w;
-    }
   }
 }
 

@@ -147,12 +147,49 @@ def test_roundtrip_keep_n_scalars_and_namedtuples(tmp_path):
         ckpt.restore_subtree(tmp_path, {"w": torch.zeros(4, 4)}, "")
 
 
-def test_dtypes_that_need_ml_dtypes_raise(tmp_path):
-    with pytest.raises(ValueError, match="ml_dtypes"):
-        ckpt.save(tmp_path, 0, {"w": torch.zeros(2, dtype=torch.bfloat16)})
-    jckpt.save(tmp_path / "j", 0, {"w": jnp.zeros(2, jnp.bfloat16)})
-    with pytest.raises(ValueError, match="ml_dtypes"):
-        ckpt.restore(tmp_path / "j", {"w": torch.zeros(2)})
+@pytest.mark.parametrize("dtype", ["bfloat16", "float8_e4m3fn",
+                                   "float8_e5m2"])
+def test_ml_dtypes_leaves_roundtrip_bitwise_both_ways(tmp_path, dtype):
+    """A bf16 or float8 leaf (with a float32 one beside it, 0-d and 2-d)
+    goes port -> JAX, JAX -> port and port -> port bitwise, without the
+    port importing ml_dtypes."""
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    g = torch.Generator().manual_seed(5)
+    tree = {"w": (4 * torch.randn((3, 5), generator=g)).to(tdt),
+            "s": torch.tensor(1.5).to(tdt),
+            "f": torch.randn((2,), generator=g)}
+
+    def bits(t):
+        return to_np(t.reshape(-1).view(torch.uint8))
+
+    ckpt.save(tmp_path / "p", 1, tree)
+    meta = msgpack.unpackb((tmp_path / "p" / "step_000000001" /
+                            "meta.msgpack").read_bytes())
+    assert meta["dtypes"] == ["float32", dtype, dtype]
+    jtarget = {"w": jax.ShapeDtypeStruct((3, 5), jdt),
+               "s": jax.ShapeDtypeStruct((), jdt),
+               "f": jax.ShapeDtypeStruct((2,), jnp.float32)}
+    got, _, _ = jckpt.restore(tmp_path / "p", jtarget)
+    for k in tree:
+        j = np.asarray(got[k])
+        assert j.dtype == jtarget[k].dtype and j.shape == jtarget[k].shape
+        assert np.array_equal(j.reshape(-1).view(np.uint8), bits(tree[k]))
+    target = {k: torch.zeros_like(v) for k, v in tree.items()}
+    jckpt.save(tmp_path / "j", 2, got)
+    back, step, _ = ckpt.restore(tmp_path / "j", target)
+    own, _, _ = ckpt.restore(tmp_path / "p", target)
+    assert step == 2
+    for k in tree:
+        for t in (back[k], own[k]):
+            assert t.dtype == tree[k].dtype and t.shape == tree[k].shape
+            assert np.array_equal(bits(t), bits(tree[k]))
+
+
+def test_dtype_torch_cannot_name_raises(tmp_path):
+    import ml_dtypes
+    jckpt.save(tmp_path, 0, {"w": np.zeros(2, ml_dtypes.float8_e4m3b11fnuz)})
+    with pytest.raises(ValueError, match="float8_e4m3b11fnuz"):
+        ckpt.restore(tmp_path, {"w": torch.zeros(2)})
 
 
 @pytest.mark.parametrize("tear", ["tmp-only", "no-commit", "truncated",

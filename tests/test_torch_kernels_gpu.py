@@ -1,6 +1,8 @@
 """Each CUDA kernel of the port against its plain PyTorch version, on the
 card, at test size (both cells, A in {1, 3}, resets inside the horizon),
-with the lane and flip rule of ``chip_smoke.py``; the serving kernels
+with the lane and flip rule of ``chip_smoke.py``; the redesigned horizon
+kernels also at 1, 17 and 100 lanes an agent, with exact tanh gates, a
+bitwise repeat and a refused plan; the serving kernels
 at both domains' widths, slots of 1 to 4096 lanes, 1, 3 and 4 policies,
 shaped slots (an empty policy, one policy, all masked), plain-load
 staging, hidden layers of 256 and 512 and a refused launch, with the three bitwise contracts of the
@@ -57,6 +59,67 @@ def test_policy_rollout_kernel_matches_plain(kind, A, dev):
     assert bool(case.done.any())
     flips, err = chip_smoke.check_policy(case, f"policy {kind} A={A}")
     assert err <= chip_smoke.ATOL
+
+
+@pytest.mark.parametrize("kind", ["gru", "fnn"])
+@pytest.mark.parametrize("A,B", [(1, 1), (1, 17), (3, 17), (3, 100)])
+def test_policy_rollout_at_odd_shapes(kind, A, B, dev):
+    """The horizon kernel at lane counts off its tile (1, 17, 100 lanes an
+    agent), resets inside the horizon."""
+    case = chip_smoke.Case(kind, A, B, 48, seed=30 + A + B, dev=dev)
+    assert bool(case.done.any())
+    flips, err = chip_smoke.check_policy(case, f"policy {kind} A={A} B={B}")
+    assert err <= chip_smoke.ATOL
+
+
+@pytest.mark.parametrize("A,B", [(1, 1), (1, 17), (3, 100)])
+def test_fnn_rollout_at_odd_shapes(A, B, dev):
+    case = chip_smoke.Case("fnn", A, B, 40, seed=40 + A + B, dev=dev)
+    flips, err = chip_smoke.check_rollout(case, f"fnn_rollout A={A} B={B}")
+    assert err <= chip_smoke.ATOL
+
+
+@pytest.mark.parametrize("kind", ["gru", "fnn"])
+def test_policy_rollout_with_exact_tanh(kind, dev):
+    case = chip_smoke.Case(kind, 3, 20, 48, seed=50, dev=dev)
+    case.fast_gates = False
+    flips, err = chip_smoke.check_policy(case, f"policy {kind} tanh")
+    assert err <= chip_smoke.ATOL
+
+
+@pytest.mark.parametrize("kernel", ["policy fnn", "policy gru",
+                                    "fnn_rollout"])
+def test_horizon_kernels_repeat_bitwise(kernel, dev):
+    """The K-parts are summed in a fixed order: two launches on the same
+    inputs give the same bits."""
+    kind = "fnn" if kernel.endswith("fnn") or kernel == "fnn_rollout" \
+        else "gru"
+    case = chip_smoke.Case(kind, 3 if kind == "gru" else 1, 64, 48, seed=60,
+                           dev=dev)
+    call = case.rollout_call if kernel == "fnn_rollout" else case.policy_call
+    first, second = call(), call()
+    torch.cuda.synchronize()
+    leaves = [(a, b) for x, y in zip(first, second)
+              for a, b in (zip(x, y) if isinstance(x, tuple) else [(x, y)])]
+    assert all(torch.equal(a, b) for a, b in leaves)
+
+
+def test_horizon_launch_refused_raises(dev):
+    """A plan the horizon kernel cannot run is refused and the wrapper
+    raises: no fallback."""
+    import ctypes
+    from repro_torch.kernels import aip_step as cuda
+    case = chip_smoke.Case("fnn", 1, 16, 8, seed=70, dev=dev)
+    entry, counter, args, _, _, keep = cuda.policy_rollout_args(
+        case.io.ls, case.s0, case.frames0, case.aw, case.pw, case.gumbel,
+        case.bits, case.done, (), case.reset_ls, kind="fnn", n_agents=1,
+        fast_gates=True, domain=case.ls_env.kernel_domain)
+    args.roll_cluster = 3
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        cuda.launch(entry, counter, dev, ctypes.byref(args))
+    args.roll_cluster, args.roll_smem = 2, args.roll_smem - 16
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        cuda.launch(entry, counter, dev, ctypes.byref(args))
 
 
 @pytest.mark.parametrize("A", [1, 3])

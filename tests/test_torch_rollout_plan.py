@@ -1,0 +1,151 @@
+"""The launch plan of the horizon kernels (``fnn_rollout``,
+``policy_rollout``), ``repro_torch.kernels.aip_step.rollout_plan``, on
+the CPU: it fits shared memory and the block, its tiles cover every lane
+of every agent once, each product's items cover every (row, column, k)
+once, it fills the card at the main path's shapes without a second wave,
+and it raises for widths it cannot hold."""
+import pytest
+
+from repro_torch.kernels import aip_step as cuda
+
+W = cuda.RolloutWidths
+TRAFFIC_FNN = W(D=40, H=64, M=4, stack=8, S=41, obs_dim=41, Hp=128, n_act=2)
+TRAFFIC_GRU = W(D=40, H=64, M=4, S=41, obs_dim=41, Hp=128, n_act=2)
+# the warehouse: 37-wide observations stacked 8 deep, five actions, a
+# 24-wide d-set and 12 influence sources
+WAREHOUSE_GRU = W(D=24, H=64, M=12, S=296, obs_dim=37, Hp=128, n_act=5)
+WAREHOUSE_FNN = W(D=24, H=64, M=12, stack=8, S=296, obs_dim=37, Hp=128,
+                  n_act=5)
+
+CASES = [
+    # (A, B, widths, cell, with_policy, overrides)
+    (1, 16, TRAFFIC_FNN, "fnn", True, {}),       # the main path, FNN
+    (25, 16, TRAFFIC_GRU, "gru", True, {}),      # the main path, GRU
+    (1, 16, TRAFFIC_FNN, "fnn", False, {}),      # engine.rollout, FNN
+    (1, 1, TRAFFIC_FNN, "fnn", True, {}),
+    (1, 1, TRAFFIC_GRU, "gru", True, {}),
+    (1, 17, TRAFFIC_FNN, "fnn", True, {}),
+    (3, 100, TRAFFIC_GRU, "gru", True, {}),
+    (3, 17, TRAFFIC_FNN, "fnn", False, {}),
+    (25, 512, TRAFFIC_GRU, "gru", True, {}),
+    (25, 512, TRAFFIC_FNN, "fnn", False, {}),
+    (1, 512, TRAFFIC_FNN, "fnn", True, {}),
+    (25, 64, TRAFFIC_GRU, "gru", True, {}),
+    (36, 16, WAREHOUSE_GRU, "gru", True, {}),
+    (4, 16, WAREHOUSE_FNN, "fnn", False, {}),
+    (1, 16, TRAFFIC_FNN, "fnn", True, {"cluster": 1}),
+    (25, 16, TRAFFIC_GRU, "gru", True, {"cluster": 1, "threads": 128}),
+    (1, 16, TRAFFIC_FNN, "fnn", True, {"lanes": 32}),
+    (1, 16, TRAFFIC_GRU, "gru", True, {"lanes": 1, "threads": 64}),
+]
+
+
+def _ids(c):
+    A, B, w, cell, pol, kw = c
+    return f"A{A}-B{B}-{cell}-D{w.D}-{'pol' if pol else 'aip'}-{kw}"
+
+
+@pytest.mark.parametrize("A,B,w,cell,pol,kw", CASES,
+                         ids=[_ids(c) for c in CASES])
+def test_rollout_plan_fits_and_covers(A, B, w, cell, pol, kw):
+    p = cuda.rollout_plan(A, B, w, cell, pol, **kw)
+    for k, v in kw.items():
+        assert getattr(p, k) == v
+    # fits one CTA of the card
+    assert p.smem <= cuda.ROLL_SMEM_MAX == 232_448
+    assert 1 <= p.cluster <= 8
+    assert p.cluster == (kw.get("cluster", 2) if pol else 1)
+    assert p.threads % 32 == 0 and p.threads <= cuda.ROLL_MAX_THREADS
+    assert p.threads >= p.lanes * max(w.M, w.n_act if pol else 0)
+    assert p.lanes in cuda.ROLL_LANES
+    assert p.rows_per_thread == min(p.lanes, 4)
+    # the bytes are the two roles' (one CTA each, or both in one)
+    pol_b, aip_b = cuda.roll_smem(w, cell, p.lanes, p.splits, p.layers)
+    assert (pol_b, aip_b) == p.smem_roles
+    assert p.smem == (max(pol_b, aip_b) if p.cluster == 2
+                      else pol_b + aip_b)
+    assert (pol_b > 0) == pol
+    # the tiles cover every lane of every agent exactly once
+    seen = []
+    for tile in range(p.tiles):
+        per_agent = -(-B // p.lanes)
+        agent, b0 = tile // per_agent, (tile % per_agent) * p.lanes
+        seen += [(agent, b) for b in range(b0, min(B, b0 + p.lanes))]
+    assert sorted(seen) == [(a, b) for a in range(A) for b in range(B)]
+    assert p.grid == p.tiles * p.cluster
+    # every product's items cover each (row, column, k) exactly once
+    for layer, (K, N) in enumerate(p.layers):
+        if K == 0:
+            continue
+        ks = p.splits[layer]
+        assert 1 <= ks <= cuda.ROLL_MAX_SPLIT and ks <= K
+        cover = {}
+        for items in cuda.rollout_items(p, layer).values():
+            for rows, n, (k0, k1) in items:
+                for r in rows:
+                    for k in range(k0, k1):
+                        cover[(r, n, k)] = cover.get((r, n, k), 0) + 1
+        assert len(cover) == p.lanes * N * K
+        assert set(cover.values()) == {1}
+
+
+def test_rollout_plan_fills_the_card_in_one_wave():
+    """At the main path's shapes the grid spreads over more SMs than the
+    first body's one block a 16-lane tile, and the card holds all of it at
+    once: one CTA an SM, two where two clusters of two fit."""
+    fnn = cuda.rollout_plan(1, 16, TRAFFIC_FNN, "fnn", True)
+    gru = cuda.rollout_plan(25, 16, TRAFFIC_GRU, "gru", True)
+    aip = cuda.rollout_plan(1, 16, TRAFFIC_FNN, "fnn", False)
+    assert fnn.grid > 1 and aip.grid > 1 and gru.grid > 25
+    for p in (fnn, gru, aip,
+              cuda.rollout_plan(1, 512, TRAFFIC_FNN, "fnn", True),
+              cuda.rollout_plan(25, 64, TRAFFIC_GRU, "gru", True)):
+        assert p.grid <= cuda.roll_resident(p.cluster, p.threads, p.smem)
+        assert p.grid <= p.cluster * cuda.ROLL_SMS
+    # the policy and the AIP run on the two CTAs of a cluster
+    assert fnn.cluster == gru.cluster == 2 and aip.cluster == 1
+    # two clusters an SM where they fit: 100 KB of shared memory each
+    assert cuda.roll_resident(2, 256, 99_376) == 2 * cuda.ROLL_SMS
+    assert cuda.roll_resident(2, 512, 99_376) == cuda.ROLL_SMS
+    assert cuda.roll_resident(2, 256, 131_552) == cuda.ROLL_SMS
+    assert cuda.roll_resident(1, 256, 99_376) == cuda.ROLL_SMS
+
+
+def test_rollout_plan_splits_narrow_products_over_k():
+    """The heads (3 and 4 columns) are cut into K-parts of at least
+    ROLL_MIN_CHAIN steps; the wide layers keep one part where their items
+    already fill the block."""
+    p = cuda.rollout_plan(25, 64, TRAFFIC_GRU, "gru", True)
+    assert p.lanes == 32
+    assert p.splits[2] == 16 and p.splits[5] == 8
+    assert p.splits[1] == 1 and p.splits[4] == 1
+    for (K, _), ks in zip(p.layers, p.splits):
+        assert ks == 1 or K // ks >= cuda.ROLL_MIN_CHAIN
+
+
+@pytest.mark.parametrize("w,cell,pol,kw", [
+    (W(D=40, H=64, M=4, stack=8, S=41, obs_dim=41, Hp=256, n_act=2),
+     "fnn", True, {}),                             # w2 alone is 256 KB
+    (W(D=40, H=256, M=4, stack=8), "fnn", False, {}),   # w1 is 320 KB
+    (TRAFFIC_FNN, "fnn", True, {"cluster": 1, "lanes": 32}),
+    (TRAFFIC_FNN, "fnn", True, {"threads": 100}),
+    (TRAFFIC_FNN, "fnn", True, {"lanes": 3}),
+    (TRAFFIC_FNN, "fnn", True, {"cluster": 4}),
+    (TRAFFIC_GRU, "gru", False, {}),               # no GRU body without
+    (TRAFFIC_FNN, "fnn", True, {"lanes": 32, "threads": 64}),  # u's lanes
+])
+def test_rollout_plan_raises_for_what_it_cannot_hold(w, cell, pol, kw):
+    with pytest.raises(ValueError, match="rollout_plan"):
+        cuda.rollout_plan(16, 16, w, cell, pol, **kw)
+
+
+def test_set_plan_fills_the_wrapper_arguments():
+    """``_set_plan`` writes every plan field the kernel reads into the
+    IalsArgs mirror."""
+    p = cuda.rollout_plan(25, 16, TRAFFIC_GRU, "gru", True)
+    args = cuda.IalsArgs()
+    cuda._set_plan(args, p)
+    assert (args.roll_lanes, args.roll_rows_per_thread, args.roll_cluster,
+            args.roll_threads, args.roll_smem) == (
+        p.lanes, p.rows_per_thread, p.cluster, p.threads, p.smem)
+    assert tuple(args.roll_split) == p.splits

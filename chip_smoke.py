@@ -19,8 +19,8 @@ Phases, each printing its result and time on its own line:
      (CUDA events around each call, median after warm-up) and the
      kernel's device time (``torch.profiler``, without the host's enqueue
      time) are measured here; the ``[kernel]`` line of each horizon
-     kernel (``fnn_rollout``, ``policy_rollout``) names the launch plan
-     it took (``aip_step.rollout_plan``);
+     kernel (``aip_rollout_multi``, ``fnn_rollout``, ``policy_rollout``)
+     names the launch plan it took (``aip_step.rollout_plan``);
   3. the main path: ``rl_train --domain traffic --simulator ials`` at full
      width (FNN AIP, A = 1, twice with the same seed; then GRU AIP,
      A = 25), with the launch counters zeroed before each run and read
@@ -61,7 +61,11 @@ Phases, each printing its result and time on its own line:
      redesigned kernels (flash: the tensor-core kernel for bf16 at head
      widths in steps of 16, the CUDA-core one for the rest; rmsnorm: the
      16-byte vector routes and the scalar one for unaligned or off-vector
-     rows); the TIMED cases timed beside the one PyTorch call that
+     rows; gru_sequence: weights in registers at 1, 2, 4 and 8 rows a
+     tile and 4 or 8 K-parts, the "l2" route for wide layers and in
+     passes, ragged and past-one-wave B, bf16; each case prints the
+     launch plan it took, ``gru.gru_plan``); the TIMED cases timed beside
+     the one PyTorch call that
      computes the same function (``library_ms``, a yardstick the port
      never calls); then the ``kernels.ops`` path itself at those widths,
      launch counters zeroed before and read after (the bf16 ``qwen3_4b``
@@ -75,7 +79,8 @@ replaces, launches on its path, max error, times and the card's bound;
 ``flash_attention[f32]`` the CUDA-core one, timed at ``qwen3_4b f32``;
 ``flips`` counts the decisions that flipped for the kernels that make
 decisions, phases 2 and 5, and is null for the layer kernels, which make
-none; ``plan`` is the launch plan of the horizon kernels, else null),
+none; ``plan`` is the launch plan of the horizon kernels and of
+``gru_sequence``, else null),
 the ``nvidia-smi`` line, and last ``{"ok": true, "device": ...}``. Any
 failure prints its reason on stderr and as a ``chip_smoke: FAILED`` line
 on stdout, and exits 1.
@@ -103,6 +108,7 @@ PEAK_BF16_FLOPS = 989e12  # H100 SXM, bf16 tensor cores, dense
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 SOURCE = "src/repro_torch/kernels/csrc/ials_kernels.cu"
 LAYER_SOURCE = "src/repro_torch/kernels/csrc/layer_kernels.cu"
+GRU_SOURCE = "src/repro_torch/kernels/csrc/gru_kernels.cu"
 TC_SOURCE = "src/repro_torch/kernels/csrc/flash_wgmma.cu"
 SERVE_SOURCE = "src/repro_torch/kernels/csrc/serve_kernels.cu"
 # the layer kernels' tolerances against their plain versions, (f32, bf16):
@@ -131,7 +137,7 @@ REPLACES = {
 }
 SOURCES = {"serve_forward": SERVE_SOURCE,
            "serve_forward_multi": SERVE_SOURCE,
-           "gru_sequence": LAYER_SOURCE, "rmsnorm": LAYER_SOURCE,
+           "gru_sequence": GRU_SOURCE, "rmsnorm": LAYER_SOURCE,
            "flash_attention": TC_SOURCE, "flash_attention[f32]": LAYER_SOURCE}
 PATHS = {"serve_forward": "policy_serve", "serve_forward_multi":
          "policy_serve", "policy_rollout[fnn]": "rl_train",
@@ -476,9 +482,8 @@ def run_case(name, kind, A, B, T, seed, dev, policy, timed):
     case = Case(kind, A, B, T, seed, dev)
     check = check_policy if policy else check_rollout
     flips, err = check(case, f"{name} A={A} B={B} T={T}")
-    rec = dict(max_abs_err=err, flips=flips)
-    if policy or kind == "fnn":
-        rec["plan"] = rollout_plan_text(case, policy)
+    rec = dict(max_abs_err=err, flips=flips,
+               plan=rollout_plan_text(case, policy))
     call = case.policy_call if policy else case.rollout_call
     if timed:
         rec["ms"] = time_cuda(call)
@@ -496,7 +501,7 @@ def run_case(name, kind, A, B, T, seed, dev, policy, timed):
         + (f", ms {rec['ms']:.3f} (device {rec['device_ms']}), plain ms "
            f"{rec['plain_ms']:.3f}"
            if timed else "")
-        + (f"; plan {rec['plan']}" if "plan" in rec else ""))
+        + f"; plan {rec['plan']}")
     return rec
 
 
@@ -1117,6 +1122,18 @@ GRU_CASES = {
     "B1 T1": (1, 1, 8, 16, "float32"),
     "bf16": (2, 16, 12, 32, "bfloat16"),
     "weights via L2": (16, 8, 256, 256, "float32"),
+    # the routes of gru.gru_plan: registers at 2 and 4 rows a tile, at
+    # H = 32 (its h @ wh steps padded), a ragged last tile, past one wave,
+    # bf16 at the main widths; "l2" for H = 128 and in two passes (H =
+    # 1000)
+    "rows 2": (200, 16, 40, 64, "float32"),
+    "rows 4": (500, 16, 40, 64, "float32"),
+    "H32": (1024, 16, 24, 32, "float32"),
+    "ragged B1003": (1003, 16, 40, 64, "float32"),
+    "past one wave": (3000, 8, 40, 64, "float32"),
+    "bf16 main widths": (1024, 32, 40, 64, "bfloat16"),
+    "l2 H128": (64, 8, 40, 128, "float32"),
+    "l2 in passes": (4, 4, 40, 1000, "float32"),
 }
 RMS_CASES = {
     "bench": (4096, 512, "bfloat16"),
@@ -1209,6 +1226,18 @@ class LayerCase:
             self.bytes = 2 * nbytes(x) + nbytes(gw)
 
 
+def gru_plan_text(dims):
+    """The launch plan ``gru_sequence`` takes at (B, T, D, H, dtype), as
+    one line."""
+    import torch
+    from repro_torch.kernels.gru import gru_plan
+    B, T, D, H, dt = dims
+    p = gru_plan(B, T, D, H, getattr(torch, dt))
+    return (f"rows/tile {p.rows}, grid {p.grid}, parts {p.parts}, units/"
+            f"thread {p.units_per_thread}, threads {p.threads}, route "
+            f"{p.route}, passes {p.passes}, smem {p.smem}")
+
+
 def _outputs(out):
     return out if isinstance(out, tuple) else (out,)
 
@@ -1274,6 +1303,8 @@ def phase_layer_kernels(dev):
             worst[name] = max(worst.get(name, 0.0), err)
             line = (f"[kernel] {op} {label} {dims}: {name}, max err "
                     f"{err:.3g}")
+            if op == "gru_sequence":
+                line += f"; plan {gru_plan_text(dims)}"
             if label in TIMED:
                 rec = time_layer(case)
                 b_ms, b_by = bound(case.flops, case.bytes, case.dtype)
@@ -1289,6 +1320,8 @@ def phase_layer_kernels(dev):
                     recs[name] = dict(rec, flops=case.flops,
                                       bytes=case.bytes, dtype=case.dtype,
                                       flips=None, timed_at=f"{op} {dims}")
+                    if op == "gru_sequence":
+                        recs[name]["plan"] = gru_plan_text(dims)
             log(line)
             del case
             torch.cuda.empty_cache()

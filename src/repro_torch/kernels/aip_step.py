@@ -4,16 +4,17 @@ replace).
 
 ``csrc/ials_kernels.cu`` holds five entry points (one GRU AIP tick, the
 GRU and FNN whole-horizon rollouts, the actor-in-the-loop rollout for
-each cell; the FNN rollout and the actor-in-the-loop ones launched by
-the plan of ``rollout_plan``); ``csrc/serve_kernels.cu`` the serving
-tier's masked slot forward for one policy and for N, launched by the
-plan of ``serve_plan``; ``csrc/layer_kernels.cu`` the three layer ops
-(``gru_sequence``, ``rmsnorm``, ``flash_attention`` on the CUDA cores,
-bound in the modules of those names); ``csrc/flash_wgmma.cu`` the
-tensor-core ``flash_attention`` for bf16 (``wgmma`` fed by TMA). The
-first two share ``csrc/ials_args.cuh`` and ``csrc/smem.cuh`` (mbarriers,
-bulk copies); they and ``layer_kernels.cu`` include ``csrc/gates.cuh``,
-the last two ``csrc/flash_args.cuh``. At
+each cell; all but the tick launched by the plan of ``rollout_plan``);
+``csrc/serve_kernels.cu`` the serving tier's masked slot forward for one
+policy and for N, launched by the plan of ``serve_plan``;
+``csrc/layer_kernels.cu`` two layer ops (``rmsnorm``, ``flash_attention``
+on the CUDA cores) and ``csrc/gru_kernels.cu`` the third
+(``gru_sequence``, launched by the plan of ``gru.gru_plan``), bound in the
+modules of those names; ``csrc/flash_wgmma.cu`` the tensor-core
+``flash_attention`` for bf16 (``wgmma`` fed by TMA). The first two share
+``csrc/ials_args.cuh``; they and ``gru_kernels.cu`` include
+``csrc/smem.cuh`` (mbarriers, bulk copies, vector loads) and
+``csrc/gates.cuh``; the attention sources ``csrc/flash_args.cuh``. At
 first use each source is compiled
 with ``nvcc`` for ``sm_90a`` (all at once, one process each) and the
 objects are linked into ONE shared library with a plain C interface,
@@ -46,7 +47,7 @@ import torch
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCES = ("ials_kernels.cu", "serve_kernels.cu", "layer_kernels.cu",
-            "flash_wgmma.cu")
+            "gru_kernels.cu", "flash_wgmma.cu")
 _HEADERS = ("gates.cuh", "ials_args.cuh", "flash_args.cuh", "wgmma.cuh",
             "smem.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -98,11 +99,10 @@ class IalsArgs(ctypes.Structure):
 _DOMAINS = {"traffic": 0}
 _ENTRIES = ("ials_aip_step", "ials_aip_rollout_multi", "ials_fnn_rollout",
             "ials_policy_rollout_gru", "ials_policy_rollout_fnn",
-            "ials_serve_forward", "ials_serve_forward_multi")
+            "ials_serve_forward", "ials_serve_forward_multi",
+            "gru_sequence_run")
 _C_INT = ctypes.c_int
 _LAYER_ENTRIES = {
-    # x, wx, wh, b, h0, hs, B, T, D, H, bf16, stream
-    "layer_gru_sequence": [_P] * 6 + [_I] * 4 + [_C_INT, _P],
     # x, g, out, N, d, eps, bf16, stream
     "layer_rmsnorm": [_P, _P, _P, _I, _I, ctypes.c_float, _C_INT, _P],
     # args, bf16, stream
@@ -184,6 +184,7 @@ def library():
     with _lib_lock:
         if _lib is None:
             from repro_torch.kernels.flash_attention import FlashArgs
+            from repro_torch.kernels.gru import GruArgs
             lib = ctypes.CDLL(str(build()))
             for name in _ENTRIES:
                 fn = getattr(lib, name)
@@ -194,7 +195,8 @@ def library():
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
             for fn, mirror in ((lib.ials_args_size, IalsArgs),
-                               (lib.layer_flash_args_size, FlashArgs)):
+                               (lib.layer_flash_args_size, FlashArgs),
+                               (lib.gru_args_size, GruArgs)):
                 fn.argtypes = []
                 fn.restype = ctypes.c_int
                 if fn() != ctypes.sizeof(mirror):
@@ -299,13 +301,13 @@ def aip_step(d, h, wx, wh, b, hw, hb, bits):
 
 
 def rollout_args(ls, s0, weights, actions, bits, noise, *, n_agents,
-                 domain, D, H, M, stack, cell=None, lanes=None,
+                 domain, D, H, M, stack, cell, lanes=None,
                  threads=None):
-    """Check a whole-horizon rollout's inputs, allocate its outputs and
-    fill its IalsArgs -> (args, outputs, inputs kept alive). With
-    ``cell`` ("fnn") the launch plan of ``rollout_plan`` goes into the
-    arguments (``lanes`` / ``threads`` override it); without, the first
-    body's fixed tile (``aip_rollout_multi``)."""
+    """Check a whole-horizon rollout's inputs (actions streamed, no
+    policy), allocate its outputs and fill its IalsArgs with the launch
+    plan of ``rollout_plan`` for AIP ``cell`` ("gru" or "fnn"; ``lanes``
+    / ``threads`` override the plan) -> (args, outputs, inputs kept
+    alive)."""
     if noise:
         raise NotImplementedError("LS noise leaves have no device functor "
                                   "yet (traffic draws none)")
@@ -322,10 +324,9 @@ def rollout_args(ls, s0, weights, actions, bits, noise, *, n_agents,
     s_out = torch.empty_like(s0)
     rew = torch.empty((T, L), dtype=torch.float32, device=s0.device)
     args = _base_args(A, L // A, D, H, M, domain, T=T, stack=stack)
-    if cell is not None:
-        _set_plan(args, rollout_plan(
-            A, L // A, RolloutWidths(D=D, H=H, M=M, stack=stack), cell,
-            False, lanes=lanes, threads=threads))
+    _set_plan(args, rollout_plan(
+        A, L // A, RolloutWidths(D=D, H=H, M=M, stack=stack), cell, False,
+        lanes=lanes, threads=threads))
     args.ls_in[0], args.ls_in[1] = lanes_in.data_ptr(), phase.data_ptr()
     args.ls_out[0], args.ls_out[1] = (lanes_out.data_ptr(),
                                       phase_out.data_ptr())
@@ -340,9 +341,10 @@ def rollout_args(ls, s0, weights, actions, bits, noise, *, n_agents,
 
 def aip_rollout_multi(ls, h0, wx, wh, b, hw, hb, actions, bits, noise, *,
                       n_agents: int, domain):
-    """Whole-horizon IALS rollout, GRU backbone, ONE launch: ls (lanes
-    (L, 4, lane_len), phase (L,)) int32, h0 (L, H), stacked weights,
-    actions (T, L), bits (T, L, M) -> (final ls, h_T, rewards (T, L))."""
+    """Whole-horizon IALS rollout, GRU backbone, ONE launch by the plan
+    of ``rollout_plan``: ls (lanes (L, 4, lane_len), phase (L,)) int32,
+    h0 (L, H), stacked weights, actions (T, L), bits (T, L, M) -> (final
+    ls, h_T, rewards (T, L))."""
     A, D, G3 = wx.shape
     H = G3 // 3
     M = hw.shape[2]
@@ -351,7 +353,7 @@ def aip_rollout_multi(ls, h0, wx, wh, b, hw, hb, actions, bits, noise, *,
           _f32(hb, "hb", (A, M))]
     args, out, keep = rollout_args(ls, h0, ws, actions, bits, noise,
                                    n_agents=n_agents, domain=domain, D=D,
-                                   H=H, M=M, stack=1)
+                                   H=H, M=M, stack=1, cell="gru")
     launch("ials_aip_rollout_multi", "aip_rollout_multi", keep[2].device,
            ctypes.byref(args))
     return out
@@ -493,6 +495,11 @@ ROLL_THREADS_WIDE = 512     # and of 32 (tools/rollout_ablation.py: 256
 #                             beat 512 by 5-13 % at 4-16 lanes a tile and
 #                             lost by 5-12 % at 32)
 ROLL_MAX_THREADS = 512      # the kernel's __launch_bounds__
+ROLL_SHARE_LANES = 8        # without the policy, CTAs share an SM from
+#                             this many lanes a tile (tools/
+#                             rollout_ablation.py, aip_rollout_multi: 2 x 8
+#                             lanes an SM beat 1 x 16 by 18 % at 25 x 64;
+#                             2 x 2 lost 10 % to 1 x 4 at 25 x 16)
 ROLL_MAX_SPLIT = 16         # K-parts of one product at most
 ROLL_MIN_CHAIN = 8          # k-steps a part at least
 TRAFFIC_STATE_INTS = 5      # TrafficDomain::kStateInts
@@ -516,8 +523,8 @@ class RolloutWidths:
 
 @dataclasses.dataclass(frozen=True)
 class RolloutPlan:
-    """How one ``fnn_rollout`` / ``policy_rollout`` launch covers A x B
-    lanes (``rollout_plan``)."""
+    """How one ``aip_rollout_multi`` / ``fnn_rollout`` /
+    ``policy_rollout`` launch covers A x B lanes (``rollout_plan``)."""
     A: int
     B: int
     cell: str
@@ -603,12 +610,14 @@ def roll_smem(w: RolloutWidths, cell: str, R: int, splits, layers):
     return pol, aip
 
 
-def roll_resident(cluster: int, threads: int, smem: int) -> int:
+def roll_resident(cluster: int, threads: int, smem: int,
+                  lanes: int = 1) -> int:
     """CTAs of a horizon launch the card holds at once: one an SM; with
     the policy (a cluster of two), two clusters share an SM where both fit
     (each role waits on the other once a tick, and the other cluster's CTA
-    fills that wait)."""
-    if cluster == 1:
+    fills that wait); without it, two CTAs share an SM where both fit and
+    a tile has at least ROLL_SHARE_LANES lanes."""
+    if cluster == 1 and lanes < ROLL_SHARE_LANES:
         return ROLL_SMS
     per_sm = min(ROLL_SM_THREADS // threads,
                  ROLL_SM_REGS // (ROLL_THREAD_REGS * threads),
@@ -620,11 +629,14 @@ def rollout_plan(A: int, B: int, widths: RolloutWidths, cell: str,
                  with_policy: bool, *, lanes: int | None = None,
                  cluster: int | None = None,
                  threads: int | None = None) -> RolloutPlan:
-    """The launch plan of ``fnn_rollout`` (``with_policy`` False, cell
-    "fnn") and ``policy_rollout`` (either cell) over A agents x B lanes:
+    """The launch plan of ``aip_rollout_multi`` (``with_policy`` False,
+    cell "gru"), ``fnn_rollout`` (``with_policy`` False, cell "fnn") and
+    ``policy_rollout`` (either cell) over A agents x B lanes:
     a tile of lanes of one agent per CTA, or per cluster of two CTAs with
     the policy; lanes a tile the fewest whose grid the card holds at once
-    (``roll_resident``; fewer lanes a tile, shorter ticks:
+    (``roll_resident``: two clusters an SM where they fit; without the
+    policy two CTAs from ROLL_SHARE_LANES lanes; fewer lanes a tile,
+    shorter ticks:
     tools/rollout_ablation.py), halved
     while the weights and state do not fit shared memory; ROLL_THREADS
     threads a CTA (ROLL_THREADS_WIDE at 32 lanes); the K-parts of each
@@ -633,9 +645,6 @@ def rollout_plan(A: int, B: int, widths: RolloutWidths, cell: str,
     w = widths
     if cell not in ("fnn", "gru"):
         raise ValueError(f"rollout_plan: unknown cell {cell!r}")
-    if not with_policy and cell != "fnn":
-        raise ValueError("rollout_plan: only fnn_rollout runs this body "
-                         "without the policy")
     for name in ("D", "H", "M", "stack") + (
             ("S", "obs_dim", "Hp", "n_act") if with_policy else ()):
         if getattr(w, name) < 1:
@@ -672,7 +681,7 @@ def rollout_plan(A: int, B: int, widths: RolloutWidths, cell: str,
         while R < ROLL_LANES[-1]:
             nt, _, _, _, smem = attempt(R)
             if A * -(-B // R) * cluster <= roll_resident(cluster, nt,
-                                                         smem):
+                                                         smem, R):
                 break
             R *= 2
         while R > 1 and attempt(R)[4] > ROLL_SMEM_MAX:

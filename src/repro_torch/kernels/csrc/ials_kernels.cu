@@ -27,14 +27,15 @@
 // ridge (20 FLOP/B), but the ticks depend on one another: the real bound
 // is T times the critical path of one tick.
 //
-// aip_step and aip_rollout_multi keep the first body (simply right): the
-// Pallas grid (A*nB, T) becomes CUDA blocks of kRows = 16 lanes of ONE
-// agent with T a loop inside the block, all state in shared memory; each
-// small GEMM gives a thread one output column and reads every weight
-// with __ldg inside its K loop, so each k-step waits on L2.
+// aip_step alone keeps the first body (simply right): one tick over
+// blocks of kRows = 16 lanes of ONE agent, all state in shared memory;
+// each small GEMM gives a thread one output column and reads every
+// weight with __ldg inside its K loop, so each k-step waits on L2.
 //
-// fnn_rollout and policy_rollout (both cells) run the horizon kernel
-// (horizon_kernel, launch plan aip_step.py::rollout_plan):
+// aip_rollout_multi (the GRU cell, actions streamed), fnn_rollout (the
+// FNN cell, actions streamed) and policy_rollout (either cell, the
+// policy in the loop) run the horizon kernel (horizon_kernel, launch
+// plan aip_step.py::rollout_plan):
 //  - Weights on chip for the whole horizon: each CTA stages its role's
 //    weights into shared memory once, by bulk asynchronous copies on an
 //    mbarrier (plain loads for a piece that is not 16-byte aligned), and
@@ -49,7 +50,10 @@
 //    policy CTA's (distributed shared memory, map_shared_rank).
 //  - A tile is roll_lanes lanes, the fewest whose grid the card holds at
 //    once (fewer lanes, shorter ticks): one lane a tile at the main
-//    path's A = 1, B = 16 (16 clusters), 4 at A = 25, B = 16.
+//    path's A = 1, B = 16 (16 clusters), 4 at A = 25, B = 16 (100
+//    clusters with the policy, 100 CTAs without: aip_rollout_multi);
+//    without the policy two CTAs of 8 or more lanes share an SM where
+//    they fit (8 lanes, 200 CTAs at A = 25, B = 64).
 //  - A product spreads over the block's 256 threads (512 at 32 lanes):
 //    item = (column, row group of up to 4 rows, K-part); a thread's chain
 //    runs its K-part with up to 4 independent accumulators, one shared
@@ -305,86 +309,6 @@ Layout make_layout(const IalsArgs& p) {
   return l;
 }
 
-struct Tile {
-  int agent, b0, nvalid;
-  long long lane0;       // global lane index of row 0 (agent-major a*B + b)
-};
-
-__device__ Tile tile_of_block(const IalsArgs& p) {
-  const int per_agent = (int)((p.B + kRows - 1) / kRows);
-  Tile t;
-  t.agent = blockIdx.x / per_agent;
-  t.b0 = (blockIdx.x % per_agent) * kRows;
-  const long long left = p.B - t.b0;
-  t.nvalid = left < kRows ? (int)left : kRows;
-  t.lane0 = (long long)t.agent * p.B + t.b0;
-  return t;
-}
-
-template <class Domain>
-__device__ void load_states(const IalsArgs& p, const Domain& dom,
-                            const Tile& tile, float* s, int SD, int* ls) {
-  for (int i = threadIdx.x; i < kRows * SD; i += blockDim.x) {
-    const int r = i / SD;
-    s[i] = r < tile.nvalid ? p.s0[(tile.lane0 + r) * SD + i % SD] : 0.0f;
-  }
-  for (int r = threadIdx.x; r < kRows; r += blockDim.x) {
-    int* st = ls + r * Domain::kStateInts;
-    if (r < tile.nvalid) {
-      dom.load(p.ls_in, tile.lane0 + r, st);
-    } else {
-      for (int k = 0; k < Domain::kStateInts; ++k) st[k] = 0;
-    }
-  }
-}
-
-template <class Domain>
-__device__ void store_states(const IalsArgs& p, const Domain& dom,
-                             const Tile& tile, const float* s, int SD,
-                             const int* ls) {
-  for (int i = threadIdx.x; i < tile.nvalid * SD; i += blockDim.x)
-    p.s_out[(tile.lane0 + i / SD) * SD + i % SD] = s[i];
-  for (int r = threadIdx.x; r < tile.nvalid; r += blockDim.x)
-    dom.store(p.ls_out, tile.lane0 + r, ls + r * Domain::kStateInts);
-}
-
-// ---------------------------------------------------------------------------
-// whole-horizon IALS rollout (aip_step.py::_rollout_kernel): per tick
-// d_t = dset(ls), AIP cell + Bernoulli draw, LS tick + reward.
-// ---------------------------------------------------------------------------
-
-template <class Domain>
-__global__ void __launch_bounds__(kThreads)
-rollout_kernel(IalsArgs p, Layout lay, Domain dom) {
-  extern __shared__ float smem[];
-  const Tile tile = tile_of_block(p);
-  const long long L = p.A * p.B;
-  const int H = (int)p.H, D = (int)p.D, M = (int)p.M;
-  Scratch sc{smem + lay.s0, smem + lay.c1, smem + lay.c2, smem + lay.d,
-             smem + lay.logits, smem + lay.u};
-  int* ls = reinterpret_cast<int*>(smem + lay.ints);
-  int* act = ls + kRows * Domain::kStateInts;
-  load_states(p, dom, tile, sc.h, H, ls);
-  __syncthreads();
-  for (long long t = 0; t < p.T; ++t) {
-    for (int r = threadIdx.x; r < kRows; r += blockDim.x)
-      act[r] = r < tile.nvalid ? p.actions[t * L + tile.lane0 + r] : 0;
-    __syncthreads();
-    for (int i = threadIdx.x; i < kRows * D; i += blockDim.x)
-      sc.d[i] = dom.dset_at(ls + (i / D) * Domain::kStateInts, i % D);
-    __syncthreads();
-    GruCell::step(p, tile.agent, sc, p.bits + (t * L + tile.lane0) * M,
-                  tile.nvalid, M);
-    for (int r = threadIdx.x; r < tile.nvalid; r += blockDim.x) {
-      const float rew = dom.tick(ls + r * Domain::kStateInts, act[r],
-                                 sc.u + r * M, p.noise, t * L + tile.lane0 + r);
-      p.rew_out[t * L + tile.lane0 + r] = rew;
-    }
-    __syncthreads();
-  }
-  store_states(p, dom, tile, sc.h, H, ls);
-}
-
 // ---------------------------------------------------------------------------
 // one fused GRU AIP tick (aip_step.py::_aip_step_kernel): grid (row tiles,
 // agents); d (B, A, D), h (B, A, H), bits (B, A, M), stacked weights.
@@ -426,10 +350,6 @@ aip_step_kernel(IalsArgs p, Layout lay) {
   }
 }
 
-dim3 rollout_grid(const IalsArgs& p) {
-  return dim3((unsigned)(p.A * ((p.B + kRows - 1) / kRows)));
-}
-
 TrafficDomain traffic_of(const IalsArgs& p) {
   TrafficDomain dom;
   dom.lane_len = (int)p.lane_len;
@@ -438,7 +358,7 @@ TrafficDomain traffic_of(const IalsArgs& p) {
 }
 
 // ---------------------------------------------------------------------------
-// The horizon kernels of fnn_rollout and policy_rollout (both cells):
+// The horizon kernels of aip_rollout_multi, fnn_rollout and policy_rollout:
 // weights staged on chip once a launch, a tick spread over the block, the
 // policy and the AIP on two CTAs of a cluster. See the design note at the
 // top of this file; the launch plan is aip_step.py::rollout_plan.
@@ -1109,15 +1029,7 @@ int ials_aip_step(const IalsArgs* args, void* stream) {
 }
 
 int ials_aip_rollout_multi(const IalsArgs* args, void* stream) {
-  if (args->domain != 0) return (int)cudaErrorInvalidValue;
-  const Layout lay = make_layout(*args);
-  auto k = rollout_kernel<TrafficDomain>;
-  cudaError_t e = cudaFuncSetAttribute(
-      k, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.total_bytes);
-  if (e != cudaSuccess) return (int)e;
-  k<<<rollout_grid(*args), kThreads, lay.total_bytes,
-      (cudaStream_t)stream>>>(*args, lay, traffic_of(*args));
-  return (int)cudaGetLastError();
+  return launch_horizon<false, false>(args, stream);
 }
 
 int ials_fnn_rollout(const IalsArgs* args, void* stream) {

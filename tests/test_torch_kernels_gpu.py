@@ -1,7 +1,9 @@
 """Each CUDA kernel of the port against its plain PyTorch version, on the
 card, at test size (both cells, A in {1, 3}, resets inside the horizon),
-with the lane and flip rule of ``chip_smoke.py``; the redesigned horizon
-kernels also at 1, 17 and 100 lanes an agent, with exact tanh gates, a
+with the lane and flip rule of ``chip_smoke.py``; the horizon kernels
+(``aip_rollout_multi``, ``fnn_rollout``, ``policy_rollout``) also at 1,
+17 and 100 lanes an agent, with exact tanh gates, a bitwise repeat and a
+refused plan; ``gru_sequence`` at odd B (1, 7, 1000), T = 1 and bf16, a
 bitwise repeat and a refused plan; the serving kernels
 at both domains' widths, slots of 1 to 4096 lanes, 1, 3 and 4 policies,
 shaped slots (an empty policy, one policy, all masked), plain-load
@@ -79,6 +81,16 @@ def test_fnn_rollout_at_odd_shapes(A, B, dev):
     assert err <= chip_smoke.ATOL
 
 
+@pytest.mark.parametrize("A,B", [(1, 1), (1, 17), (3, 17), (3, 100),
+                                 (25, 17)])
+def test_aip_rollout_multi_at_odd_shapes(A, B, dev):
+    """The GRU horizon without the policy at lane counts off its tile."""
+    case = chip_smoke.Case("gru", A, B, 40, seed=45 + A + B, dev=dev)
+    flips, err = chip_smoke.check_rollout(case, f"aip_rollout_multi A={A} "
+                                                f"B={B}")
+    assert err <= chip_smoke.ATOL
+
+
 @pytest.mark.parametrize("kind", ["gru", "fnn"])
 def test_policy_rollout_with_exact_tanh(kind, dev):
     case = chip_smoke.Case(kind, 3, 20, 48, seed=50, dev=dev)
@@ -88,7 +100,7 @@ def test_policy_rollout_with_exact_tanh(kind, dev):
 
 
 @pytest.mark.parametrize("kernel", ["policy fnn", "policy gru",
-                                    "fnn_rollout"])
+                                    "fnn_rollout", "aip_rollout_multi"])
 def test_horizon_kernels_repeat_bitwise(kernel, dev):
     """The K-parts are summed in a fixed order: two launches on the same
     inputs give the same bits."""
@@ -96,7 +108,8 @@ def test_horizon_kernels_repeat_bitwise(kernel, dev):
         else "gru"
     case = chip_smoke.Case(kind, 3 if kind == "gru" else 1, 64, 48, seed=60,
                            dev=dev)
-    call = case.rollout_call if kernel == "fnn_rollout" else case.policy_call
+    call = case.policy_call if kernel.startswith("policy") \
+        else case.rollout_call
     first, second = call(), call()
     torch.cuda.synchronize()
     leaves = [(a, b) for x, y in zip(first, second)
@@ -204,6 +217,74 @@ def test_serve_launch_refused_raises(dev):
     with pytest.raises(RuntimeError, match="failed to launch"):
         cuda.launch("ials_serve_forward", "serve_forward", dev,
                     ctypes.byref(args))
+
+
+@pytest.mark.parametrize("B,T,dtype", [(1, 16, "float32"),
+                                        (7, 16, "float32"),
+                                        (1000, 16, "float32"),
+                                        (1000, 1, "float32"),
+                                        (7, 16, "bfloat16"),
+                                        (1000, 16, "bfloat16")])
+def test_gru_sequence_at_odd_shapes(B, T, dtype, dev):
+    """Rows off the tile (1 and 7 rows: a tile of 1; 1000: tiles of 8
+    whose grid misses a wave's 132 by 7), one tick, bf16."""
+    from repro_torch.kernels import aip_step as cuda
+    case = chip_smoke.LayerCase("gru_sequence", (B, T, 40, 64, dtype),
+                                seed=B + T, dev=dev)
+    cuda.reset_launches()
+    chip_smoke.check_layer(case, f"gru_sequence B={B} T={T} {dtype}")
+    assert cuda.LAUNCHES["gru_sequence"] == 1
+
+
+@pytest.mark.parametrize("kw", [{}, {"rows": 4}, {"route": "l2",
+                                                "parts": 8},
+                                {"route": "l2", "parts": 4}])
+def test_gru_sequence_repeats_bitwise(kw, dev):
+    """The K-parts are summed in a fixed order: two launches give the same
+    bits, under the plan and under other plans with the same parts (rows,
+    the "l2" route) or other parts."""
+    import ctypes
+    from repro_torch.kernels import aip_step as cuda
+    from repro_torch.kernels import gru
+    g = torch.Generator(device=dev)
+    g.manual_seed(80)
+    x = torch.randn((1024, 32, 40), generator=g, device=dev)
+    wx, wh = (0.2 * torch.randn(s, generator=g, device=dev)
+              for s in ((40, 192), (64, 192)))
+    b, h0 = (0.1 * torch.randn(s, generator=g, device=dev)
+             for s in ((192,), (1024, 64)))
+    outs = []
+    for _ in range(2):
+        args, hs, plan, keep = gru.gru_args(x, wx, wh, b, h0, **kw)
+        cuda.launch("gru_sequence_run", "gru_sequence", dev,
+                    ctypes.byref(args))
+        torch.cuda.synchronize()
+        outs.append(hs)
+    assert torch.equal(outs[0], outs[1])
+    if kw.get("parts", 8) == 8:
+        # the same parts sum in the same order, whatever the rows a tile
+        # or where the weights are read from: the plan's bits
+        want, _ = gru.gru_sequence(x, wx, wh, b, h0)
+        assert torch.equal(outs[0], want)
+
+
+def test_gru_launch_refused_raises(dev):
+    """A plan the GRU kernel cannot run is refused and the wrapper raises:
+    no fallback."""
+    import ctypes
+    from repro_torch.kernels import aip_step as cuda
+    from repro_torch.kernels import gru
+    x = torch.zeros((16, 4, 40), device=dev)
+    w = [torch.zeros(s, device=dev) for s in ((40, 192), (64, 192), (192,),
+                                              (16, 64))]
+    for field, value in (("parts", 3), ("rows", 16), ("smem", 16),
+                         ("threads", 1024), ("units", 32),
+                         ("units_per_thread", 2)):
+        args, *_ = gru.gru_args(x, *w)
+        setattr(args, field, value)
+        with pytest.raises(RuntimeError, match="failed to launch"):
+            cuda.launch("gru_sequence_run", "gru_sequence", dev,
+                        ctypes.byref(args))
 
 
 @pytest.mark.parametrize("op,label", LAYER_CASES)

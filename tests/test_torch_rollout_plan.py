@@ -1,9 +1,10 @@
-"""The launch plan of the horizon kernels (``fnn_rollout``,
-``policy_rollout``), ``repro_torch.kernels.aip_step.rollout_plan``, on
-the CPU: it fits shared memory and the block, its tiles cover every lane
-of every agent once, each product's items cover every (row, column, k)
-once, it fills the card at the main path's shapes without a second wave,
-and it raises for widths it cannot hold."""
+"""The launch plan of the horizon kernels (``aip_rollout_multi``,
+``fnn_rollout``, ``policy_rollout``),
+``repro_torch.kernels.aip_step.rollout_plan``, on the CPU: it fits shared
+memory and the block, its tiles cover every lane of every agent once,
+each product's items cover every (row, column, k) once, it fills the
+card at the main path's shapes without a second wave, and it raises for
+widths it cannot hold."""
 import pytest
 
 from repro_torch.kernels import aip_step as cuda
@@ -37,6 +38,13 @@ CASES = [
     (25, 16, TRAFFIC_GRU, "gru", True, {"cluster": 1, "threads": 128}),
     (1, 16, TRAFFIC_FNN, "fnn", True, {"lanes": 32}),
     (1, 16, TRAFFIC_GRU, "gru", True, {"lanes": 1, "threads": 64}),
+    # engine.rollout, GRU: aip_rollout_multi on the horizon kernel
+    (16, 16, TRAFFIC_GRU, "gru", False, {}),
+    (25, 16, TRAFFIC_GRU, "gru", False, {}),
+    (1, 512, TRAFFIC_GRU, "gru", False, {}),
+    (25, 64, TRAFFIC_GRU, "gru", False, {}),
+    (3, 17, TRAFFIC_GRU, "gru", False, {}),
+    (36, 16, WAREHOUSE_GRU, "gru", False, {}),
 ]
 
 
@@ -96,19 +104,36 @@ def test_rollout_plan_fills_the_card_in_one_wave():
     fnn = cuda.rollout_plan(1, 16, TRAFFIC_FNN, "fnn", True)
     gru = cuda.rollout_plan(25, 16, TRAFFIC_GRU, "gru", True)
     aip = cuda.rollout_plan(1, 16, TRAFFIC_FNN, "fnn", False)
+    # aip_rollout_multi: 100 CTAs of 4 lanes at A = 25, B = 16 and 128 at
+    # A = 1, B = 512, against the first body's 25 and 32 blocks of 16
+    multi = cuda.rollout_plan(25, 16, TRAFFIC_GRU, "gru", False)
+    multi512 = cuda.rollout_plan(1, 512, TRAFFIC_GRU, "gru", False)
+    assert (multi.lanes, multi.grid) == (4, 100)
+    assert (multi512.lanes, multi512.grid) == (4, 128)
     assert fnn.grid > 1 and aip.grid > 1 and gru.grid > 25
-    for p in (fnn, gru, aip,
+    for p in (fnn, gru, aip, multi, multi512,
               cuda.rollout_plan(1, 512, TRAFFIC_FNN, "fnn", True),
               cuda.rollout_plan(25, 64, TRAFFIC_GRU, "gru", True)):
-        assert p.grid <= cuda.roll_resident(p.cluster, p.threads, p.smem)
+        assert p.grid <= cuda.roll_resident(p.cluster, p.threads, p.smem,
+                                            p.lanes)
         assert p.grid <= p.cluster * cuda.ROLL_SMS
     # the policy and the AIP run on the two CTAs of a cluster
-    assert fnn.cluster == gru.cluster == 2 and aip.cluster == 1
+    assert fnn.cluster == gru.cluster == 2
+    assert aip.cluster == multi.cluster == multi512.cluster == 1
     # two clusters an SM where they fit: 100 KB of shared memory each
     assert cuda.roll_resident(2, 256, 99_376) == 2 * cuda.ROLL_SMS
     assert cuda.roll_resident(2, 512, 99_376) == cuda.ROLL_SMS
     assert cuda.roll_resident(2, 256, 131_552) == cuda.ROLL_SMS
     assert cuda.roll_resident(1, 256, 99_376) == cuda.ROLL_SMS
+    # without the policy, two CTAs an SM from 8 lanes a tile where they
+    # fit: the GRU AIP's 8-lane CTA does (99 KB), the FNN's not (119 KB)
+    assert cuda.roll_resident(1, 256, 98_816, 8) == 2 * cuda.ROLL_SMS
+    assert cuda.roll_resident(1, 256, 118_784, 8) == cuda.ROLL_SMS
+    assert cuda.roll_resident(1, 256, 90_256, 4) == cuda.ROLL_SMS
+    multi64 = cuda.rollout_plan(25, 64, TRAFFIC_GRU, "gru", False)
+    fnn64 = cuda.rollout_plan(25, 64, TRAFFIC_FNN, "fnn", False)
+    assert (multi64.lanes, multi64.grid) == (8, 200)
+    assert (fnn64.lanes, fnn64.grid) == (16, 100)
 
 
 def test_rollout_plan_splits_narrow_products_over_k():
@@ -131,8 +156,9 @@ def test_rollout_plan_splits_narrow_products_over_k():
     (TRAFFIC_FNN, "fnn", True, {"threads": 100}),
     (TRAFFIC_FNN, "fnn", True, {"lanes": 3}),
     (TRAFFIC_FNN, "fnn", True, {"cluster": 4}),
-    (TRAFFIC_GRU, "gru", False, {}),               # no GRU body without
     (TRAFFIC_FNN, "fnn", True, {"lanes": 32, "threads": 64}),  # u's lanes
+    (TRAFFIC_GRU, "gru", False, {"cluster": 2}),   # a cluster needs the
+    #                                                policy
 ])
 def test_rollout_plan_raises_for_what_it_cannot_hold(w, cell, pol, kw):
     with pytest.raises(ValueError, match="rollout_plan"):

@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
 """Where a tick of the horizon kernels (``policy_rollout`` with either
-AIP cell, ``fnn_rollout``) spends its time, on the card, and how the
-redesigned kernels compare with the first version.
+AIP cell, ``fnn_rollout``, ``aip_rollout_multi``) spends its time, on the
+card, and how the redesigned kernels compare with the first version.
 
-    python3 tools/rollout_ablation.py      # one CUDA card and nvcc
+    python3 tools/rollout_ablation.py [KERNEL ...]   # one CUDA card, nvcc
+
+(KERNEL: policy_rollout[fnn], policy_rollout[gru], fnn_rollout,
+aip_rollout_multi; all four without arguments.)
 
 Builds, each into a library of its own under ``build/rollout_ablation/``
 (one nvcc each, side by side):
@@ -26,7 +29,9 @@ Builds, each into a library of its own under ``build/rollout_ablation/``
     frame refill alone, the floor that a tick's dependencies set) and
     its timeline.
 Then for each kernel at the main path's shape (FNN A = 1, B = 16; GRU
-A = 25, B = 16) and at A = 1, B = 512 and A = 25, B = 64 (T = 128) it
+A = 25, B = 16: ``aip_rollout_multi`` is the GRU horizon without the
+policy, actions streamed) and at A = 1, B = 512 and A = 25, B = 64 (T =
+128) it
 times each build and the kernel under other launch plans: lanes a tile
 1-32, one CTA a tile instead of two (``policy_rollout``, where it fits),
 256 and 128 threads (fewer K-parts), and no K-split at all, as device ms
@@ -56,7 +61,8 @@ T = 128
 SHAPES = [(kernel, cell, A, B)
           for kernel, cell in (("policy_rollout[fnn]", "fnn"),
                                ("policy_rollout[gru]", "gru"),
-                               ("fnn_rollout", "fnn"))
+                               ("fnn_rollout", "fnn"),
+                               ("aip_rollout_multi", "gru"))
           for A, B in (((1, 16) if cell == "fnn" else (25, 16)),
                        (1, 512), (25, 64))]
 BUILDS = {"kernel": [], "weights from L2": ["-DIALS_ROLL_WEIGHTS_FROM_L2"],
@@ -127,12 +133,14 @@ def runner(lib, case, policy, no_split=False, timeline=False, **plan):
             kind=case.kind, n_agents=case.A, fast_gates=True, domain=dom,
             **plan)
     else:
-        name = "ials_fnn_rollout"
+        fnn = case.kind == "fnn"
+        name = "ials_fnn_rollout" if fnn else "ials_aip_rollout_multi"
         D = 4 * dom.lane_len
         args, out, keep = cuda.rollout_args(
             case.io.ls, case.s0, case.aw, case.actions, case.bits, (),
             n_agents=case.A, domain=dom, D=D, H=64, M=4,
-            stack=case.s0.shape[1] // D, cell="fnn", **plan)
+            stack=case.s0.shape[1] // D if fnn else 1, cell=case.kind,
+            **plan)
     if no_split:
         args.roll_split[:] = (1,) * 6
     marks = None
@@ -204,8 +212,11 @@ def main():
     sampler = ClockSampler().__enter__()
     dev = torch.device("cuda", 0)
     seed = 800
+    only = set(sys.argv[1:])
     for kernel, cell, A, B in SHAPES:
         seed += 1
+        if only and kernel not in only:
+            continue
         policy = kernel.startswith("policy")
         case = chip_smoke.Case(cell, A, B, T, seed, dev)
         label = f"{kernel} A={A} B={B}"

@@ -20,7 +20,9 @@ Phases, each printing its result and time on its own line:
      kernel's device time (``torch.profiler``, without the host's enqueue
      time) are measured here; the ``[kernel]`` line of each horizon
      kernel (``aip_rollout_multi``, ``fnn_rollout``, ``policy_rollout``)
-     names the launch plan it took (``aip_step.rollout_plan``);
+     and of ``aip_step`` names the launch plan it took
+     (``aip_step.rollout_plan``; ``aip_step.step_plan``, the GRU
+     horizon's K-parts on tiles of at most 8 lanes);
   3. the main path: ``rl_train --domain traffic --simulator ials`` at full
      width (FNN AIP, A = 1, twice with the same seed; then GRU AIP,
      A = 25), with the launch counters zeroed before each run and read
@@ -30,7 +32,11 @@ Phases, each printing its result and time on its own line:
   4. the engine's own entry points (``engine.rollout`` per backbone,
      ``engine.step`` with the GRU AIP), counters zeroed before and read
      after: ``fnn_rollout``, ``aip_rollout_multi`` and ``aip_step`` must
-     have launched;
+     have launched; and ``engine.step`` must equal a one-tick
+     ``engine.rollout`` bitwise (the AIP state, the LS state and the
+     reward, from the same state, actions and bits) at A = 25, B = 16,
+     A = 1, B = 512 and A = 25, B = 512 (where the step's tile is 8 lanes
+     and the rollout's 32, on the same K-parts);
   5. the serving kernels against their plain versions: ``serve_forward``
      and ``serve_forward_multi`` (N = 1 and 4) at the traffic (D = 41,
      2 actions) and warehouse (D = 296, 5 actions) widths, hidden 128,
@@ -59,7 +65,9 @@ Phases, each printing its result and time on its own line:
      cases and the widths of the repo's configurations (the traffic AIP,
      ``qwen3_4b``), f32 and bf16, with cases for each route of the two
      redesigned kernels (flash: the tensor-core kernel for bf16 at head
-     widths in steps of 16, the CUDA-core one for the rest; rmsnorm: the
+     widths in steps of 16, the CUDA-core one for the rest, each of whose
+     cases prints the launch plan it took, ``flash_attention.f32_plan``;
+     rmsnorm: the
      16-byte vector routes and the scalar one for unaligned or off-vector
      rows; gru_sequence: weights in registers at 1, 2, 4 and 8 rows a
      tile and 4 or 8 K-parts, the "l2" route for wide layers and in
@@ -79,8 +87,8 @@ replaces, launches on its path, max error, times and the card's bound;
 ``flash_attention[f32]`` the CUDA-core one, timed at ``qwen3_4b f32``;
 ``flips`` counts the decisions that flipped for the kernels that make
 decisions, phases 2 and 5, and is null for the layer kernels, which make
-none; ``plan`` is the launch plan of the horizon kernels and of
-``gru_sequence``, else null),
+none; ``plan`` is the launch plan of the horizon kernels, ``aip_step``,
+``gru_sequence`` and the CUDA-core flash kernel, else null),
 the ``nvidia-smi`` line, and last ``{"ok": true, "device": ...}``. Any
 failure prints its reason on stderr and as a ``chip_smoke: FAILED`` line
 on stdout, and exits 1.
@@ -110,6 +118,7 @@ SOURCE = "src/repro_torch/kernels/csrc/ials_kernels.cu"
 LAYER_SOURCE = "src/repro_torch/kernels/csrc/layer_kernels.cu"
 GRU_SOURCE = "src/repro_torch/kernels/csrc/gru_kernels.cu"
 TC_SOURCE = "src/repro_torch/kernels/csrc/flash_wgmma.cu"
+F32_SOURCE = "src/repro_torch/kernels/csrc/flash_f32.cu"
 SERVE_SOURCE = "src/repro_torch/kernels/csrc/serve_kernels.cu"
 # the layer kernels' tolerances against their plain versions, (f32, bf16):
 # the reference tests' own (flash f32 2e-5, rmsnorm 1e-2), GRU f32 at
@@ -138,7 +147,7 @@ REPLACES = {
 SOURCES = {"serve_forward": SERVE_SOURCE,
            "serve_forward_multi": SERVE_SOURCE,
            "gru_sequence": GRU_SOURCE, "rmsnorm": LAYER_SOURCE,
-           "flash_attention": TC_SOURCE, "flash_attention[f32]": LAYER_SOURCE}
+           "flash_attention": TC_SOURCE, "flash_attention[f32]": F32_SOURCE}
 PATHS = {"serve_forward": "policy_serve", "serve_forward_multi":
          "policy_serve", "policy_rollout[fnn]": "rl_train",
          "policy_rollout[gru]": "rl_train", "gru_sequence": "kernels.ops",
@@ -470,12 +479,63 @@ def check_aip_step(A, B, seed, dev):
                   device_ms=device_ms(lambda: cuda.aip_step_multi(*args)))
     flops = 2 * (40 * 192 + 64 * 192 + 64 * 4) * A * B
     by = nbytes(args, kh, kl, ku)
+    p = cuda.step_plan(A, B, 40, 64, 4)
+    plan = (f"lanes/tile {p.lanes}, grid {p.grid}, threads {p.threads}, "
+            f"K-splits {p.splits}, smem {p.smem}")
     log(f"[kernel] aip_step A={A} B={B}: lanes {A * B}, flips {flips}, "
         f"max err {err:.3g}, ms {timing['ms']:.4f} (device "
         f"{timing['device_ms']}), plain ms "
-        f"{timing['plain_ms']:.4f}")
+        f"{timing['plain_ms']:.4f}; plan {plan}")
     return dict(max_abs_err=err, flips=flips, flops=flops, bytes=by,
-                **timing)
+                plan=plan, **timing)
+
+
+def step_matches_rollout(A, B, seed, dev):
+    """``engine.step`` and a one-tick ``engine.rollout`` with the GRU AIP
+    from the same state, actions and bits, on the card: the new AIP state
+    h, the LS state and the reward must be bitwise equal (the LS state
+    follows u, so equal LS states mean equal draws) -> the launches of the
+    two calls."""
+    import torch
+    from repro_torch.core import engine, influence
+    from repro_torch.envs.api import horizon_noise, index_tree
+    from repro_torch.envs.traffic import (TrafficConfig,
+                                          make_batched_local_traffic_env)
+    from repro_torch.kernels import aip_step as cuda
+    from repro_torch.tree import tree_leaves
+    ls = make_batched_local_traffic_env(TrafficConfig(), dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    acfg = influence.AIPConfig(kind="gru", d_in=40, n_out=4, hidden=64)
+    p = (influence.init_aip(acfg, g) if A == 1
+         else influence.init_aip_stacked(acfg, g, A))
+    env = engine.make_unified_ials(ls, p, acfg, n_agents=A)
+    acts = torch.randint(0, 2, (2, B) + ((A,) if A > 1 else ()),
+                         generator=g, device=dev)
+    # one tick first, so that h is not the reset's zeros
+    st, _ = env.rollout(env.reset(g, B), acts[:1],
+                        horizon_noise(env.noise_fn, g, 1, B))
+    noise = horizon_noise(env.noise_fn, g, 1, B)
+    cuda.reset_launches()
+    s1, _, r1, _ = env.step_det(st, acts[1], index_tree(noise, 0))
+    s2, r2 = env.rollout(st, acts[1:], noise)
+    torch.cuda.synchronize()
+    launches = {k: cuda.LAUNCHES[k] for k in ("aip_step",
+                                              "aip_rollout_multi")}
+    pairs = ([("h", s1.aip_state, s2.aip_state), ("reward", r1, r2[0])]
+             + [(f"LS leaf {i}", a, b) for i, (a, b) in enumerate(zip(
+                 tree_leaves(s1.ls_state), tree_leaves(s2.ls_state)))])
+    for what, a, b in pairs:
+        if a.shape != b.shape or not torch.equal(a, b):
+            raise AssertionError(f"engine.step and a one-tick "
+                                 f"engine.rollout differ in {what} at A={A}"
+                                 f" B={B}")
+    if launches != {"aip_step": 1, "aip_rollout_multi": 1}:
+        raise AssertionError(f"engine.step vs engine.rollout launches "
+                             f"{launches}")
+    log(f"[engine] engine.step equals a one-tick engine.rollout bitwise at "
+        f"A={A} B={B} (h, LS state, reward); launches {launches}")
+    return launches
 
 
 def run_case(name, kind, A, B, T, seed, dev, policy, timed):
@@ -725,6 +785,9 @@ def phase_engine(dev):
         if counts[k] < 1:
             raise AssertionError(f"{k} did not launch on its path: {counts}")
     log(f"[counts] engine entry points: {counts}")
+    step_matches_rollout(25, 16, 8, dev)
+    step_matches_rollout(1, 512, 9, dev)
+    step_matches_rollout(25, 512, 10, dev)
     return {k: counts[k] for k in ("fnn_rollout", "aip_rollout_multi",
                                    "aip_step")}
 
@@ -1097,6 +1160,17 @@ FLASH_CASES = {
     "ragged Dv<D": (2, 96, 160, 4, 2, 64, 32, True, "float32", 32, 32),
     "D256": (1, 128, 128, 2, 1, 256, 256, True, "float32", 128, 128),
     "T1": (1, 1, 128, 4, 4, 64, 64, False, "float32", 128, 128),
+    # enough heads for 128-row blocks (f32_plan): ragged T and S, Dv < D,
+    # GQA group 3; and non-causal, cross attention
+    "f32 128-row blocks ragged": (1, 520, 600, 33, 11, 64, 48, True,
+                                  "float32", 8, 8),
+    "f32 128-row blocks cross": (2, 256, 384, 40, 8, 128, 128, False,
+                                 "float32", 128, 128),
+    # widths off 16-byte rows (staged by plain loads); causal with S < T
+    "f32 odd widths": (1, 100, 130, 4, 2, 33, 17, True, "float32", 100,
+                       130),
+    "f32 causal S<T": (1, 300, 100, 4, 2, 64, 64, True, "float32", 100,
+                       100),
     # the tensor-core route (bf16, D and Dv multiples of 16)
     "bf16 T200 ragged": (1, 200, 200, 4, 2, 128, 128, True, "bfloat16", 40,
                          40),
@@ -1110,6 +1184,10 @@ FLASH_CASES = {
                        128),
     "bf16 D256": (1, 256, 256, 4, 2, 256, 256, True, "bfloat16", 128, 128),
     "bf16 T1": (1, 1, 128, 4, 4, 128, 128, False, "bfloat16", 128, 128),
+    # bf16 off the tensor-core kernel's steps of 16: the CUDA-core kernel
+    # (its tiles staged by plain loads, converted to float32)
+    "bf16 D40 off-16": (2, 128, 128, 4, 2, 40, 40, True, "bfloat16", 128,
+                        128),
     # v = +1, -1 on alternate keys: outputs cancel, and a p rounded once to
     # bf16 would miss the bound (tests/test_torch_flash_tc.py)
     "bf16 cancellation": (1, 64, 8, 2, 1, 64, 64, False, "bfloat16", 64, 8,
@@ -1238,6 +1316,18 @@ def gru_plan_text(dims):
             f"{p.route}, passes {p.passes}, smem {p.smem}")
 
 
+def f32_plan_text(dims):
+    """The launch plan the CUDA-core flash kernel takes for a flash case,
+    as one line."""
+    import torch
+    from repro_torch.kernels.flash_attention import f32_plan
+    B, T, S, H, KH, D, Dv, _, dt = dims[:9]
+    p = f32_plan(T, S, D, Dv, getattr(torch, dt), heads=B * H)
+    return (f"rows/block {p.rows}, keys/tile {p.keys}, threads "
+            f"{p.threads}, stages {p.stages}, smem {p.smem}, blocks/SM "
+            f"{p.blocks_per_sm}, grid {(B * H, p.q_tiles)}")
+
+
 def _outputs(out):
     return out if isinstance(out, tuple) else (out,)
 
@@ -1305,6 +1395,8 @@ def phase_layer_kernels(dev):
                     f"{err:.3g}")
             if op == "gru_sequence":
                 line += f"; plan {gru_plan_text(dims)}"
+            if name == "flash_attention[f32]":
+                line += f"; plan {f32_plan_text(dims)}"
             if label in TIMED:
                 rec = time_layer(case)
                 b_ms, b_by = bound(case.flops, case.bytes, case.dtype)
@@ -1322,6 +1414,8 @@ def phase_layer_kernels(dev):
                                       flips=None, timed_at=f"{op} {dims}")
                     if op == "gru_sequence":
                         recs[name]["plan"] = gru_plan_text(dims)
+                    if name == "flash_attention[f32]":
+                        recs[name]["plan"] = f32_plan_text(dims)
             log(line)
             del case
             torch.cuda.empty_cache()

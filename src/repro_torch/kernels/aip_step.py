@@ -4,12 +4,13 @@ replace).
 
 ``csrc/ials_kernels.cu`` holds five entry points (one GRU AIP tick, the
 GRU and FNN whole-horizon rollouts, the actor-in-the-loop rollout for
-each cell; all but the tick launched by the plan of ``rollout_plan``);
-``csrc/serve_kernels.cu`` the serving tier's masked slot forward for one
-policy and for N, launched by the plan of ``serve_plan``;
-``csrc/layer_kernels.cu`` two layer ops (``rmsnorm``, ``flash_attention``
-on the CUDA cores) and ``csrc/gru_kernels.cu`` the third
-(``gru_sequence``, launched by the plan of ``gru.gru_plan``), bound in the
+each cell; all launched by the plan of ``rollout_plan``, the tick by
+``step_plan``'s, the GRU horizon's); ``csrc/serve_kernels.cu`` the
+serving tier's masked slot forward for one policy and for N, launched by
+the plan of ``serve_plan``; ``csrc/layer_kernels.cu`` ``rmsnorm``,
+``csrc/flash_f32.cu`` ``flash_attention`` on the CUDA cores (launched by
+the plan of ``flash_attention.f32_plan``) and ``csrc/gru_kernels.cu``
+``gru_sequence`` (launched by the plan of ``gru.gru_plan``), bound in the
 modules of those names; ``csrc/flash_wgmma.cu`` the tensor-core
 ``flash_attention`` for bf16 (``wgmma`` fed by TMA). The first two share
 ``csrc/ials_args.cuh``; they and ``gru_kernels.cu`` include
@@ -47,7 +48,7 @@ import torch
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCES = ("ials_kernels.cu", "serve_kernels.cu", "layer_kernels.cu",
-            "gru_kernels.cu", "flash_wgmma.cu")
+            "gru_kernels.cu", "flash_wgmma.cu", "flash_f32.cu")
 _HEADERS = ("gates.cuh", "ials_args.cuh", "flash_args.cuh", "wgmma.cuh",
             "smem.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -267,9 +268,25 @@ def _base_args(A, B, D, H, M, domain, **kw):
                     ext_influence=int(domain.ext_influence), **kw)
 
 
-def aip_step_multi(d, h, wx, wh, b, hw, hb, bits):
-    """d (B, A, D), h (B, A, H), stacked (A, ...) GRU weights, bits
-    (B, A, M) int32 -> (h2, logits, u): one launch, grid (row tiles, A)."""
+def step_plan(A: int, B: int, D: int, H: int, M: int, *,
+              lanes: int | None = None) -> "RolloutPlan":
+    """The launch plan of ``aip_step_multi``: the GRU horizon's without
+    the policy (``rollout_plan(A, B, widths, "gru", False)``) with at most
+    STEP_MAX_LANES lanes a tile, and always its K-parts, so a step and a
+    one-tick ``aip_rollout_multi`` sum in the same order (the K-parts set
+    the order; lanes and threads do not). ``lanes`` overrides (the
+    ablation)."""
+    w = RolloutWidths(D=D, H=H, M=M)
+    roll = rollout_plan(A, B, w, "gru", False)
+    return rollout_plan(A, B, w, "gru", False,
+                        lanes=lanes or min(roll.lanes, STEP_MAX_LANES),
+                        splits=roll.splits)
+
+
+def step_args(d, h, wx, wh, b, hw, hb, bits, *, lanes=None):
+    """Check one GRU tick's inputs, allocate its outputs and fill its
+    IalsArgs with the plan of ``step_plan`` (``lanes`` overrides) ->
+    (args, (h2, logits, u), inputs kept alive)."""
     B, A, D = d.shape
     H = wh.shape[1]
     M = hw.shape[2]
@@ -283,13 +300,22 @@ def aip_step_multi(d, h, wx, wh, b, hw, hb, bits):
     logits = torch.empty((B, A, M), dtype=torch.float32, device=d.device)
     u = torch.empty_like(logits)
     args = IalsArgs(A=A, B=B, D=D, H=H, M=M)
+    _set_plan(args, step_plan(A, B, D, H, M, lanes=lanes))
     args.d, args.h, args.bits = d.data_ptr(), h.data_ptr(), bits.data_ptr()
     for i, w in enumerate(ws):
         args.aw[i] = w.data_ptr()
     args.h2, args.logits, args.u = (h2.data_ptr(), logits.data_ptr(),
                                     u.data_ptr())
-    launch("ials_aip_step", "aip_step", d.device, ctypes.byref(args))
-    return h2, logits, u
+    return args, (h2, logits, u), (d, h, ws, bits)
+
+
+def aip_step_multi(d, h, wx, wh, b, hw, hb, bits):
+    """d (B, A, D), h (B, A, H), stacked (A, ...) GRU weights, bits
+    (B, A, M) int32 -> (h2, logits, u): one launch of the horizon
+    kernel's GRU role for one tick, by the plan of ``step_plan``."""
+    args, out, keep = step_args(d, h, wx, wh, b, hw, hb, bits)
+    launch("ials_aip_step", "aip_step", keep[0].device, ctypes.byref(args))
+    return out
 
 
 def aip_step(d, h, wx, wh, b, hw, hb, bits):
@@ -500,6 +526,10 @@ ROLL_SHARE_LANES = 8        # without the policy, CTAs share an SM from
 #                             rollout_ablation.py, aip_rollout_multi: 2 x 8
 #                             lanes an SM beat 1 x 16 by 18 % at 25 x 64;
 #                             2 x 2 lost 10 % to 1 x 4 at 25 x 16)
+STEP_MAX_LANES = 8          # aip_step's tile at most (one tick: beyond
+#                             one wave 8 lanes a tile, two CTAs an SM, beat
+#                             the rollout's 32 by 24 % at A = 25, B = 512,
+#                             tools/rollout_ablation.py aip_step)
 ROLL_MAX_SPLIT = 16         # K-parts of one product at most
 ROLL_MIN_CHAIN = 8          # k-steps a part at least
 TRAFFIC_STATE_INTS = 5      # TrafficDomain::kStateInts
@@ -627,8 +657,8 @@ def roll_resident(cluster: int, threads: int, smem: int,
 
 def rollout_plan(A: int, B: int, widths: RolloutWidths, cell: str,
                  with_policy: bool, *, lanes: int | None = None,
-                 cluster: int | None = None,
-                 threads: int | None = None) -> RolloutPlan:
+                 cluster: int | None = None, threads: int | None = None,
+                 splits: tuple | None = None) -> RolloutPlan:
     """The launch plan of ``aip_rollout_multi`` (``with_policy`` False,
     cell "gru"), ``fnn_rollout`` (``with_policy`` False, cell "fnn") and
     ``policy_rollout`` (either cell) over A agents x B lanes:
@@ -640,8 +670,8 @@ def rollout_plan(A: int, B: int, widths: RolloutWidths, cell: str,
     tools/rollout_ablation.py), halved
     while the weights and state do not fit shared memory; ROLL_THREADS
     threads a CTA (ROLL_THREADS_WIDE at 32 lanes); the K-parts of each
-    product from ``_split``. ``lanes``, ``cluster`` and ``threads``
-    override. Raises ValueError for a plan that cannot fit."""
+    product from ``_split``. ``lanes``, ``cluster``, ``threads`` and
+    ``splits`` override. Raises ValueError for a plan that cannot fit."""
     w = widths
     if cell not in ("fnn", "gru"):
         raise ValueError(f"rollout_plan: unknown cell {cell!r}")
@@ -665,16 +695,20 @@ def rollout_plan(A: int, B: int, widths: RolloutWidths, cell: str,
     if lanes is not None and lanes not in ROLL_LANES:
         raise ValueError(f"rollout_plan: lanes = {lanes} not in "
                          f"{ROLL_LANES}")
+    if splits is not None and (len(splits) != 6 or not all(
+            1 <= k <= ROLL_MAX_SPLIT for k in splits)):
+        raise ValueError(f"rollout_plan: splits = {splits}")
     layers = _layers(w, cell, with_policy)
 
     def attempt(R):
         nt = threads or (ROLL_THREADS_WIDE if R > 16 else ROLL_THREADS)
         RP = min(R, 4)
         G = R // RP
-        splits = tuple(_split(K, N, G, nt) if K else 1 for K, N in layers)
-        pol, aip = roll_smem(w, cell, R, splits, layers)
+        sp = splits or tuple(_split(K, N, G, nt) if K else 1
+                             for K, N in layers)
+        pol, aip = roll_smem(w, cell, R, sp, layers)
         smem = max(pol, aip) if cluster == 2 else pol + aip
-        return nt, RP, splits, (pol, aip), smem
+        return nt, RP, sp, (pol, aip), smem
 
     if lanes is None:
         R = 1
@@ -688,7 +722,7 @@ def rollout_plan(A: int, B: int, widths: RolloutWidths, cell: str,
             R //= 2
     else:
         R = lanes
-    nt, RP, splits, roles, smem = attempt(R)
+    nt, RP, sp, roles, smem = attempt(R)
     need = max(R * w.M, R * (w.n_act if with_policy else 0), R)
     if smem > ROLL_SMEM_MAX or nt < need:
         raise ValueError(
@@ -698,7 +732,7 @@ def rollout_plan(A: int, B: int, widths: RolloutWidths, cell: str,
             f"{need} threads")
     return RolloutPlan(A=A, B=B, cell=cell, with_policy=with_policy,
                        lanes=R, rows_per_thread=RP, cluster=cluster,
-                       threads=nt, splits=splits, layers=layers,
+                       threads=nt, splits=sp, layers=layers,
                        smem_roles=roles, smem=smem)
 
 

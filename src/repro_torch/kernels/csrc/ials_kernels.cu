@@ -27,15 +27,11 @@
 // ridge (20 FLOP/B), but the ticks depend on one another: the real bound
 // is T times the critical path of one tick.
 //
-// aip_step alone keeps the first body (simply right): one tick over
-// blocks of kRows = 16 lanes of ONE agent, all state in shared memory;
-// each small GEMM gives a thread one output column and reads every
-// weight with __ldg inside its K loop, so each k-step waits on L2.
-//
 // aip_rollout_multi (the GRU cell, actions streamed), fnn_rollout (the
 // FNN cell, actions streamed) and policy_rollout (either cell, the
 // policy in the loop) run the horizon kernel (horizon_kernel, launch
-// plan aip_step.py::rollout_plan):
+// plan aip_step.py::rollout_plan); aip_step runs its GRU role for one
+// tick (step_kernel, the same plan):
 //  - Weights on chip for the whole horizon: each CTA stages its role's
 //    weights into shared memory once, by bulk asynchronous copies on an
 //    mbarrier (plain loads for a piece that is not 16-byte aligned), and
@@ -84,10 +80,6 @@
 
 namespace {
 
-constexpr int kThreads = 128;   // threads per block
-constexpr int kRows = 16;       // simulation lanes per block (one agent)
-
-
 // numerics shared with repro_torch/nn/act.py: fast_tanh, fast_sigmoid and
 // the GRU gate update live in gates.cuh
 
@@ -104,47 +96,6 @@ __device__ __forceinline__ float activate(float v, int act) {
     case kTanh: return tanhf(v);
     default: return v;
   }
-}
-
-// y[r][c] = act(sum_k x[r][k] * W[k][c] (+ bias[c])) for the kRows rows of
-// the tile. x, y in shared memory (row strides ldx, ldy); W (K, N) and
-// bias in global memory. A thread owns one column and R rows: it loads
-// each weight once and applies it to its R rows.
-template <int R>
-__device__ void gemm_rows(const float* x, int ldx, const float* __restrict__ W,
-                          const float* __restrict__ bias, int K, int N,
-                          float* y, int ldy, int act) {
-  constexpr int G = kRows / R;
-  for (int item = threadIdx.x; item < N * G; item += blockDim.x) {
-    const int c = item % N;
-    const int g = item / N;
-    const float* xr = x + g * R * ldx;
-    float acc[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) acc[r] = 0.0f;
-    for (int k = 0; k < K; ++k) {
-      const float w = __ldg(W + (size_t)k * N + c);
-#pragma unroll
-      for (int r = 0; r < R; ++r) acc[r] = fmaf(xr[r * ldx + k], w, acc[r]);
-    }
-    const float bb = bias != nullptr ? __ldg(bias + c) : 0.0f;
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const float v = bias != nullptr ? __fadd_rn(acc[r], bb) : acc[r];
-      y[(g * R + r) * ldy + c] = activate(v, act);
-    }
-  }
-}
-
-__device__ void gemm(const float* x, int ldx, const float* W,
-                     const float* bias, int K, int N, float* y, int ldy,
-                     int act) {
-  const int groups = kThreads / N;   // row groups that fit the block
-  if (groups >= 16) gemm_rows<1>(x, ldx, W, bias, K, N, y, ldy, act);
-  else if (groups >= 8) gemm_rows<2>(x, ldx, W, bias, K, N, y, ldy, act);
-  else if (groups >= 4) gemm_rows<4>(x, ldx, W, bias, K, N, y, ldy, act);
-  else if (groups >= 2) gemm_rows<8>(x, ldx, W, bias, K, N, y, ldy, act);
-  else gemm_rows<16>(x, ldx, W, bias, K, N, y, ldy, act);
 }
 
 // ---------------------------------------------------------------------------
@@ -221,134 +172,6 @@ struct TrafficDomain {
     return n_cars > 0 ? __fdiv_rn((float)n_moved, (float)n_cars) : 1.0f;
   }
 };
-
-// ---------------------------------------------------------------------------
-// The GRU AIP cell of the first body (aip_step.py::_gru_cell) on the tile
-// in shared memory: d (kRows, D) -> h update, u (kRows, M). The caller
-// has synchronised d; the cell ends synchronised.
-// ---------------------------------------------------------------------------
-
-struct Scratch {        // regions of the dynamic shared buffer
-  float* h;             // AIP state
-  float* c1;            // gx
-  float* c2;            // gh
-  float* d;
-  float* logits;
-  float* u;
-};
-
-__device__ void sample_u(const IalsArgs& p, Scratch& sc, const int* bits_row0,
-                         int nvalid, long long bits_stride) {
-  const int M = (int)p.M;
-  for (int i = threadIdx.x; i < kRows * M; i += blockDim.x) {
-    const int r = i / M, m = i % M;
-    float u = 0.0f;
-    if (r < nvalid) {
-      const float pr = fast_sigmoid(sc.logits[i]);
-      u = uniform_from_bits(bits_row0[r * bits_stride + m]) < pr ? 1.0f : 0.0f;
-    }
-    sc.u[i] = u;
-  }
-}
-
-struct GruCell {
-  // aw = wx (A, D, 3H), wh (A, H, 3H), b (A, 3H), hw (A, H, M), hb (A, M)
-  static __device__ void step(const IalsArgs& p, int agent, Scratch& sc,
-                              const int* bits_row0, int nvalid,
-                              long long bits_stride) {
-    const int D = (int)p.D, H = (int)p.H, M = (int)p.M, G3 = 3 * H;
-    const float* wx = p.aw[0] + (size_t)agent * D * G3;
-    const float* wh = p.aw[1] + (size_t)agent * H * G3;
-    const float* b = p.aw[2] + (size_t)agent * G3;
-    const float* hw = p.aw[3] + (size_t)agent * H * M;
-    const float* hb = p.aw[4] + (size_t)agent * M;
-    float* h = sc.h;
-    gemm(sc.d, D, wx, b, D, G3, sc.c1, G3, kNone);     // gx = d @ wx + b
-    gemm(h, H, wh, nullptr, H, G3, sc.c2, G3, kNone);  // gh = h @ wh
-    __syncthreads();
-    for (int i = threadIdx.x; i < kRows * H; i += blockDim.x) {
-      const int r = i / H, j = i % H;
-      const float* gx = sc.c1 + r * G3;
-      const float* gh = sc.c2 + r * G3;
-      h[i] = gru_gate(gx[j], gx[H + j], gx[2 * H + j], gh[j], gh[H + j],
-                      gh[2 * H + j], h[i]);
-    }
-    __syncthreads();
-    gemm(h, H, hw, hb, H, M, sc.logits, M, kNone);
-    __syncthreads();
-    sample_u(p, sc, bits_row0, nvalid, bits_stride);
-    __syncthreads();
-  }
-};
-
-// ---------------------------------------------------------------------------
-// shared-memory layout of a rollout block
-// ---------------------------------------------------------------------------
-
-struct Layout {
-  int s0, c1, c2, d, logits, u;               // GRU AIP state and scratch
-  int ints;                                   // int region (LS state, a)
-  int total_bytes;
-};
-
-Layout make_layout(const IalsArgs& p) {
-  Layout l{};
-  const int R = kRows;
-  const int c = 3 * (int)p.H;
-  int off = 0;
-  auto take = [&](int n) { int o = off; off += n; return o; };
-  l.s0 = take(R * (int)p.H);
-  l.c1 = take(R * c);
-  l.c2 = take(R * c);
-  l.d = take(R * (int)p.D);
-  l.logits = take(R * (int)p.M);
-  l.u = take(R * (int)p.M);
-  l.ints = off;
-  const int n_ints = R * (TrafficDomain::kStateInts + 2);
-  l.total_bytes = (off + n_ints) * (int)sizeof(float);
-  return l;
-}
-
-// ---------------------------------------------------------------------------
-// one fused GRU AIP tick (aip_step.py::_aip_step_kernel): grid (row tiles,
-// agents); d (B, A, D), h (B, A, H), bits (B, A, M), stacked weights.
-// ---------------------------------------------------------------------------
-
-__global__ void __launch_bounds__(kThreads)
-aip_step_kernel(IalsArgs p, Layout lay) {
-  extern __shared__ float smem[];
-  const int agent = blockIdx.y;
-  const int b0 = blockIdx.x * kRows;
-  const long long left = p.B - b0;
-  const int nvalid = left < kRows ? (int)left : kRows;
-  const int A = (int)p.A, D = (int)p.D, H = (int)p.H, M = (int)p.M;
-  Scratch sc{smem + lay.s0, smem + lay.c1, smem + lay.c2, smem + lay.d,
-             smem + lay.logits, smem + lay.u};
-  for (int i = threadIdx.x; i < kRows * D; i += blockDim.x) {
-    const int r = i / D;
-    sc.d[i] = r < nvalid ? p.d[((long long)(b0 + r) * A + agent) * D + i % D]
-                         : 0.0f;
-  }
-  for (int i = threadIdx.x; i < kRows * H; i += blockDim.x) {
-    const int r = i / H;
-    sc.h[i] = r < nvalid
-                     ? p.h[((long long)(b0 + r) * A + agent) * H + i % H]
-                     : 0.0f;
-  }
-  __syncthreads();
-  GruCell::step(p, agent, sc, p.bits + ((long long)b0 * A + agent) * M,
-                nvalid, (long long)A * M);
-  for (int i = threadIdx.x; i < nvalid * H; i += blockDim.x) {
-    const int r = i / H;
-    p.h2[((long long)(b0 + r) * A + agent) * H + i % H] = sc.h[i];
-  }
-  for (int i = threadIdx.x; i < nvalid * M; i += blockDim.x) {
-    const int r = i / M;
-    const long long o = ((long long)(b0 + r) * A + agent) * M + i % M;
-    p.logits[o] = sc.logits[i];
-    p.u[o] = sc.u[i];
-  }
-}
 
 TrafficDomain traffic_of(const IalsArgs& p) {
   TrafficDomain dom;
@@ -479,7 +302,9 @@ struct FastDiv {
 // of seg rows: logical row k sits in physical segment (head + k / seg) %
 // nseg (the FNN's frame stack; one segment otherwise). With KS > 1 the K
 // range is cut into KS parts whose partial sums go to part (KS x N x R)
-// and are summed in part order by prod_finish.
+// and are summed in part order by prod_finish. W is in shared memory (in
+// the IALS_STEP_FROM_GLOBAL build, with ldg, in global memory: each chain
+// loads its part's weights before its FMAs, chain_rows_ldg).
 struct Prod {
   const float* W;   // K x N, row-major
   const float* b;   // N, or null
@@ -488,6 +313,9 @@ struct Prod {
   int seg, nseg, head;
   float* y;
   float* part;
+#ifdef IALS_STEP_FROM_GLOBAL
+  bool ldg = false;
+#endif
 };
 
 // acc[r] = fmaf(x[k][r], w[k], acc[r]) for k in order: one shared load of
@@ -508,6 +336,38 @@ __device__ __forceinline__ void chain_rows(float (&acc)[RP], const float* w,
     x += R;
   }
 }
+
+#ifdef IALS_STEP_FROM_GLOBAL
+// chain_rows with the weights in global memory: the loads of up to
+// kLdgBatch steps are all issued before their FMAs, so a part of that many
+// steps waits on one round trip to L2 or DRAM, not one a step. The same
+// sums in the same order as chain_rows.
+constexpr int kLdgBatch = 32;
+template <int RP>
+__device__ __forceinline__ void chain_rows_ldg(float (&acc)[RP],
+                                               const float* __restrict__ w,
+                                               int ldw, const float* x, int R,
+                                               int len) {
+  for (int k0 = 0; k0 < len; k0 += kLdgBatch) {
+    const int n = min(kLdgBatch, len - k0);
+    // unconditional loads (a step past the part re-reads its last weight):
+    // no branch between them, so all are in flight before the first FMA
+    float wk[kLdgBatch];
+#pragma unroll
+    for (int j = 0; j < kLdgBatch; ++j)
+      wk[j] = __ldg(w + (size_t)(k0 + min(j, n - 1)) * ldw);
+#pragma unroll
+    for (int j = 0; j < kLdgBatch; ++j) {
+      if (j < n) {
+        float v[RP];
+        load_vec<RP>(v, x + (size_t)(k0 + j) * R);
+#pragma unroll
+        for (int r = 0; r < RP; ++r) acc[r] = fmaf(v[r], wk[j], acc[r]);
+      }
+    }
+  }
+}
+#endif
 
 // The items of one product: item i -> column i % N, row group (i / N) %
 // G, part i / (N G); each thread walks items i = tid, tid + nthreads, ...
@@ -532,7 +392,12 @@ __device__ void gemm_items(const Prod& q, int R) {
                                             : q.head + s;
       const float* x = q.x + ((size_t)phys * q.seg + (k - s * q.seg)) * R +
                        g * RP;
-      chain_rows<RP>(acc, q.W + (size_t)k * q.N + n, q.N, x, R, e - k);
+#ifdef IALS_STEP_FROM_GLOBAL
+      if (q.ldg)
+        chain_rows_ldg<RP>(acc, q.W + (size_t)k * q.N + n, q.N, x, R, e - k);
+      else
+#endif
+        chain_rows<RP>(acc, q.W + (size_t)k * q.N + n, q.N, x, R, e - k);
       k = e;
     }
 #endif
@@ -576,6 +441,45 @@ __device__ void prod_run(const Prod& q, int R, int RP) {
     prod_finish(q, R);
     __syncthreads();
   }
+}
+
+// The GRU role's cell over the tile's R lanes, activations k-major: gx =
+// d @ wx + b and gh = h @ wh side by side (their K-parts summed in part
+// order), the gate update of h^T in place, then logits = h @ hw + hb.
+// w: wx, wh, b, hw, hb in shared memory (kFromGlobal: in global, the
+// IALS_STEP_FROM_GLOBAL build's step). Starts after a block barrier that
+// published d^T and h^T; ends with one.
+template <bool kFromGlobal = false>
+__device__ void gru_cell(const IalsArgs& p, const float* const* w,
+                         const float* dT, float* hT, float* c1T, float* c2T,
+                         float* lgT, float* epart, int R, int RP) {
+  const int D = (int)p.D, H = (int)p.H, M = (int)p.M, G3 = 3 * H;
+  const int lgR = 31 - __clz(R), mR = R - 1;
+  Prod gx{w[0], w[2], D, G3, (int)p.roll_split[3], kNone, dT, D, 1, 0, c1T,
+          epart};
+  Prod gh{w[1], nullptr, H, G3, (int)p.roll_split[4], kNone, hT, H, 1, 0,
+          c2T, epart + roll_part(p, 3, G3)};
+  Prod lg{w[3], w[4], H, M, (int)p.roll_split[5], kNone, hT, H, 1, 0, lgT,
+          epart};
+#ifdef IALS_STEP_FROM_GLOBAL
+  gx.ldg = gh.ldg = lg.ldg = kFromGlobal;
+#endif
+  prod_items(gx, R, RP);
+  prod_items(gh, R, RP);
+  __syncthreads();
+  if (gx.KS > 1 || gh.KS > 1) {
+    if (gx.KS > 1) prod_finish(gx, R);
+    if (gh.KS > 1) prod_finish(gh, R);
+    __syncthreads();
+  }
+  for (int i = threadIdx.x; i < H * R; i += blockDim.x) {
+    const int j = i >> lgR, r = i & mR;
+    hT[i] = gru_gate(c1T[i], c1T[(H + j) * R + r], c1T[(2 * H + j) * R + r],
+                     c2T[i], c2T[(H + j) * R + r], c2T[(2 * H + j) * R + r],
+                     hT[i]);
+  }
+  __syncthreads();
+  prod_run(lg, R, RP);
 }
 
 __device__ __forceinline__ bool bulk_ok(const float* src, int n) {
@@ -843,29 +747,7 @@ horizon_kernel(IalsArgs p, Domain dom) {
         prod_run(Prod{awr[4], awr[5], H, M, (int)p.roll_split[5], kNone, c2T,
                       H, 1, 0, lgT, epart}, R, RP);
       } else {
-        const int G3 = 3 * H;
-        const Prod gx{awr[0], awr[2], D, G3, (int)p.roll_split[3], kNone, dT,
-                      D, 1, 0, c1T, epart};
-        const Prod gh{awr[1], nullptr, H, G3, (int)p.roll_split[4], kNone,
-                      state, H, 1, 0, c2T, epart + roll_part(p, 3, G3)};
-        prod_items(gx, R, RP);
-        prod_items(gh, R, RP);
-        __syncthreads();
-        if (gx.KS > 1 || gh.KS > 1) {
-          if (gx.KS > 1) prod_finish(gx, R);
-          if (gh.KS > 1) prod_finish(gh, R);
-          __syncthreads();
-        }
-        for (int i = tid; i < H * R; i += blockDim.x) {
-          const int j = i >> lgR, r = i & mR;
-          state[i] = gru_gate(c1T[i], c1T[(H + j) * R + r],
-                              c1T[(2 * H + j) * R + r], c2T[i],
-                              c2T[(H + j) * R + r], c2T[(2 * H + j) * R + r],
-                              state[i]);
-        }
-        __syncthreads();
-        prod_run(Prod{awr[3], awr[4], H, M, (int)p.roll_split[5], kNone,
-                      state, H, 1, 0, lgT, epart}, R, RP);
+        gru_cell(p, awr, dT, state, c1T, c2T, lgT, epart, R, RP);
       }
       ROLL_MARK(6);
       // the Bernoulli draw of u: thread i = r * M + m
@@ -961,9 +843,131 @@ horizon_kernel(IalsArgs p, Domain dom) {
 #endif
 }
 
+// ---------------------------------------------------------------------------
+// One GRU AIP tick (aip_step.py::aip_step): the horizon kernel's GRU role
+// for a single tick, by the plan of rollout_plan(A, B, widths, "gru",
+// false) (aip_step.py::step_plan), so a step and a one-tick rollout take
+// the same K-parts and sum in the same order. What differs: d and h come
+// from the batch-major (B, A, .) inputs, there is no LS tick, and h2,
+// logits and u go back in that layout. The weights are staged into
+// shared memory by bulk copies, as the horizon does, while d and h load;
+// IALS_STEP_FROM_GLOBAL builds the other way, the products reading the
+// weights from global memory with each chain's loads in flight together
+// (chain_rows_ldg): tools/rollout_ablation.py aip_step times both, and
+// staging is the faster at every shape it runs.
+// ---------------------------------------------------------------------------
+
+// The tile's rows of the batch-major d (width D) and h (width H), element
+// row(r) * width + k, into the k-major tiles d^T and h^T, zeros past
+// nvalid: a thread's loads of both (up to kLoadBatch) are all issued
+// before its stores, so the tile waits on one round trip to memory
+constexpr int kLoadBatch = 8;
+template <class RowFn>
+__device__ __forceinline__ void load_dh(float* dT, const float* d, int D,
+                                        float* hT, const float* h, int H,
+                                        int R, int nvalid, RowFn row) {
+  const int nd = R * D, n = nd + R * H;
+  for (int i0 = threadIdx.x; i0 < n; i0 += kLoadBatch * blockDim.x) {
+    float v[kLoadBatch];
+#pragma unroll
+    for (int j = 0; j < kLoadBatch; ++j) {
+      const int i = i0 + j * blockDim.x;
+      const bool isd = i < nd;
+      const int w = isd ? D : H, e = isd ? i : i - nd, r = e / w;
+      v[j] = i < n && r < nvalid
+                 ? __ldg((isd ? d : h) + row(r) * w + (e - r * w)) : 0.0f;
+    }
+#pragma unroll
+    for (int j = 0; j < kLoadBatch; ++j) {
+      const int i = i0 + j * blockDim.x;
+      const bool isd = i < nd;
+      const int w = isd ? D : H, e = isd ? i : i - nd, r = e / w;
+      if (i < n) (isd ? dT : hT)[(e - r * w) * R + r] = v[j];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kRollMaxThreads, 1)
+step_kernel(IalsArgs p, TrafficDomain) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+#ifdef IALS_ROLL_TIMELINE
+  long long tl_sum[16] = {};
+  long long tl_last = clock64();
+#endif
+  const RollLayout lay = roll_layout(p, false, false);
+  {
+    uint32_t dyn;
+    asm("mov.u32 %0, %%dynamic_smem_size;" : "=r"(dyn));
+    if ((uint32_t)lay.aip_bytes > dyn) __trap();   // plan and kernel disagree
+  }
+  auto ef = [&](int off) { return reinterpret_cast<float*>(smem_raw + off); };
+  const int R = (int)p.roll_lanes, RP = (int)p.roll_rows_per_thread;
+  const int A = (int)p.A, D = (int)p.D, H = (int)p.H, M = (int)p.M;
+  const long long B = p.B;
+  const int per_agent = (int)((B + R - 1) / R);
+  const int agent = (int)blockIdx.x / per_agent;
+  const int b0 = ((int)blockIdx.x % per_agent) * R;
+  const int nvalid = (int)min((long long)R, B - b0);
+  const int tid = threadIdx.x;
+  // lane r of the tile is row (b0 + r) * A + agent of the (B, A, .) inputs
+  auto row = [&](int r) { return (long long)(b0 + r) * A + agent; };
+  float* hT = ef(lay.state);
+  float* dT = ef(lay.d);
+  const int n[5] = {D * 3 * H, H * 3 * H, 3 * H, H * M, M};
+  const float* w[5];
+  for (int i = 0; i < 5; ++i) w[i] = p.aw[i] + (size_t)agent * n[i];
+#ifndef IALS_STEP_FROM_GLOBAL
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem_raw + lay.ebar);
+  float* aw[5];
+  for (int i = 0; i < 5; ++i) aw[i] = ef(lay.aw[i]);
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  stage_pieces(aw, w, n, 5, bar);
+  for (int i = 0; i < 5; ++i) w[i] = aw[i];
+#endif
+  const int br = tid / M, bm = tid - br * M;   // the draw: thread r M + m
+  const int bv = tid < nvalid * M ? __ldg(p.bits + row(br) * M + bm) : 0;
+  load_dh(dT, p.d, D, hT, p.h, H, R, nvalid, row);
+  ROLL_MARK(0);
+#ifndef IALS_STEP_FROM_GLOBAL
+  mbar_wait(bar, 0);
+  constexpr bool kFromGlobal = false;
+#else
+  constexpr bool kFromGlobal = true;
+#endif
+  __syncthreads();
+  ROLL_MARK(1);
+  gru_cell<kFromGlobal>(p, w, dT, hT, ef(lay.c1), ef(lay.c2), ef(lay.lg),
+                        ef(lay.epart), R, RP);
+  ROLL_MARK(2);
+  if (tid < nvalid * M) {
+    const float lg = ef(lay.lg)[bm * R + br];
+    const long long o = row(br) * M + bm;
+    p.logits[o] = lg;
+    p.u[o] = uniform_from_bits(bv) < fast_sigmoid(lg) ? 1.0f : 0.0f;
+  }
+  for (int i = tid; i < nvalid * H; i += blockDim.x) {
+    const int r = i / H, k = i - r * H;
+    p.h2[row(r) * H + k] = hT[k * R + r];
+  }
+#ifdef IALS_ROLL_TIMELINE
+  // the sums go to the int64 buffer behind p.frames_out (a step has none)
+  ROLL_MARK(3);
+  if (tid == 0)
+    for (int i = 0; i < 16; ++i)
+      reinterpret_cast<long long*>(p.frames_out)[blockIdx.x * 16 + i] =
+          tl_sum[i];
+#endif
+}
+
 // A plan the kernel cannot run is refused, never adapted: the plan is
-// aip_step.py::rollout_plan's, and the wrapper raises on the error.
-template <bool kFnn, bool kPolicy>
+// aip_step.py::rollout_plan's, and the wrapper raises on the error. kStep
+// launches step_kernel (the GRU role, one tick) on the plan of the GRU
+// horizon without the policy.
+template <bool kFnn, bool kPolicy, bool kStep = false>
 int launch_horizon(const IalsArgs* a, void* stream) {
   if (a->domain != 0) return (int)cudaErrorInvalidValue;
   const long long R = a->roll_lanes, C = a->roll_cluster;
@@ -984,7 +988,7 @@ int launch_horizon(const IalsArgs* a, void* stream) {
   const int need = C == 2 ? imax(lay.pol_bytes, lay.aip_bytes)
                           : lay.pol_bytes + lay.aip_bytes;
   if (need > a->roll_smem) return (int)cudaErrorInvalidValue;
-  auto k = horizon_kernel<kFnn, kPolicy, TrafficDomain>;
+  auto k = kStep ? step_kernel : horizon_kernel<kFnn, kPolicy, TrafficDomain>;
   static int raised[kRollMaxDevices] = {};
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -1017,15 +1021,7 @@ int launch_horizon(const IalsArgs* a, void* stream) {
 extern "C" {
 
 int ials_aip_step(const IalsArgs* args, void* stream) {
-  const Layout lay = make_layout(*args);
-  cudaError_t e = cudaFuncSetAttribute(
-      aip_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      lay.total_bytes);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid((unsigned)((args->B + kRows - 1) / kRows), (unsigned)args->A);
-  aip_step_kernel<<<grid, kThreads, lay.total_bytes, (cudaStream_t)stream>>>(
-      *args, lay);
-  return (int)cudaGetLastError();
+  return launch_horizon<false, false, true>(args, stream);
 }
 
 int ials_aip_rollout_multi(const IalsArgs* args, void* stream) {

@@ -11,10 +11,13 @@
   tensor cores; p is split into two bf16 halves (hi and lo) so that P V
   keeps the f32 p's precision. What bounds it: the bf16
   tensor-core rate, and beside it the softmax's f32 work (``expf``).
-- ``layer_flash_attention`` (``csrc/layer_kernels.cu``), for float32 and
-  for widths the tensor-core kernel does not take: one block per
-  (batch*head, 64-row query tile) walks 64-key tiles in float32 on the
-  CUDA cores. What bounds it: the fp32 CUDA-core rate.
+- ``layer_flash_attention`` (``csrc/flash_f32.cu``), for float32 and for
+  widths the tensor-core kernel does not take: one block per (batch*head,
+  128-row query tile; 64 rows above D or Dv = 128) walks key tiles in
+  float32 on the CUDA cores, each warp owning its rows, a lane an 8 x 4
+  register tile of scores fed by 16-byte shared loads, K and V tiles
+  through a ring of cp.async stages; launched by the plan of ``f32_plan``.
+  What bounds it: the fp32 CUDA-core rate.
 
 ``tensor_core_route`` picks the kernel from dtype and widths alone; a
 refused launch raises, nothing falls back. Both keep the reference's
@@ -33,6 +36,7 @@ tensors in place: one launch, no repeated KV heads. CUDA tensors only:
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -49,14 +53,146 @@ class FlashArgs(ctypes.Structure):
     """Mirror of ``FlashArgs`` in ``csrc/flash_args.cuh`` (every field 8
     bytes): q, k, v, o pointers; batch*heads, heads, KV group, T, S, D,
     Dv, causal; element strides over (batch, head, row) of q, k, v, o;
-    the score scale. ``aip_step.library()`` checks its size against the
-    source's."""
+    the score scale; the CUDA-core kernel's plan (``f32_plan``) and the
+    timeline build's clock64 buffer. ``aip_step.library()`` checks its
+    size against the source's."""
     _fields_ = ([(n, _P) for n in ("q", "k", "v", "o")]
                 + [(n, _I) for n in ("nbh", "nh", "group", "T", "S", "D",
                                      "Dv", "causal", "q_sb", "q_sh", "q_st",
                                      "k_sb", "k_sh", "k_ss", "v_sb", "v_sh",
                                      "v_ss", "o_sb", "o_sh", "o_st")]
-                + [("scale", ctypes.c_double)])
+                + [("scale", ctypes.c_double)]
+                + [(n, _I) for n in ("f32_rows", "f32_keys", "f32_threads",
+                                     "f32_stages", "f32_smem")]
+                + [("marks", _P)])
+
+
+# the CUDA-core kernel's launch plan (csrc/flash_f32.cu reads it from
+# FlashArgs and refuses one it cannot run)
+F32_SMEM_MAX = 232_448      # dynamic shared bytes a block may use (H100)
+F32_SM_SMEM = 233_472       # shared bytes an SM holds (228 KB), 1 KB of it
+F32_CTA_RESERVED = 1_024    # reserved for each resident block
+F32_SM_THREADS = 2_048
+F32_SM_REGS = 65_536
+F32_CHUNK = 32              # keys of the p chunk a warp writes at once
+# (rows, keys, threads) the kernel is built for -> the blocks an SM its
+# __launch_bounds__ asks for (so the registers a thread may take)
+F32_CONFIGS = {(128, 64, 256): 1, (64, 32, 256): 2}
+F32_WIDE = 128              # above this D or Dv: 64-row blocks
+F32_SMS = 132               # SMs: fewer 128-row blocks -> 64-row blocks
+
+
+@dataclasses.dataclass(frozen=True)
+class F32Plan:
+    """How one CUDA-core flash launch covers (T, S, D, Dv) (``f32_plan``):
+    a block of ``rows`` query rows of one (batch, head) walks key tiles of
+    ``keys`` through a ring of ``stages`` (K, V) stages with ``threads``
+    threads (warps of rows / (threads / 32) rows each)."""
+    T: int
+    S: int
+    D: int
+    Dv: int
+    rows: int
+    keys: int
+    threads: int
+    stages: int
+    smem: int             # dynamic shared bytes
+    blocks_per_sm: int    # resident blocks an SM holds
+
+    @property
+    def warps_per_sm(self):
+        return self.blocks_per_sm * self.threads // 32
+
+    @property
+    def q_tiles(self):
+        return -(-self.T // self.rows)
+
+
+def qk_stride(D: int) -> int:
+    """Row stride (floats) of the q and k tiles: D in whole 16-byte
+    vectors, made an odd number of them, so that the rows one vector load
+    touches fall on distinct banks (``flash_f32.cu::qk_stride``)."""
+    s = -(-D // 4) * 4
+    return s if (s // 4) % 2 else s + 4
+
+
+def f32_smem(rows: int, keys: int, D: int, Dv: int, stages: int) -> int:
+    """Dynamic shared bytes of ``flash_f32.cu::f32_smem_bytes``: the
+    scaled q tile, ``stages`` x (K tile, V tile with Dv padded to 64) and
+    the p chunk, all float32."""
+    ld, dvp = qk_stride(D), 64 * -(-Dv // 64)
+    return 4 * (rows * ld + stages * (keys * ld + keys * dvp)
+                + F32_CHUNK * (rows + 4))
+
+
+def _resident(threads: int, smem: int, min_blocks: int) -> int:
+    regs = min(255, F32_SM_REGS // (threads * min_blocks))
+    return min(F32_SM_SMEM // (smem + F32_CTA_RESERVED),
+               F32_SM_THREADS // threads, F32_SM_REGS // (threads * regs))
+
+
+def f32_plan(T: int, S: int, D: int, Dv: int, dtype=torch.float32, *,
+             heads: int | None = None, rows: int | None = None,
+             stages: int | None = None) -> F32Plan:
+    """The launch plan of the CUDA-core flash kernel at (T, S, D, Dv),
+    float32 or bf16 (either is staged as float32), over ``heads``
+    (batch x heads) blocks of query rows: 128 query rows a block, 64-key
+    tiles and 256 threads (8 x 4 score tiles a lane) up to D = Dv = 128
+    where the 128-row blocks fill the card's SMs (``heads`` None: assume
+    they do), else 64 rows, 32-key tiles and 256 threads (two blocks an
+    SM where they fit); the ring as deep as shared memory holds (3 stages
+    at most) without losing a resident block. ``rows`` and ``stages``
+    override (tools/flash_f32_ablation.py). Raises ValueError for a plan
+    the kernel cannot run."""
+    if dtype not in DTYPES:
+        raise TypeError(f"f32_plan: dtype {dtype}")
+    if min(T, S, D, Dv) < 1 or max(D, Dv) > MAX_HEAD_DIM:
+        raise ValueError(f"f32_plan: T={T}, S={S}, D={D}, Dv={Dv}")
+    if rows is None:
+        fills = heads is None or heads * -(-T // 128) >= F32_SMS
+        rows = 128 if max(D, Dv) <= F32_WIDE and fills else 64
+    keys, threads = (64 if rows == 128 else 32), 256
+    if (rows, keys, threads) not in F32_CONFIGS:
+        raise ValueError(f"f32_plan: no kernel for {rows} rows, {keys} "
+                         f"keys, {threads} threads")
+    if rows == 128 and Dv > F32_WIDE:
+        raise ValueError(f"f32_plan: 128-row blocks hold Dv <= {F32_WIDE}")
+    min_blocks = F32_CONFIGS[rows, keys, threads]
+    if stages is None:
+        # the deepest ring that fits and keeps the blocks the launch bound
+        # asks for resident; else the deepest that fits
+        fits = [n for n in (3, 2)
+                if f32_smem(rows, keys, D, Dv, n) <= F32_SMEM_MAX]
+        full = [n for n in fits if _resident(
+            threads, f32_smem(rows, keys, D, Dv, n), min_blocks)
+            >= min_blocks]
+        stages = (full or fits or [2])[0]
+    if stages not in (2, 3):
+        raise ValueError(f"f32_plan: stages = {stages}")
+    smem = f32_smem(rows, keys, D, Dv, stages)
+    if smem > F32_SMEM_MAX:
+        raise ValueError(f"f32_plan: {smem} shared bytes at D={D}, Dv={Dv}"
+                         f", {rows} rows, {stages} stages (at most "
+                         f"{F32_SMEM_MAX})")
+    return F32Plan(T=T, S=S, D=D, Dv=Dv, rows=rows, keys=keys,
+                   threads=threads, stages=stages, smem=smem,
+                   blocks_per_sm=_resident(threads, smem, min_blocks))
+
+
+def f32_tiles(plan: F32Plan, causal: bool):
+    """The key tiles each query block walks, in order, as the kernel
+    walks them -> [(query block, key tile, mask test)]: tiles wholly
+    above the diagonal are skipped, and the mask test runs on a tile that
+    crosses the diagonal or S."""
+    out = []
+    for qb in range(plan.q_tiles):
+        q0 = qb * plan.rows
+        kend = min(plan.S, q0 + plan.rows) if causal else plan.S
+        for kt in range(-(-kend // plan.keys)):
+            k0 = kt * plan.keys
+            out.append((qb, kt, (causal and k0 + plan.keys - 1 > q0)
+                        or k0 + plan.keys > plan.S))
+    return out
 
 
 def check_blocks(T: int, S: int, bq: int, bk: int):
@@ -109,10 +245,17 @@ def _launch(q, k, v, o, *, dims, nbh, nh, group, q_s, k_s, v_s, o_s,
                       ("flash_attention", "flash_attention[wgmma]"),
                       q.device, ctypes.byref(a))
     else:
+        set_f32_plan(a, f32_plan(T, S, D, Dv, q.dtype, heads=nbh))
         _build.launch("layer_flash_attention",
                       ("flash_attention", "flash_attention[f32]"), q.device,
                       ctypes.byref(a), int(q.dtype == torch.bfloat16))
     return o
+
+
+def set_f32_plan(a: FlashArgs, plan: F32Plan):
+    a.f32_rows, a.f32_keys, a.f32_threads = plan.rows, plan.keys, \
+        plan.threads
+    a.f32_stages, a.f32_smem = plan.stages, plan.smem
 
 
 def flash_attention(q, k, v, *, causal: bool = True, scale=None,

@@ -1,6 +1,6 @@
 """The port stands alone: importing every ``repro_torch`` module leaves
 ``jax`` and ``repro`` out of ``sys.modules``; no module of
-``src/repro_torch``, not ``chip_smoke.py`` and not the four ablation tools
+``src/repro_torch``, not ``chip_smoke.py`` and not the five ablation tools
 that run beside it on the card import them; and without
 CUDA the entry points refuse the default device instead of carrying on
 on the CPU."""
@@ -43,8 +43,8 @@ def test_importing_the_port_pulls_in_neither_jax_nor_repro():
 @pytest.mark.parametrize("path", sorted(
     [str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")]
     + ["chip_smoke.py", "tools/flash_tc_ablation.py",
-       "tools/serve_ablation.py", "tools/rollout_ablation.py",
-       "tools/gru_ablation.py"]))
+       "tools/flash_f32_ablation.py", "tools/serve_ablation.py",
+       "tools/rollout_ablation.py", "tools/gru_ablation.py"]))
 def test_no_source_imports_jax_or_repro(path):
     tree = ast.parse((ROOT / path).read_text())
     for node in ast.walk(tree):

@@ -13,7 +13,11 @@ layer kernels (``gru_sequence``, ``rmsnorm``, ``flash_attention``) through
 ``kernels.ops`` at ``chip_smoke.py``'s test-size cases, f32 and bf16
 (bf16 flash cases with head widths in steps of 16 take the tensor-core
 kernel), the flash kernel's (BH, T, D) entry, the Pallas kernel's own
-layout, and the route counters of the two flash kernels.
+layout, and the route counters of the two flash kernels; the CUDA-core
+flash kernel repeats bitwise at every f32 case and the off-16 bf16 one;
+``aip_step`` at odd shapes (B = 1, ragged B, A = 1) against its plain
+version and bitwise on a repeat; ``engine.step`` equals a one-tick
+``engine.rollout`` bitwise.
 These tests need a CUDA card and ``nvcc``: they carry the ``gpu`` marker
 and skip without a card.
 They import no JAX, so on a machine without it they run without the
@@ -139,6 +143,41 @@ def test_horizon_launch_refused_raises(dev):
 def test_aip_step_kernel_matches_plain(A, dev):
     rec = chip_smoke.check_aip_step(A, 20, seed=20 + A, dev=dev)
     assert rec["max_abs_err"] <= chip_smoke.ATOL
+
+
+@pytest.mark.parametrize("A,B", [(1, 1), (25, 1), (1, 17), (3, 100),
+                                 (2, 33)])
+def test_aip_step_at_odd_shapes_repeats_bitwise(A, B, dev):
+    """One tick on the horizon kernel's GRU role at B = 1, ragged B and
+    A = 1: within the flip rule of the plain version, and two launches on
+    the same inputs give the same bits."""
+    from repro_torch.kernels import aip_step as cuda
+    from repro_torch.nn.act import random_bits
+    rec = chip_smoke.check_aip_step(A, B, seed=30 + A + B, dev=dev)
+    assert rec["max_abs_err"] <= chip_smoke.ATOL
+    case = chip_smoke.Case("gru", A, B, 1, seed=40 + B, dev=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(41 + B)
+    d = (torch.rand((B, A, 40), generator=g, device=dev) < 0.3).float()
+    h = 0.5 * torch.randn((B, A, 64), generator=g, device=dev)
+    bits = random_bits((B, A, 4), g)
+    first = cuda.aip_step_multi(d, h, *case.aw, bits)
+    second = cuda.aip_step_multi(d, h, *case.aw, bits)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("A,B", [(25, 16), (1, 1), (3, 17), (1, 512),
+                                 (25, 512)])
+def test_engine_step_equals_one_tick_rollout(A, B, dev):
+    """``engine.step`` (``aip_step``, then the LS tick in torch) and a
+    one-tick ``engine.rollout`` (``aip_rollout_multi``) from the same
+    state, actions and bits: the new h, the LS state and the reward are
+    bitwise equal, since both kernels run the GRU role on the same
+    K-parts (at 25 x 512 on tiles of 8 and 32 lanes)."""
+    assert chip_smoke.step_matches_rollout(A, B, seed=80 + A + B,
+                                           dev=dev) == {
+        "aip_step": 1, "aip_rollout_multi": 1}
 
 
 @pytest.mark.parametrize("domain", ["traffic", "warehouse"])
@@ -341,3 +380,85 @@ def test_flash_attention_counts_the_route_it_took(dtype, D, route, dev):
              - {route}).pop()
     assert cuda.LAUNCHES[route] == 1 and cuda.LAUNCHES[other] == 0
     assert cuda.LAUNCHES["flash_attention"] == 1
+
+
+_F32_CASES = [label for label, dims in chip_smoke.FLASH_CASES.items()
+              if dims[8] == "float32" or label == "bf16 D40 off-16"]
+
+
+@pytest.mark.parametrize("label", _F32_CASES)
+def test_flash_f32_kernel_repeats_bitwise(label, dev):
+    """The CUDA-core flash kernel sums in a fixed order (d in order, keys
+    in order, shuffle trees): two calls on the same inputs give the same
+    bits, and both take that kernel."""
+    from repro_torch.kernels import aip_step as cuda
+    case = chip_smoke.LayerCase("flash_attention",
+                                chip_smoke.FLASH_CASES[label],
+                                seed=len(label) + 3, dev=dev)
+    cuda.reset_launches()
+    first, second = case.call(), case.call()
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert cuda.LAUNCHES["flash_attention[f32]"] == 2
+    assert cuda.LAUNCHES["flash_attention[wgmma]"] == 0
+
+
+def test_flash_f32_plan_refused_raises(dev):
+    """A plan the CUDA-core kernel is not built for, or whose shared
+    bytes disagree with the kernel's, is refused: the wrapper raises."""
+    import ctypes
+    from repro_torch.kernels import aip_step as cuda
+    from repro_torch.kernels import flash_attention as fa
+    q = torch.randn((1, 128, 2, 64), device=dev)
+    o = torch.empty_like(q)
+    a = fa.FlashArgs(q=q.data_ptr(), k=q.data_ptr(), v=q.data_ptr(),
+                     o=o.data_ptr(), nbh=2, nh=2, group=1, T=128, S=128,
+                     D=64, Dv=64, causal=1, q_sb=128 * 128, q_sh=64,
+                     q_st=128, k_sb=128 * 128, k_sh=64, k_ss=128,
+                     v_sb=128 * 128, v_sh=64, v_ss=128, o_sb=128 * 128,
+                     o_sh=64, o_st=128, scale=0.125)
+    fa.set_f32_plan(a, fa.f32_plan(128, 128, 64, 64))
+    for field, value in (("f32_rows", 32), ("f32_threads", 128),
+                         ("f32_stages", 4), ("f32_smem", 16)):
+        b = fa.FlashArgs.from_buffer_copy(a)
+        setattr(b, field, value)
+        with pytest.raises(RuntimeError, match="failed to launch"):
+            cuda.launch("layer_flash_attention", "flash_attention[f32]",
+                        dev, ctypes.byref(b), 0)
+
+
+_PLANS = {"128 rows, 8 x 4": dict(rows=128), "64 rows": dict(rows=64)}
+_PLAN_CASES = ["T128 causal", "T128 S256 cross", "ragged Dv<D", "T1",
+               "GQA wrapper", "T256 D128", "D256", "bf16 D40 off-16",
+               "f32 128-row blocks ragged", "f32 odd widths",
+               "f32 causal S<T"]
+
+
+# 128-row blocks hold D, Dv <= 128: D256 takes the 64-row build only
+_PLAN_PAIRS = [(label, plan) for label in _PLAN_CASES for plan in _PLANS
+               if label != "D256" or plan == "64 rows"]
+
+
+@pytest.mark.parametrize("label,plan", _PLAN_PAIRS)
+def test_flash_f32_every_plan_matches_plain(label, plan, dev):
+    """Each build of the CUDA-core kernel that ``f32_plan`` can ask for
+    (128 rows, 64 rows), launched from the port's
+    library by ``tools/flash_f32_ablation.py``'s runner at ragged, cross,
+    T = 1, GQA and off-16 bf16 shapes, within chip_smoke's tolerance."""
+    from repro_torch.kernels import aip_step as cuda
+    from repro_torch.kernels import ref
+    from tools import flash_f32_ablation as tool
+    B, T, S, H, KH, D, Dv, causal, dt = chip_smoke.FLASH_CASES[label][:9]
+    g = torch.Generator(device=dev)
+    g.manual_seed(len(label) + len(plan))
+    dtype = getattr(torch, dt)
+    q, k, v = (torch.randn(shape, generator=g, device=dev).to(dtype)
+               for shape in ((B, T, H, D), (B, S, KH, D), (B, S, KH, Dv)))
+    call, out, _, _ = tool.runner(cuda.build(), q, k, v, causal,
+                                  **_PLANS[plan])
+    call()
+    torch.cuda.synchronize()
+    chip_smoke._near(out, ref.flash_attention_mha_ref(q, k, v,
+                                                      causal=causal),
+                     chip_smoke.LAYER_TOL["flash_attention"],
+                     f"{label} {plan}")

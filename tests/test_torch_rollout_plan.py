@@ -175,3 +175,85 @@ def test_set_plan_fills_the_wrapper_arguments():
             args.roll_threads, args.roll_smem) == (
         p.lanes, p.rows_per_thread, p.cluster, p.threads, p.smem)
     assert tuple(args.roll_split) == p.splits
+
+
+# aip_step: the GRU horizon's plan without the policy, one tick
+STEP_CASES = [(25, 16), (1, 512), (25, 512), (1, 1), (25, 1), (3, 17),
+              (7, 100)]
+
+
+@pytest.mark.parametrize("A,B", STEP_CASES)
+def test_step_plan_covers_fits_and_equals_the_rollouts(A, B):
+    """``aip_step``'s plan covers every (agent, lane) once, fits one CTA
+    and takes ``rollout_plan``'s K-parts for the GRU horizon at the same
+    (A, B), so a step and a one-tick rollout sum in the same order; its
+    lanes are the rollout's up to STEP_MAX_LANES, and where the rollout
+    takes no more the two plans are one."""
+    p = cuda.step_plan(A, B, 40, 64, 4)
+    roll = cuda.rollout_plan(A, B, TRAFFIC_GRU, "gru", False)
+    assert p.splits == roll.splits
+    assert p.lanes == min(roll.lanes, cuda.STEP_MAX_LANES)
+    if roll.lanes <= cuda.STEP_MAX_LANES:
+        assert p == roll
+    assert p.cell == "gru" and not p.with_policy and p.cluster == 1
+    assert p.smem <= cuda.ROLL_SMEM_MAX
+    assert p.threads % 32 == 0 and p.threads <= cuda.ROLL_MAX_THREADS
+    assert p.threads >= p.lanes * 4     # the draw: a thread a (lane, m)
+    seen = []
+    per_agent = -(-B // p.lanes)
+    for tile in range(p.grid):
+        agent, b0 = tile // per_agent, (tile % per_agent) * p.lanes
+        seen += [(agent, b) for b in range(b0, min(B, b0 + p.lanes))]
+    assert sorted(seen) == [(a, b) for a in range(A) for b in range(B)]
+    for layer in (3, 4, 5):
+        K, N = p.layers[layer]
+        cover = {}
+        for items in cuda.rollout_items(p, layer).values():
+            for rows, n, (k0, k1) in items:
+                for r in rows:
+                    for k in range(k0, k1):
+                        cover[(r, n, k)] = cover.get((r, n, k), 0) + 1
+        assert len(cover) == p.lanes * N * K and set(cover.values()) == {1}
+
+
+def test_step_plan_at_the_main_shape():
+    """A = 25, B = 16: 100 CTAs of 4 lanes (the first body ran 25 blocks of
+    16), the heads cut into 8 K-parts of 8 steps."""
+    p = cuda.step_plan(25, 16, 40, 64, 4)
+    assert (p.lanes, p.grid, p.threads) == (4, 100, 256)
+    assert p.splits == (1, 1, 1, 1, 1, 8)
+
+
+def test_step_plan_caps_the_tile_where_the_rollout_widens_it():
+    """A = 25, B = 512: the rollout takes 32 lanes a tile (400 CTAs, one
+    wave for the horizon); a step takes 8 (1,600 CTAs, two an SM) on 256
+    threads with the rollout's K-parts, and the lanes override keeps
+    them too."""
+    roll = cuda.rollout_plan(25, 512, TRAFFIC_GRU, "gru", False)
+    assert (roll.lanes, roll.grid, roll.threads) == (32, 400, 512)
+    p = cuda.step_plan(25, 512, 40, 64, 4)
+    assert (p.lanes, p.grid, p.threads) == (8, 1600, 256)
+    assert p.splits == roll.splits
+    assert p.smem == sum(cuda.roll_smem(TRAFFIC_GRU, "gru", 8, roll.splits,
+                                        roll.layers))
+    for R in cuda.ROLL_LANES:
+        assert cuda.step_plan(25, 512, 40, 64, 4, lanes=R).splits == \
+            roll.splits
+
+
+@pytest.mark.parametrize("splits", [(1, 1, 1, 1, 8), (1, 1, 1, 1, 1, 0),
+                                    (1, 1, 1, 1, 1, 32)])
+def test_rollout_plan_refuses_splits_the_kernel_cannot_run(splits):
+    with pytest.raises(ValueError, match="splits"):
+        cuda.rollout_plan(25, 16, TRAFFIC_GRU, "gru", False, splits=splits)
+
+
+@pytest.mark.parametrize("A,B", [(25, 16), (25, 512), (3, 17)])
+def test_set_plan_fills_the_ials_args(A, B):
+    p = cuda.step_plan(A, B, 40, 64, 4)
+    args = cuda.IalsArgs(A=A, B=B, D=40, H=64, M=4)
+    cuda._set_plan(args, p)
+    assert (args.roll_lanes, args.roll_rows_per_thread, args.roll_cluster,
+            args.roll_threads, args.roll_smem) == (
+        p.lanes, p.rows_per_thread, p.cluster, p.threads, p.smem)
+    assert tuple(args.roll_split) == p.splits

@@ -6,7 +6,7 @@ card, and how the redesigned kernels compare with the first version.
     python3 tools/rollout_ablation.py [KERNEL ...]   # one CUDA card, nvcc
 
 (KERNEL: policy_rollout[fnn], policy_rollout[gru], fnn_rollout,
-aip_rollout_multi; all four without arguments.)
+aip_rollout_multi, aip_step; all five without arguments.)
 
 Builds, each into a library of its own under ``build/rollout_ablation/``
 (one nvcc each, side by side):
@@ -27,7 +27,14 @@ Builds, each into a library of its own under ``build/rollout_ablation/``
   - timing only, their outputs wrong: "no products"
     (``IALS_ROLL_NO_PRODUCTS``: the barriers, argmax, dset, LS tick and
     frame refill alone, the floor that a tick's dependencies set) and
-    its timeline.
+    its timeline;
+  - for ``aip_step`` (one GRU tick on the horizon kernel's GRU role,
+    ``step_kernel``): "aip_step first version"
+    (``tools/aip_step_first_version.cu``, one block of 128 threads per 16
+    lanes, every weight read with ``__ldg`` inside its K loop) and
+    "weights from global" (``IALS_STEP_FROM_GLOBAL``: the products read
+    the weights from global memory, each chain's loads in flight
+    together, against the kernel's staging by bulk copies).
 Then for each kernel at the main path's shape (FNN A = 1, B = 16; GRU
 A = 25, B = 16: ``aip_rollout_multi`` is the GRU horizon without the
 policy, actions streamed) and at A = 1, B = 512 and A = 25, B = 64 (T =
@@ -36,8 +43,12 @@ times each build and the kernel under other launch plans: lanes a tile
 1-32, one CTA a tile instead of two (``policy_rollout``, where it fits),
 256 and 128 threads (fewer K-parts), and no K-split at all, as device ms
 (``torch.profiler``), twice, in turns (forward, then backward over the
-list). The builds of the kernel's own plan must be bitwise equal to the
-kernel; every other variant but the timing-only ones is held to
+list). ``aip_step`` is timed at A = 25, B = 16 (the main path), A = 1,
+B = 512 and A = 25, B = 512: the first version, the kernel, weights
+from global, no products, a timeline (clock64 per phase of a CTA) and
+the kernel at other lanes a tile where the K-parts stay the same (bitwise
+equal to the kernel). The builds of the kernel's own plan must be
+bitwise equal to the kernel; every other variant but the timing-only ones is held to
 ``chip_smoke.py``'s lane and flip rule against the plain version (a
 different K-split sums in another order). The card's name and power
 limit come first, the SM clock over the run last.
@@ -70,7 +81,9 @@ BUILDS = {"kernel": [], "weights from L2": ["-DIALS_ROLL_WEIGHTS_FROM_L2"],
           "no products": ["-DIALS_ROLL_NO_PRODUCTS"],
           "no products, timeline": ["-DIALS_ROLL_NO_PRODUCTS",
                                     "-DIALS_ROLL_TIMELINE"],
-          "integer division": ["-DIALS_ROLL_PLAIN_DIV"]}
+          "integer division": ["-DIALS_ROLL_PLAIN_DIV"],
+          "weights from global": ["-DIALS_STEP_FROM_GLOBAL"]}
+STEP_SHAPES = ((25, 16), (1, 512), (25, 512))
 TIMING_ONLY = ("no products", "no products, timeline")
 TIMELINES = ("timeline", "no products, timeline")
 # bitwise equal to the kernel
@@ -90,7 +103,9 @@ def build_all():
     shutil.rmtree(OUT, ignore_errors=True)
     OUT.mkdir(parents=True)
     srcs = {"first version": (ROOT / "tools" / "rollout_first_version.cu",
-                              [])}
+                              []),
+            "aip_step first version": (
+                ROOT / "tools" / "aip_step_first_version.cu", [])}
     for name, flags in BUILDS.items():
         srcs[name] = (CSRC / "ials_kernels.cu", flags)
     procs = {}
@@ -107,7 +122,7 @@ def build_all():
         if p.returncode:
             raise RuntimeError(f"{name}: nvcc failed\n{err[-3000:]}")
         for k, ln in ptxas_lines(err):
-            if "horizon" in k or "rollout" in k:
+            if "horizon" in k or "rollout" in k or "step" in k:
                 print(f"[ptxas] {name}: {k}: {ln}", flush=True)
         built[name] = lib
     return built
@@ -198,6 +213,110 @@ def print_timeline(label, marks, args, mhz):
               f"{float(m[cta, 0]) / mhz:.2f} us)", flush=True)
 
 
+def ablate_aip_step(built, seed=900):
+    """``aip_step`` at STEP_SHAPES: the first version, the kernel, weights
+    from global and no products, timed in turns; weights from global
+    bitwise equal to the kernel, the kernel and the first version within ATOL of
+    the plain version with every flipped draw within FLIP_EPS of its
+    threshold."""
+    import torch
+    import chip_smoke
+    from repro_torch.kernels import aip_step as cuda
+    from repro_torch.kernels import ref
+    from repro_torch.nn.act import fast_sigmoid, random_bits, \
+        uniform_from_bits
+    dev = torch.device("cuda", 0)
+    builds = {"first version": ("aip_step first version", None),
+              "kernel": ("kernel", None),
+              "weights from global": ("weights from global", None),
+              "no products": ("no products", None),
+              "timeline": ("timeline", None)}
+    for R in (4, 8, 16, 32):     # other lanes a tile, the same K-parts
+        builds[f"lanes {R}"] = ("kernel", R)
+    for A, B in STEP_SHAPES:
+        seed += 1
+        label = f"aip_step A={A} B={B}"
+        case = chip_smoke.Case("gru", A, B, 1, seed, dev)
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        d = (torch.rand((B, A, 40), generator=g, device=dev) < 0.3).float()
+        h = 0.5 * torch.randn((B, A, 64), generator=g, device=dev)
+        bits = random_bits((B, A, 4), g)
+        ins = (d, h, *case.aw, bits)
+        stream = torch.cuda.current_stream().cuda_stream
+        calls = {}
+        for name, (build, lanes) in builds.items():
+            plan = cuda.step_plan(A, B, 40, 64, 4, lanes=lanes)
+            if lanes is not None and (lanes == cuda.step_plan(
+                    A, B, 40, 64, 4).lanes or plan.splits != cuda.step_plan(
+                    A, B, 40, 64, 4).splits):
+                continue
+            args, out, keep = cuda.step_args(*ins, lanes=lanes)
+            if name == "timeline":
+                marks = torch.zeros((cuda.step_plan(A, B, 40, 64, 4).grid
+                                     * 16,), dtype=torch.int64, device=dev)
+                args.frames_out = marks.data_ptr()
+            fn = entry(built[build], "ials_aip_step")
+
+            def call(fn=fn, args=args, name=name):
+                if fn(ctypes.byref(args), stream) != 0:
+                    raise RuntimeError(f"{label} {name}: launch refused")
+            call()
+            calls[name] = (call, out, keep)
+        torch.cuda.synchronize()
+        ph, plg, pu = ref.aip_step_multi_ref(*ins)
+        margin = (uniform_from_bits(bits) - fast_sigmoid(plg)).abs()
+        checks = {"no products": "timing only",
+                  "timeline": "timing only (clock64 marks)"}
+        for name in calls:
+            if name.startswith("lanes"):
+                if not all(torch.equal(a, b) for a, b in zip(
+                        calls[name][1], calls["kernel"][1])):
+                    raise AssertionError(f"{label} {name}: not bitwise "
+                                         f"equal to the kernel")
+                checks[name] = "bitwise equal to the kernel"
+        for name in ("first version", "kernel"):
+            kh, klg, ku = calls[name][1]
+            err = max(float((kh - ph).abs().max()),
+                      float((klg - plg).abs().max()))
+            diff = ku != pu
+            if err > chip_smoke.ATOL or bool((diff & (
+                    margin >= chip_smoke.FLIP_EPS)).any()):
+                raise AssertionError(f"{label} {name}: max error {err:.3g}"
+                                     f" or a draw flipped off its threshold")
+            checks[name] = (f"max err {err:.3g}, flips "
+                            f"{int(diff.any(-1).sum())}")
+        if not all(torch.equal(a, b) for a, b in zip(
+                calls["weights from global"][1], calls["kernel"][1])):
+            raise AssertionError(f"{label} weights from global: not "
+                                 f"bitwise equal to the kernel")
+        checks["weights from global"] = "bitwise equal to the kernel"
+        order = list(calls) + list(reversed(calls))
+        times = {name: [] for name in calls}
+        for name in order:
+            times[name].append(chip_smoke.device_ms(calls[name][0],
+                                                    reps=REPS, warmup=2))
+        marks.zero_()
+        calls["timeline"][0]()
+        torch.cuda.synchronize()
+        m = marks.view(-1, 16).double().mean(0).cpu() / 1980.0
+        print(f"[timeline] {label}: us a CTA (mean): loads issued "
+              f"{float(m[0]):.3f}, staging wait + barrier {float(m[1]):.3f},"
+              f" cell {float(m[2]):.3f}, outputs {float(m[3]):.3f}",
+              flush=True)
+        for name, ts in times.items():
+            p = cuda.step_plan(A, B, 40, 64, 4, lanes=builds[name][1])
+            shown = ", ".join(f"{t:.5f}" if isinstance(t, float) else str(t)
+                              for t in ts)
+            plan = ("16 lanes, 128 threads" if name == "first version" else
+                    f"lanes {p.lanes}, threads {p.threads}, splits "
+                    f"{p.splits}, smem {p.smem}")
+            print(f"[ablation] {label} {name}: device ms {shown} "
+                  f"({checks[name]}; {plan})", flush=True)
+        del case, calls
+        torch.cuda.empty_cache()
+
+
 def main():
     import torch
     import chip_smoke
@@ -286,6 +405,8 @@ def main():
                   f"({checks[name]}; {plan})", flush=True)
         del case, calls
         torch.cuda.empty_cache()
+    if not only or "aip_step" in only:
+        ablate_aip_step(built)
     sampler.__exit__(None, None, None)
     print(f"[clock] {sampler.line}", flush=True)
     return 0

@@ -10,7 +10,10 @@ Phases, each printing its result and time on its own line:
      with nvcc (set-up time, printed);
   2. every kernel against its plain PyTorch version on the card, with the
      traffic functor and random weights made from a seed, at the main
-     path's shapes and at larger ones, resets inside the horizon. Lanes are
+     path's shapes and at larger ones, resets inside the horizon; then
+     the four horizon kernels with the warehouse functor (spawn noise, 8
+     stacked frames, the d-set read after the action) at A = 36 and 1,
+     B = 16, T = 128, and two ``vanish_after = 8`` cases. Lanes are
      independent: a lane passes when every leaf matches (integer leaves
      exactly, float leaves within ATOL); a lane whose first mismatch
      follows a decision the plain version took within FLIP_EPS of its
@@ -18,25 +21,32 @@ Phases, each printing its result and time on its own line:
      MAX_FLIP_SHARE of the lanes, fails. Kernel and plain-version times
      (CUDA events around each call, median after warm-up) and the
      kernel's device time (``torch.profiler``, without the host's enqueue
-     time) are measured here; the ``[kernel]`` line of each horizon
+     time, every launch of the profile counted: ``profile_calls``, which
+     takes a profile again when it misses a launch and logs a
+     ``[profile]`` line) are measured here; the ``[kernel]`` line of each
+     horizon
      kernel (``aip_rollout_multi``, ``fnn_rollout``, ``policy_rollout``)
      and of ``aip_step`` names the launch plan it took
      (``aip_step.rollout_plan``; ``aip_step.step_plan``, the GRU
      horizon's K-parts on tiles of at most 8 lanes);
-  3. the main path: ``rl_train --domain traffic --simulator ials`` at full
-     width (FNN AIP, A = 1, twice with the same seed; then GRU AIP,
-     A = 25), with the launch counters zeroed before each run and read
-     after it: ``policy_rollout`` must launch once per PPO iteration,
-     losses must be finite, the GS evaluation reward in [0, 1], and the
-     two FNN runs must give the same losses and GS evaluation bitwise;
-  4. the engine's own entry points (``engine.rollout`` per backbone,
-     ``engine.step`` with the GRU AIP), counters zeroed before and read
-     after: ``fnn_rollout``, ``aip_rollout_multi`` and ``aip_step`` must
-     have launched; and ``engine.step`` must equal a one-tick
-     ``engine.rollout`` bitwise (the AIP state, the LS state and the
-     reward, from the same state, actions and bits) at A = 25, B = 16,
-     A = 1, B = 512 and A = 25, B = 512 (where the step's tile is 8 lanes
-     and the rollout's 32, on the same K-parts);
+  3. the main path: ``rl_train --simulator ials`` at full width: traffic
+     (FNN AIP, A = 1, twice with the same seed; then GRU AIP, A = 25) and
+     the warehouse (GRU AIP, A = 36; FNN AIP, A = 1, ``--vanish-after
+     8``), with the launch counters zeroed before each run and read after
+     it: ``policy_rollout`` must launch once per PPO iteration (on the
+     warehouse its ``[warehouse]`` counter), losses must be finite, the
+     GS evaluation reward in [0, 1], and the two FNN runs must give the
+     same losses and GS evaluation bitwise;
+  4. the engine's own entry points on both domains (``engine.rollout``
+     per backbone, ``engine.step`` with the GRU AIP), counters zeroed
+     before and read after: ``fnn_rollout``, ``aip_rollout_multi`` (each
+     with both functors) and ``aip_step`` must have launched; and
+     ``engine.step`` must equal a one-tick ``engine.rollout`` bitwise
+     (the AIP state, the LS state and the reward, from the same state,
+     actions, bits and LS noise) at traffic A = 25, B = 16, A = 1,
+     B = 512 and A = 25, B = 512 (where the step's tile is 8 lanes and
+     the rollout's 32, on the same K-parts), warehouse A = 36 and 1,
+     B = 16;
   5. the serving kernels against their plain versions: ``serve_forward``
      and ``serve_forward_multi`` (N = 1 and 4) at the traffic (D = 41,
      2 actions) and warehouse (D = 296, 5 actions) widths, hidden 128,
@@ -54,7 +64,8 @@ Phases, each printing its result and time on its own line:
      serving shape (traffic, S = 128) goes into the JSON line;
   6. the serving path ``policy_serve`` in-process at full width, counters
      zeroed before each run and read after: the fixed 128-lane slot (wall
-     clock), the calibrated bimodal buckets with 4 policies, the chaos
+     clock; traffic, then warehouse), the calibrated bimodal buckets with
+     4 policies, the chaos
      plan on the virtual clock (exactly the corrupt reload rejected, the
      plan exhausted), and ``--ckpt-dir`` on a checkpoint the port's
      ``ckpt.save`` wrote in ``rl_train``'s layout (restored bitwise).
@@ -83,6 +94,8 @@ The build phase also prints ptxas's register and spill lines per kernel
 and the HGMMA count of the tensor-core kernel's SASS (``cuobjdump``).
 Then one JSON line lists every kernel (route, source, the TPU kernel it
 replaces, launches on its path, max error, times and the card's bound;
+the horizon kernels once per LS functor, the warehouse's as
+``name[warehouse]``;
 ``flash_attention`` is the tensor-core kernel, timed at the main shape,
 ``flash_attention[f32]`` the CUDA-core one, timed at ``qwen3_4b f32``;
 ``flips`` counts the decisions that flipped for the kernels that make
@@ -137,6 +150,10 @@ REPLACES = {
     "fnn_rollout": "src/repro/kernels/aip_step.py:514",
     "policy_rollout[fnn]": "src/repro/kernels/aip_step.py:745",
     "policy_rollout[gru]": "src/repro/kernels/aip_step.py:745",
+    "aip_rollout_multi[warehouse]": "src/repro/kernels/aip_step.py:476",
+    "fnn_rollout[warehouse]": "src/repro/kernels/aip_step.py:514",
+    "policy_rollout[fnn][warehouse]": "src/repro/kernels/aip_step.py:745",
+    "policy_rollout[gru][warehouse]": "src/repro/kernels/aip_step.py:745",
     "serve_forward": "src/repro/kernels/aip_step.py:205",
     "serve_forward_multi": "src/repro/kernels/aip_step.py:291",
     "gru_sequence": "src/repro/kernels/gru.py:50",
@@ -150,7 +167,10 @@ SOURCES = {"serve_forward": SERVE_SOURCE,
            "flash_attention": TC_SOURCE, "flash_attention[f32]": F32_SOURCE}
 PATHS = {"serve_forward": "policy_serve", "serve_forward_multi":
          "policy_serve", "policy_rollout[fnn]": "rl_train",
-         "policy_rollout[gru]": "rl_train", "gru_sequence": "kernels.ops",
+         "policy_rollout[gru]": "rl_train",
+         "policy_rollout[fnn][warehouse]": "rl_train --domain warehouse",
+         "policy_rollout[gru][warehouse]": "rl_train --domain warehouse",
+         "gru_sequence": "kernels.ops",
          "rmsnorm": "kernels.ops", "flash_attention": "kernels.ops",
          "flash_attention[f32]": "kernels.ops"}
 # the serving widths: (frame width D, actions); policy hidden 128
@@ -198,33 +218,109 @@ def time_cuda(fn, reps=10, warmup=2):
     return statistics.median(ms)
 
 
-def device_ms(fn, reps=10, warmup=2):
-    """Mean device milliseconds per call of ``fn``: the summed device time
-    of every kernel and copy it launches, from ``torch.profiler`` -> a
-    float, or "not measured" when the profiler saw no device activity.
-    Unlike CUDA events around one call, it leaves out the host's time to
-    enqueue the launch, which dominates a kernel of ~0.1 ms."""
+PROFILE_ATTEMPTS = 5
+PROFILE_GAP_S = 0.02   # the host's sleep between the untimed call and the
+#                        timed ones: the device idles through it
+PROFILE_LOSSES = []    # the launches by name of each profile that missed
+#                        one
+
+
+def _profile_once(fn, reps):
+    """One profile of ``fn``: one untimed call (the trace's first events
+    may be lost while the profiler starts), a sleep of PROFILE_GAP_S, then
+    ``reps`` timed calls, the garbage collector off throughout (a
+    collection would idle the device mid-loop) -> (every device event of
+    the profile in the device's order, the timed calls' wall seconds)."""
+    import gc
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_GAP_S)
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        if collecting:
+            gc.enable()
+    return sorted((e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA),
+                  key=lambda e: e.time_range.start), wall
+
+
+def timed_events(events, reps, gap_us=5e5 * PROFILE_GAP_S):
+    """A profile's device events in the device's order -> the timed
+    calls' events, or None when a launch is missing. The timed calls'
+    events are those after the last idle gap of at least ``gap_us`` on
+    the device's own timeline (the sleep after the untimed call): the
+    host's and the device's clocks are never compared, since they
+    disagree by 100-340 us and drift (``tools/profile_count.py``). Each
+    event name must then come a whole number of times a call."""
+    import collections
+    cut, end = 0, -math.inf
+    for i, e in enumerate(events):
+        if e.time_range.start - end >= gap_us:
+            cut = i
+        end = max(end, e.time_range.end)
+    timed = events[cut:]
+    counts = collections.Counter(e.name for e in timed)
+    if not counts or any(c % reps for c in counts.values()):
+        return None
+    return timed
+
+
+def profile_calls(fn, reps, kernel=None):
+    """Profile ``fn`` with ``torch.profiler`` (``_profile_once``), its
+    device events counted against the launches made (``timed_events``;
+    with ``kernel``, the names holding that string must come exactly
+    ``reps`` times). A profile that misses a launch is logged, kept in
+    ``PROFILE_LOSSES`` and taken again, up to PROFILE_ATTEMPTS profiles;
+    then the reading fails: a lost launch is never averaged over.
+    -> (the timed calls' device events, their wall seconds), or None
+    when the reading failed."""
+    import collections
+    for _ in range(PROFILE_ATTEMPTS):
+        events, wall = _profile_once(fn, reps)
+        timed = timed_events(events, reps)
+        if timed is not None and (kernel is None or sum(
+                kernel in e.name for e in timed) == reps):
+            return timed, wall
+        PROFILE_LOSSES.append({n[:48]: c for n, c in collections.Counter(
+            e.name for e in events).items()})
+        log(f"[profile] launches by name {PROFILE_LOSSES[-1]} for 1 + "
+            f"{reps} calls: one is missing; profiled again")
+    log(f"[profile] {PROFILE_ATTEMPTS} profiles in turn missed a launch: "
+        f"not measured")
+    return None
+
+
+def events_us(events):
+    """Summed duration of device events (kernels, copies), in us."""
+    return sum(e.time_range.elapsed_us() for e in events)
+
+
+def device_ms(fn, reps=10, warmup=2, kernel=None):
+    """Mean device milliseconds per call of ``fn``: the summed device time
+    of every kernel and copy it launches, from ``torch.profiler``, every
+    launch counted (``profile_calls``) -> a float, or "not measured" when
+    no profile held every launch. Unlike CUDA events around one
+    call, it leaves out the host's time to enqueue the launch, which
+    dominates a kernel of ~0.1 ms."""
+    import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = device_us(prof)
-    return us * 1e-3 / reps if us > 0 else "not measured"
-
-
-def device_us(prof):
-    """Summed duration of the device's own events (kernels, copies) in a
-    profile. A CPU op's device time repeats its kernels', so only the
-    device events are counted."""
-    from torch.autograd import DeviceType
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA)
+    got = profile_calls(fn, reps, kernel)
+    return ("not measured" if got is None
+            else events_us(got[0]) * 1e-3 / reps)
 
 
 def nbytes(*tensors):
@@ -251,25 +347,44 @@ def bound(flops, bytes_, dtype="float32"):
 
 
 # ---------------------------------------------------------------------------
-# fixtures: the traffic LS, random weights and streams made from a seed
+# fixtures: a domain's LS, random weights and streams made from a seed
 # ---------------------------------------------------------------------------
 
-class Case:
-    """One kernel call's inputs at (A, B, T), made on the card from a seed."""
-
-    def __init__(self, kind, A, B, T, seed, dev):
-        import torch
-        from repro_torch.core import engine, influence
+def local_env(domain, dev, vanish_after=0):
+    """The batched LS of ``domain`` ("traffic" or "warehouse") on ``dev``
+    and the frame stack its policy sees (1 and 8, as ``rl_train``)."""
+    if domain == "traffic":
         from repro_torch.envs.traffic import (TrafficConfig,
                                               make_batched_local_traffic_env)
+        return make_batched_local_traffic_env(TrafficConfig(), dev), 1
+    from repro_torch.envs.warehouse import (WarehouseConfig,
+                                            make_batched_local_warehouse_env)
+    return make_batched_local_warehouse_env(
+        WarehouseConfig(vanish_after=vanish_after), dev), 8
+
+
+class Case:
+    """One kernel call's inputs at (A, B, T) on ``domain``'s LS, made on
+    the card from a seed: the AIP of ``rl_train`` (hidden 64, FNN stack
+    8), a policy of hidden ``pol_hidden`` (``rl_train``'s 128) over the
+    domain's frame stack, the LS's own noise (the warehouse's spawns),
+    and resets inside the horizon."""
+
+    def __init__(self, kind, A, B, T, seed, dev, domain="traffic",
+                 vanish_after=0, pol_hidden=128):
+        import torch
+        from repro_torch.core import engine, influence
+        from repro_torch.envs.api import horizon_noise, stack_trees
         from repro_torch.nn.act import random_bits
         from repro_torch.rl import ppo
+        from repro_torch.tree import tree_leaves
         g = torch.Generator(device=dev)
         g.manual_seed(seed)
         self.kind, self.A, self.B, self.T = kind, A, B, T
+        self.domain = domain
         self.fast_gates = True     # the policy's gates (False: tanh)
         L = A * B
-        self.ls_env = make_batched_local_traffic_env(TrafficConfig(), dev)
+        self.ls_env, stack = local_env(domain, dev, vanish_after)
         spec = self.ls_env.spec
         self.acfg = influence.AIPConfig(
             kind=kind, d_in=spec.dset_dim, n_out=spec.n_influence,
@@ -289,22 +404,28 @@ class Case:
             self.aw = (params["l1"]["w"], params["l1"]["b"],
                        params["l2"]["w"], params["l2"]["b"],
                        params["head"]["w"], params["head"]["b"])
-            self.s0 = (torch.rand((L, 320), generator=g, device=dev)
-                       < 0.3).float()
+            self.s0 = (torch.rand((L, 8 * spec.dset_dim), generator=g,
+                                  device=dev) < 0.3).float()
         self.pcfg = ppo.PPOConfig(obs_dim=spec.obs_dim,
-                                  n_actions=spec.n_actions)
+                                  n_actions=spec.n_actions,
+                                  frame_stack=stack, hidden=pol_hidden)
         pol = ppo.init_policy(self.pcfg, g)
         pol = {k: {n: w + 0.05 * torch.randn(w.shape, generator=g,
                                              device=dev)
                    for n, w in v.items()} for k, v in pol.items()}
         self.pw = ppo.flat_policy_weights(pol)
         st = self.ls_env.reset(g, L)
-        st = type(st)(st.lanes, torch.randint(0, 2, (L,), generator=g,
-                                              device=dev).to(torch.int8))
-        self.io = engine.kernel_io(self.ls_env, st)
-        self.frames0 = self.ls_env.obs_fn(st)
-        self.actions = torch.randint(0, 2, (T, L), generator=g, device=dev,
-                                     dtype=torch.int32)
+        if domain == "traffic":
+            st = type(st)(st.lanes, torch.randint(
+                0, 2, (L,), generator=g, device=dev).to(torch.int8))
+        self.noise = horizon_noise(self.ls_env.noise_fn, g, T, L)
+        self.io = engine.kernel_io(self.ls_env, st, self.noise)
+        # older frames from other states, so the frame shift carries data
+        self.frames0 = torch.cat(
+            [self.ls_env.obs_fn(self.ls_env.reset(g, L))
+             for _ in range(stack - 1)] + [self.ls_env.obs_fn(st)], dim=-1)
+        self.actions = torch.randint(0, spec.n_actions, (T, L), generator=g,
+                                     device=dev, dtype=torch.int32)
         self.bits = random_bits((T, L, spec.n_influence), g)
         self.gumbel = ppo.gumbel_noise(g, (T, L, spec.n_actions))
         # resets inside the horizon: each env on its own episode phase
@@ -312,15 +433,14 @@ class Case:
         ticks = t_in[None] + 1 + torch.arange(T, device=dev)[:, None]
         self.done = ((ticks % 40) == 0).to(torch.int32).repeat(1, A)
         resets = [self.ls_env.reset(g, L) for _ in range(T)]
-        self.reset_ls = self.io.encode(
-            [torch.stack([r.lanes for r in resets]),
-             torch.stack([r.phase for r in resets])])
+        self.reset_ls = self.io.encode(tree_leaves(stack_trees(resets)))
 
     # --- the kernel and its plain version on the same inputs -------------
     def rollout_call(self, plain=False, trace=None):
         from repro_torch.kernels import aip_step as cuda
         from repro_torch.kernels import ref
-        args = (self.io.ls, self.s0, *self.aw, self.actions, self.bits, ())
+        args = (self.io.ls, self.s0, *self.aw, self.actions, self.bits,
+                self.io.noise)
         if self.kind == "gru":
             if plain:
                 return ref.ials_rollout_multi_ref(
@@ -339,7 +459,8 @@ class Case:
         from repro_torch.kernels import aip_step as cuda
         from repro_torch.kernels import ref
         args = (self.io.ls, self.s0, self.frames0, self.aw, self.pw,
-                self.gumbel, self.bits, self.done, (), self.reset_ls)
+                self.gumbel, self.bits, self.done, self.io.noise,
+                self.reset_ls)
         if plain:
             return ref.policy_rollout_ref(
                 *args, kind=self.kind, n_agents=self.A,
@@ -349,10 +470,23 @@ class Case:
                                    fast_gates=self.fast_gates,
                                    domain=self.ls_env.kernel_domain)
 
+    def widths(self):
+        """The ``RolloutWidths`` of this case's launches."""
+        from repro_torch.kernels.aip_step import RolloutWidths, domain_layout
+        a, c = self.acfg, self.pcfg
+        return RolloutWidths(
+            D=a.d_in, H=a.hidden, M=a.n_out, stack=a.stack,
+            S=self.frames0.shape[1], obs_dim=c.obs_dim, Hp=c.hidden,
+            n_act=c.n_actions,
+            state_ints=domain_layout(self.ls_env.kernel_domain).state_ints)
+
     def flops_per_lane_tick(self, policy):
-        f = (2 * (320 * 64 + 64 * 64 + 64 * 4) if self.kind == "fnn"
-             else 2 * (40 * 192 + 64 * 192 + 64 * 4))
-        return f + (2 * (41 * 128 + 128 * 128 + 128 * 3) if policy else 0)
+        w = self.widths()
+        f = (2 * (w.stack * w.D * w.H + w.H * w.H + w.H * w.M)
+             if self.kind == "fnn"
+             else 2 * (w.D * 3 * w.H + w.H * 3 * w.H + w.H * w.M))
+        return f + (2 * (w.S * w.Hp + w.Hp * w.Hp + w.Hp * (w.n_act + 1))
+                    if policy else 0)
 
 
 # ---------------------------------------------------------------------------
@@ -424,8 +558,8 @@ def check_rollout(case, name):
     margins = torch.stack(trace["aip"])
     flips, err = compare_lanes(
         name, [(k_r, p_r, False)],
-        [(k_ls[0], p_ls[0], True), (k_ls[1], p_ls[1], True),
-         (k_s, p_s, False)], margins, case.T, L)
+        [(k, p, True) for k, p in zip(k_ls, p_ls)] + [(k_s, p_s, False)],
+        margins, case.T, L)
     return flips, err
 
 
@@ -443,8 +577,8 @@ def check_policy(case, name):
     return compare_lanes(
         name, [(kx, px, False), (ka, pa, True), (klg, plg, False),
                (kv, pv, False), (kr, pr, False)],
-        [(kl[0], pl[0], True), (kl[1], pl[1], True), (ks, ps, False),
-         (kf, pf, False)], margins, case.T, L)
+        [(k, p, True) for k, p in zip(kl, pl)]
+        + [(ks, ps, False), (kf, pf, False)], margins, case.T, L)
 
 
 def check_aip_step(A, B, seed, dev):
@@ -476,7 +610,8 @@ def check_aip_step(A, B, seed, dev):
     flips = int(diff.any(-1).sum())
     timing = dict(ms=time_cuda(lambda: cuda.aip_step_multi(*args)),
                   plain_ms=time_cuda(lambda: ref.aip_step_multi_ref(*args)),
-                  device_ms=device_ms(lambda: cuda.aip_step_multi(*args)))
+                  device_ms=device_ms(lambda: cuda.aip_step_multi(*args),
+                                      kernel="step_kernel"))
     flops = 2 * (40 * 192 + 64 * 192 + 64 * 4) * A * B
     by = nbytes(args, kh, kl, ku)
     p = cuda.step_plan(A, B, 40, 64, 4)
@@ -490,28 +625,28 @@ def check_aip_step(A, B, seed, dev):
                 plan=plan, **timing)
 
 
-def step_matches_rollout(A, B, seed, dev):
+def step_matches_rollout(A, B, seed, dev, domain="traffic"):
     """``engine.step`` and a one-tick ``engine.rollout`` with the GRU AIP
-    from the same state, actions and bits, on the card: the new AIP state
-    h, the LS state and the reward must be bitwise equal (the LS state
-    follows u, so equal LS states mean equal draws) -> the launches of the
-    two calls."""
+    from the same state, actions, bits and LS noise, on the card: the new
+    AIP state h, the LS state and the reward must be bitwise equal (the
+    LS state follows u, so equal LS states mean equal draws) -> the
+    launches of the two calls."""
     import torch
     from repro_torch.core import engine, influence
     from repro_torch.envs.api import horizon_noise, index_tree
-    from repro_torch.envs.traffic import (TrafficConfig,
-                                          make_batched_local_traffic_env)
     from repro_torch.kernels import aip_step as cuda
     from repro_torch.tree import tree_leaves
-    ls = make_batched_local_traffic_env(TrafficConfig(), dev)
+    ls, _ = local_env(domain, dev)
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
-    acfg = influence.AIPConfig(kind="gru", d_in=40, n_out=4, hidden=64)
+    acfg = influence.AIPConfig(kind="gru", d_in=ls.spec.dset_dim,
+                               n_out=ls.spec.n_influence, hidden=64)
     p = (influence.init_aip(acfg, g) if A == 1
          else influence.init_aip_stacked(acfg, g, A))
     env = engine.make_unified_ials(ls, p, acfg, n_agents=A)
-    acts = torch.randint(0, 2, (2, B) + ((A,) if A > 1 else ()),
-                         generator=g, device=dev)
+    acts = torch.randint(0, ls.spec.n_actions,
+                         (2, B) + ((A,) if A > 1 else ()), generator=g,
+                         device=dev)
     # one tick first, so that h is not the reset's zeros
     st, _ = env.rollout(env.reset(g, B), acts[:1],
                         horizon_noise(env.noise_fn, g, 1, B))
@@ -533,25 +668,31 @@ def step_matches_rollout(A, B, seed, dev):
     if launches != {"aip_step": 1, "aip_rollout_multi": 1}:
         raise AssertionError(f"engine.step vs engine.rollout launches "
                              f"{launches}")
-    log(f"[engine] engine.step equals a one-tick engine.rollout bitwise at "
-        f"A={A} B={B} (h, LS state, reward); launches {launches}")
+    log(f"[engine] engine.step equals a one-tick engine.rollout bitwise on "
+        f"{domain} at A={A} B={B} (h, LS state, reward); launches "
+        f"{launches}")
     return launches
 
 
-def run_case(name, kind, A, B, T, seed, dev, policy, timed):
-    case = Case(kind, A, B, T, seed, dev)
+def run_case(name, kind, A, B, T, seed, dev, policy, timed,
+             domain="traffic", vanish_after=0):
+    case = Case(kind, A, B, T, seed, dev, domain, vanish_after)
     check = check_policy if policy else check_rollout
+    if domain != "traffic":
+        name += f" {domain}" + (f" vanish_after={vanish_after}"
+                                if vanish_after else "")
     flips, err = check(case, f"{name} A={A} B={B} T={T}")
     rec = dict(max_abs_err=err, flips=flips,
                plan=rollout_plan_text(case, policy))
     call = case.policy_call if policy else case.rollout_call
     if timed:
         rec["ms"] = time_cuda(call)
-        rec["device_ms"] = device_ms(call, reps=10, warmup=2)
+        rec["device_ms"] = device_ms(call, reps=10, warmup=2,
+                                     kernel="horizon_kernel")
         rec["plain_ms"] = time_cuda(lambda: call(plain=True), reps=3,
                                     warmup=1)
         out = call()
-        inputs = ((case.io.ls, case.s0, case.aw, case.bits)
+        inputs = ((case.io.ls, case.io.noise, case.s0, case.aw, case.bits)
                   + ((case.frames0, case.pw, case.gumbel, case.done,
                       case.reset_ls) if policy else (case.actions,)))
         rec["flops"] = case.flops_per_lane_tick(policy) * A * B * T
@@ -567,12 +708,8 @@ def run_case(name, kind, A, B, T, seed, dev, policy, timed):
 
 def rollout_plan_text(case, policy):
     """The launch plan a horizon kernel takes for ``case``, as one line."""
-    from repro_torch.kernels.aip_step import RolloutWidths, rollout_plan
-    a, c = case.acfg, case.pcfg
-    w = RolloutWidths(D=a.d_in, H=a.hidden, M=a.n_out, stack=a.stack,
-                      S=case.frames0.shape[1], obs_dim=c.obs_dim,
-                      Hp=c.hidden, n_act=c.n_actions)
-    p = rollout_plan(case.A, case.B, w, case.kind, policy)
+    from repro_torch.kernels.aip_step import rollout_plan
+    p = rollout_plan(case.A, case.B, case.widths(), case.kind, policy)
     return (f"lanes/tile {p.lanes}, cluster {p.cluster}, grid {p.grid}, "
             f"threads {p.threads}, K-splits {p.splits}, smem "
             f"{p.smem_roles[0]}/{p.smem_roles[1]}")
@@ -686,10 +823,27 @@ def phase_kernels(dev):
                  True)
         run_case("policy_rollout[gru]", "gru", A, B, 128, 60 + i, dev, True,
                  True)
+    # the warehouse functor: the main path's A = 36 (the JSON line's rows)
+    # and one agent, spawn noise on, resets inside, one vanish_after case
+    W = "warehouse"
+    for i, (A, B) in enumerate(((36, 16), (1, 16))):
+        for name, kind, policy in (
+                ("aip_rollout_multi", "gru", False),
+                ("fnn_rollout", "fnn", False),
+                ("policy_rollout[gru]", "gru", True),
+                ("policy_rollout[fnn]", "fnn", True)):
+            rec = run_case(name, kind, A, B, 128, 110 + 10 * i + len(name),
+                           dev, policy, True, W)
+            if A == 36:
+                recs[f"{name}[{W}]"] = rec
+    run_case("policy_rollout[gru]", "gru", 36, 16, 128, 140, dev, True, False,
+             W, vanish_after=8)
+    run_case("aip_rollout_multi", "gru", 1, 16, 128, 141, dev, False, False,
+             W, vanish_after=8)
     return recs
 
 
-def _train(argv):
+def _train(argv, label):
     import torch
     from repro_torch.kernels import aip_step as cuda
     from repro_torch.launch import rl_train
@@ -710,7 +864,7 @@ def _train(argv):
                              f"{evals}")
     steps = args.n_envs * args.rollout_len * args.n_agents
     for row in hist:
-        log(f"[train] {argv[-1]} iter {row['iter']}: {row['iter_s']:.3f} s, "
+        log(f"[train] {label} iter {row['iter']}: {row['iter_s']:.3f} s, "
             f"{steps / row['iter_s']:.0f} samples/s, loss {row['loss']:.4f}, "
             f"train reward {row['train_reward']:.4f}"
             + (f", GS eval {row['gs_eval_reward']:.4f}"
@@ -718,22 +872,32 @@ def _train(argv):
     return launches, len(hist)
 
 
-@phase("main path: rl_train --domain traffic --simulator ials")
+@phase("main path: rl_train --simulator ials, traffic and warehouse")
 def phase_main_path():
-    common = ["--domain", "traffic", "--simulator", "ials", "--n-envs", "16",
+    common = ["--simulator", "ials", "--n-envs", "16",
               "--rollout-len", "128", "--episode-len", "128",
               "--eval-every", "1", "--collect-episodes", "64",
               "--aip-epochs", "2", "--device", "cuda", "--seed", "0"]
-    fnn, n_fnn = _train(common + ["--iterations", "3", "--aip", "fnn"])
-    again, _ = _train(common + ["--iterations", "3", "--aip", "fnn"])
+    traffic = common + ["--domain", "traffic"]
+    fnn, n_fnn = _train(traffic + ["--iterations", "3", "--aip", "fnn"],
+                        "traffic fnn A=1")
+    again, _ = _train(traffic + ["--iterations", "3", "--aip", "fnn"],
+                      "traffic fnn A=1 (repeat)")
     hist = fnn.pop("history")
     if hist != again.pop("history") or again != fnn:
         raise AssertionError("the FNN main path does not repeat itself "
                              "bitwise with the same seed")
     log(f"[train] the FNN main path repeated itself bitwise: (loss, GS "
         f"eval) per iteration {hist!r}, launch counts equal")
-    gru, n_gru = _train(common + ["--iterations", "2", "--n-agents", "25",
-                                  "--aip", "gru"])
+    gru, n_gru = _train(traffic + ["--iterations", "2", "--n-agents", "25",
+                                   "--aip", "gru"], "traffic gru A=25")
+    # the warehouse: its main path (GRU AIP, all 36 robots trained), and
+    # the FNN AIP on one robot with the finite-memory items (§5.4)
+    wh = common + ["--domain", "warehouse", "--iterations", "2"]
+    w_gru, n_w_gru = _train(wh + ["--n-agents", "36"],
+                            "warehouse gru A=36")
+    w_fnn, n_w_fnn = _train(wh + ["--aip", "fnn", "--vanish-after", "8"],
+                            "warehouse fnn A=1 vanish_after=8")
     if fnn["policy_rollout_fnn"] != n_fnn:
         raise AssertionError(f"policy_rollout[fnn] launched "
                              f"{fnn['policy_rollout_fnn']} times in "
@@ -742,10 +906,29 @@ def phase_main_path():
         raise AssertionError(f"policy_rollout[gru] launched "
                              f"{gru['policy_rollout_gru']} times in "
                              f"{n_gru} iterations")
-    gru.pop("history")
-    log(f"[counts] main path FNN A=1: {fnn}; GRU A=25: {gru}")
+    for counts, key, n in ((w_gru, "policy_rollout_gru[warehouse]",
+                            n_w_gru),
+                           (w_fnn, "policy_rollout_fnn[warehouse]",
+                            n_w_fnn)):
+        if counts[key] != n:
+            raise AssertionError(f"{key} launched {counts[key]} times in {n}"
+                                 f" iterations")
+    for counts in (gru, w_gru, w_fnn):
+        counts.pop("history")
+    log(f"[counts] main path traffic FNN A=1: {nonzero(fnn)}; traffic GRU "
+        f"A=25: {nonzero(gru)}; warehouse GRU A=36: {nonzero(w_gru)}; "
+        f"warehouse FNN A=1: {nonzero(w_fnn)}")
     return {"policy_rollout[fnn]": fnn["policy_rollout_fnn"],
-            "policy_rollout[gru]": gru["policy_rollout_gru"]}
+            "policy_rollout[gru]": gru["policy_rollout_gru"],
+            "policy_rollout[gru][warehouse]":
+                w_gru["policy_rollout_gru[warehouse]"],
+            "policy_rollout[fnn][warehouse]":
+                w_fnn["policy_rollout_fnn[warehouse]"]}
+
+
+def nonzero(counts):
+    """The launch counters that moved."""
+    return {k: v for k, v in counts.items() if v}
 
 
 @phase("engine entry points: engine.rollout, engine.step")
@@ -753,43 +936,58 @@ def phase_engine(dev):
     import torch
     from repro_torch.core import engine, influence
     from repro_torch.envs.api import horizon_noise
-    from repro_torch.envs.traffic import (TrafficConfig,
-                                          make_batched_local_traffic_env)
     from repro_torch.kernels import aip_step as cuda
-    ls = make_batched_local_traffic_env(TrafficConfig(), dev)
     g = torch.Generator(device=dev)
     g.manual_seed(7)
     B, T = 16, 128
     cuda.reset_launches()
-    for kind, A in (("fnn", 1), ("gru", 25)):
-        acfg = influence.AIPConfig(kind=kind, d_in=40, n_out=4, hidden=64,
+    # rewards: traffic's moved share, the warehouse's pickups (at most one
+    # item cell under a robot) both lie in [0, 1]
+    for domain, kind, A in (("traffic", "fnn", 1), ("traffic", "gru", 25),
+                            ("warehouse", "fnn", 36),
+                            ("warehouse", "gru", 36)):
+        ls, _ = local_env(domain, dev)
+        acfg = influence.AIPConfig(kind=kind, d_in=ls.spec.dset_dim,
+                                   n_out=ls.spec.n_influence, hidden=64,
                                    stack=8 if kind == "fnn" else 1)
         p = (influence.init_aip(acfg, g) if A == 1
              else influence.init_aip_stacked(acfg, g, A))
         env = engine.make_unified_ials(ls, p, acfg, n_agents=A)
         st = env.reset(g, B)
-        acts = torch.randint(0, 2, (T, B) + ((A,) if A > 1 else ()),
-                             generator=g, device=dev)
+        acts = torch.randint(0, ls.spec.n_actions,
+                             (T, B) + ((A,) if A > 1 else ()), generator=g,
+                             device=dev)
         st2, rew = env.rollout(st, acts, horizon_noise(env.noise_fn, g, T,
                                                          B))
         if not bool(torch.isfinite(rew).all()) or \
                 not (0 <= float(rew.min()) <= float(rew.max()) <= 1):
-            raise AssertionError(f"engine.rollout {kind}: bad rewards")
+            raise AssertionError(f"engine.rollout {domain} {kind}: bad "
+                                 f"rewards")
         if kind == "gru":
             _, obs, r, _ = env.step(st2, acts[0], g)
-            if tuple(obs.shape) != (B, A, 41):
-                raise AssertionError(f"engine.step obs {tuple(obs.shape)}")
+            if tuple(obs.shape) != (B, A, ls.spec.obs_dim):
+                raise AssertionError(f"engine.step {domain} obs "
+                                     f"{tuple(obs.shape)}")
     torch.cuda.synchronize()
     counts = dict(cuda.LAUNCHES)
-    for k in ("fnn_rollout", "aip_rollout_multi", "aip_step"):
+    want = ("fnn_rollout[traffic]", "aip_rollout_multi[traffic]",
+            "aip_step", "fnn_rollout[warehouse]",
+            "aip_rollout_multi[warehouse]")
+    for k in want:
         if counts[k] < 1:
             raise AssertionError(f"{k} did not launch on its path: {counts}")
-    log(f"[counts] engine entry points: {counts}")
+    log(f"[counts] engine entry points: {nonzero(counts)}")
     step_matches_rollout(25, 16, 8, dev)
     step_matches_rollout(1, 512, 9, dev)
     step_matches_rollout(25, 512, 10, dev)
-    return {k: counts[k] for k in ("fnn_rollout", "aip_rollout_multi",
-                                   "aip_step")}
+    step_matches_rollout(36, 16, 11, dev, "warehouse")
+    step_matches_rollout(1, 16, 12, dev, "warehouse")
+    return {"fnn_rollout": counts["fnn_rollout[traffic]"],
+            "aip_rollout_multi": counts["aip_rollout_multi[traffic]"],
+            "aip_step": counts["aip_step"],
+            "fnn_rollout[warehouse]": counts["fnn_rollout[warehouse]"],
+            "aip_rollout_multi[warehouse]":
+                counts["aip_rollout_multi[warehouse]"]}
 
 
 # ---------------------------------------------------------------------------
@@ -978,7 +1176,8 @@ def phase_serve_kernels(dev):
         for multi in ((False,) if case.N == 1 else (True,)):
             name = "serve_forward_multi" if multi else "serve_forward"
             ms = time_cuda(lambda: case.call(multi), reps=50, warmup=5)
-            dms = device_ms(lambda: case.call(multi), reps=50, warmup=5)
+            dms = device_ms(lambda: case.call(multi), reps=50, warmup=5,
+                            kernel="serve_kernel")
             at = f"{case.domain} S={case.S} N={case.N}"
             log(f"[serve] {name} {at}: ms {ms:.4f}, device {dms}; plan "
                 f"{serve_plan_text(case, multi)}")
@@ -1035,8 +1234,6 @@ def dispatch_breakdown(server, trace, reps=200):
     device time per dispatch (every kernel and copy) and the device's busy
     share (that time over the wall time)."""
     import numpy as np
-    import torch
-    from torch.profiler import ProfilerActivity, profile
     shape = server.slot
     burst = [r for r in trace[:shape] if r.arrival == trace[0].arrival]
     t_pack = []
@@ -1050,13 +1247,10 @@ def dispatch_breakdown(server, trace, reps=200):
         t0 = time.perf_counter()
         server.forward_slot(frames, len(burst), pidx)
         t_fwd.append(time.perf_counter() - t0)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            server.forward_slot(frames, len(burst), pidx)
-        wall = time.perf_counter() - t0
-    dev_us = device_us(prof)
+    got = profile_calls(
+        lambda: server.forward_slot(frames, len(burst), pidx), reps,
+        kernel="serve_kernel")
+    dev_us, wall = (events_us(got[0]), got[1]) if got else (0.0, 1.0)
     rec = {"burst_lanes": len(burst),
            "pack_ms": 1e3 * statistics.median(t_pack),
            "forward_slot_ms": 1e3 * statistics.median(t_fwd),
@@ -1091,7 +1285,10 @@ def phase_serving_path(dev):
         base + ["--virtual", "--admission", "--faults",
                 "slow:10:0.05,flood:0.5:0.2:4,corrupt:0:nan",
                 "--reload-at", "100,200"], "serve_forward")
-    for res in (fixed, multi):
+    warehouse, _ = _policy_serve(
+        ["--domain", "warehouse"] + base[2:] + ["--slot", "128"],
+        "serve_forward")
+    for res in (fixed, multi, warehouse):
         if res["served"] != res["requests"]:
             raise AssertionError(f"served {res['served']} of "
                                  f"{res['requests']} without admission")
@@ -1545,6 +1742,8 @@ def main():
             "library_device_ms": rec.get("library_device_ms"),
             "path": PATHS.get(name, "engine entry points"),
             "flips": rec["flips"], "plan": rec.get("plan")})
+    log(f"[profile] {len(PROFILE_LOSSES)} profiles missed a launch and were "
+        f"taken again: {PROFILE_LOSSES}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -12,8 +12,9 @@ float32.
 
 ``to_torch`` covers the AIP (GRU and FNN, single and (A, ...) stacked),
 the policy, and the LS, GS, IALS and rollout states: NamedTuple states
-(``LocalTrafficState``, ``TrafficState``, ``IALSState``,
-``RolloutState``) are rebuilt as the port's classes of the same name.
+(``LocalTrafficState``, ``TrafficState``, ``LocalWarehouseState``,
+``WarehouseState``, ``IALSState``, ``RolloutState``) are rebuilt as the
+port's classes of the same name.
 This module never imports the JAX package.
 """
 from __future__ import annotations
@@ -24,10 +25,12 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core.engine import IALSState
 from repro_torch.envs.traffic import LocalTrafficState, TrafficState
+from repro_torch.envs.warehouse import LocalWarehouseState, WarehouseState
 from repro_torch.rl.ppo import RolloutState
 
 _STATES = {cls.__name__: cls for cls in
-           (LocalTrafficState, TrafficState, IALSState, RolloutState)}
+           (LocalTrafficState, TrafficState, LocalWarehouseState,
+            WarehouseState, IALSState, RolloutState)}
 
 
 def array_to_torch(x, device="cuda") -> torch.Tensor:

@@ -25,9 +25,11 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Callable, NamedTuple
 
+import dataclasses
+
 import torch
 
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map
 
 
 @dataclass(frozen=True)
@@ -42,12 +44,17 @@ class EnvSpec:
 
 
 class KernelDomain(NamedTuple):
-    """Which device functor the CUDA kernels run for a local simulator:
-    the counterpart of tracing its ``rollout_tick``/``dset_fn``/``obs_fn``
-    into a Pallas body. Only ``"traffic"`` exists in this slice."""
+    """Which device functor the CUDA kernels run for a local simulator,
+    and its constants: the counterpart of tracing its ``rollout_tick`` /
+    ``dset_fn`` / ``obs_fn`` into a Pallas body. ``"traffic"`` reads
+    ``lane_len`` and ``ext_influence``; ``"warehouse"`` the region's side
+    ``region``, ``max_age`` and ``vanish_after``."""
     name: str
     lane_len: int = 0
     ext_influence: bool = False
+    region: int = 0
+    max_age: int = 0
+    vanish_after: int = 0
 
 
 class BatchedEnv(NamedTuple):
@@ -75,6 +82,28 @@ class BatchedLocalEnv(NamedTuple):
     rollout_tick: Any = None  # (state, actions, u, noise) -> (state, r)
     obs_fn: Any = None     # state -> obs (B, obs_dim) f32
     kernel_domain: Any = None  # KernelDomain of the CUDA device functor
+
+
+def squeeze_agent_env(multi: BatchedEnv, name: str) -> BatchedEnv:
+    """A 1-agent batched GS through the single-agent protocol: actions
+    (B,), and the agent axis squeezed off obs / reward / info."""
+    spec = dataclasses.replace(multi.spec, name=name, n_agents=1)
+
+    def observe(state):
+        return multi.observe(state)[:, 0]
+
+    def step_det(state, actions, noise):
+        state, obs, r, info = multi.step_det(state, actions[:, None], noise)
+        return state, obs[:, 0], r[:, 0], {k: v[:, 0]
+                                           for k, v in info.items()}
+
+    def step(state, actions, gen):
+        return step_det(state, actions,
+                        multi.noise_fn(gen, tree_leaves(state)[0].shape[0]))
+
+    return BatchedEnv(spec=spec, reset=multi.reset, step=step,
+                      observe=observe, noise_fn=multi.noise_fn,
+                      step_det=step_det)
 
 
 # dtypes the CUDA kernels take as int32 at their boundary

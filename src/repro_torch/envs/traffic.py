@@ -19,7 +19,6 @@ functor (``KernelDomain("traffic")``): the suffix-OR lane advance over a
 """
 from __future__ import annotations
 
-import dataclasses
 from dataclasses import dataclass
 from typing import NamedTuple, Tuple
 
@@ -27,7 +26,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.envs.api import (BatchedEnv, BatchedLocalEnv, EnvSpec,
-                                  KernelDomain)
+                                  KernelDomain, squeeze_agent_env)
 
 
 @dataclass(frozen=True)
@@ -194,28 +193,6 @@ def make_batched_multi_traffic_env(cfg: TrafficConfig, agents,
 
     return BatchedEnv(spec=spec, reset=reset, step=step, observe=observe,
                       noise_fn=noise_fn, step_det=step_det)
-
-
-def squeeze_agent_env(multi: BatchedEnv, name: str) -> BatchedEnv:
-    """A 1-agent batched GS through the single-agent protocol: actions
-    (B,), and the agent axis squeezed off obs / reward / info."""
-    spec = dataclasses.replace(multi.spec, name=name, n_agents=1)
-
-    def observe(state):
-        return multi.observe(state)[:, 0]
-
-    def step_det(state, actions, noise):
-        state, obs, r, info = multi.step_det(state, actions[:, None], noise)
-        return state, obs[:, 0], r[:, 0], {k: v[:, 0]
-                                           for k, v in info.items()}
-
-    def step(state, actions, gen):
-        return step_det(state, actions,
-                        multi.noise_fn(gen, state.lanes.shape[0]))
-
-    return BatchedEnv(spec=spec, reset=multi.reset, step=step,
-                      observe=observe, noise_fn=multi.noise_fn,
-                      step_det=step_det)
 
 
 def make_batched_traffic_env(cfg: TrafficConfig = TrafficConfig(),

@@ -57,9 +57,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # launches per entry point since the last ``reset_launches()``;
 # "flash_attention" counts every flash launch, "flash_attention[wgmma]" and
-# "flash_attention[f32]" the tensor-core and the CUDA-core kernel's
-LAUNCHES = {"aip_step": 0, "aip_rollout_multi": 0, "fnn_rollout": 0,
-            "policy_rollout_fnn": 0, "policy_rollout_gru": 0,
+# "flash_attention[f32]" the tensor-core and the CUDA-core kernel's; a
+# horizon kernel's "name[domain]" its launches with that LS functor
+_HORIZON_COUNTERS = ("aip_rollout_multi", "fnn_rollout",
+                     "policy_rollout_fnn", "policy_rollout_gru")
+LAUNCHES = {"aip_step": 0, **{k: 0 for k in _HORIZON_COUNTERS},
+            **{f"{k}[{d}]": 0 for k in _HORIZON_COUNTERS
+               for d in ("traffic", "warehouse")},
             "serve_forward": 0, "serve_forward_multi": 0,
             "gru_sequence": 0, "rmsnorm": 0, "flash_attention": 0,
             "flash_attention[wgmma]": 0, "flash_attention[f32]": 0}
@@ -73,8 +77,9 @@ def reset_launches():
 _P = ctypes.c_void_p
 _I = ctypes.c_longlong
 _INT_FIELDS = ("T", "A", "B", "D", "H", "M", "stack", "S", "obs_dim", "Hp",
-               "n_act", "domain", "lane_len", "ext_influence", "fast_gates",
-               "n_pol", "serve_lanes", "serve_rows_per_thread",
+               "n_act", "domain", "lane_len", "ext_influence", "region",
+               "max_age", "vanish_after", "fast_gates", "n_pol",
+               "serve_lanes", "serve_rows_per_thread",
                "serve_cols_per_thread", "serve_chunk_rows", "serve_stages",
                "serve_threads", "serve_smem", "serve_policy_blocks",
                "serve_flags", "roll_lanes", "roll_rows_per_thread",
@@ -97,7 +102,8 @@ class IalsArgs(ctypes.Structure):
                 + [("roll_split", _I * 6)])
 
 
-_DOMAINS = {"traffic": 0}
+# the LS device functors of csrc/ials_kernels.cu (IalsArgs::domain)
+_DOMAINS = {"traffic": 0, "warehouse": 1}
 _ENTRIES = ("ials_aip_step", "ials_aip_rollout_multi", "ials_fnn_rollout",
             "ials_policy_rollout_gru", "ials_policy_rollout_fnn",
             "ials_serve_forward", "ials_serve_forward_multi",
@@ -251,21 +257,65 @@ def launch(entry: str, counters, device, *args):
         LAUNCHES[name] += 1
 
 
-def _traffic_leaves(ls, L, domain, prefix=()):
+@dataclasses.dataclass(frozen=True)
+class DomainLayout:
+    """What the horizon kernels take for an LS domain: the d-set width D,
+    the observation width, the ints a lane's state holds in shared memory
+    (its functor's ``kStateInts``), and the (name, trailing shape) of each
+    LS leaf and each noise leaf, in ``tree_leaves`` order."""
+    D: int
+    obs_dim: int
+    state_ints: int
+    leaves: tuple
+    noise: tuple
+
+
+def domain_layout(domain) -> DomainLayout:
+    """The ``DomainLayout`` of a ``KernelDomain``; raises
+    NotImplementedError for a domain the kernels carry no functor for."""
     if domain is None or domain.name not in _DOMAINS:
         raise NotImplementedError(
-            f"no CUDA device functor for LS domain {domain!r} (only "
-            f"'traffic' in this slice; see ROADMAP)")
-    lanes, phase = ls
-    Lc = domain.lane_len
-    return (_i32(lanes, "ls.lanes", prefix + (L, 4, Lc)),
-            _i32(phase, "ls.phase", prefix + (L,)))
+            f"no CUDA device functor for LS domain {domain!r} (the kernels "
+            f"carry {sorted(_DOMAINS)})")
+    if domain.name == "traffic":
+        n = domain.lane_len
+        return DomainLayout(D=4 * n, obs_dim=4 * n + 1,
+                            state_ints=TRAFFIC_STATE_INTS,
+                            leaves=(("lanes", (4, n)), ("phase", ())),
+                            noise=())
+    side = domain.region
+    return DomainLayout(D=24, obs_dim=side * side + 12,
+                        state_ints=WAREHOUSE_STATE_INTS,
+                        leaves=(("pos", (2,)), ("items", (12,))),
+                        noise=(("spawn", (12,)),))
+
+
+def _leaves(vals, names, lead, what):
+    """Check a domain's int32 leaves ((name, trailing shape) each) with
+    the leading axes ``lead`` -> the contiguous leaves."""
+    vals = tuple(vals)
+    if len(vals) != len(names):
+        raise ValueError(f"{what}: expected {len(names)} leaves "
+                         f"{[n for n, _ in names]}, got {len(vals)}")
+    return tuple(_i32(v, f"{what}.{n}", lead + tuple(shape))
+                 for v, (n, shape) in zip(vals, names))
+
+
+def _set_leaves(field, vals):
+    for i, v in enumerate(vals):
+        field[i] = v.data_ptr()
 
 
 def _base_args(A, B, D, H, M, domain, **kw):
     return IalsArgs(A=A, B=B, D=D, H=H, M=M, domain=_DOMAINS[domain.name],
                     lane_len=domain.lane_len,
-                    ext_influence=int(domain.ext_influence), **kw)
+                    ext_influence=int(domain.ext_influence),
+                    region=domain.region, max_age=domain.max_age,
+                    vanish_after=domain.vanish_after, **kw)
+
+
+def _counters(counter, domain):
+    return counter, f"{counter}[{domain.name}]"
 
 
 def step_plan(A: int, B: int, D: int, H: int, M: int, *,
@@ -334,43 +384,49 @@ def rollout_args(ls, s0, weights, actions, bits, noise, *, n_agents,
     plan of ``rollout_plan`` for AIP ``cell`` ("gru" or "fnn"; ``lanes``
     / ``threads`` override the plan) -> (args, outputs, inputs kept
     alive)."""
-    if noise:
-        raise NotImplementedError("LS noise leaves have no device functor "
-                                  "yet (traffic draws none)")
+    lay = domain_layout(domain)
+    if D != lay.D:
+        raise ValueError(f"the AIP reads a d-set of {D}; the {domain.name} "
+                         f"LS gives {lay.D}")
     L, SD = s0.shape
     A = n_agents
     if L % A:
         raise ValueError(f"lane count {L} not divisible by n_agents={A}")
     T = actions.shape[0]
-    lanes_in, phase = _traffic_leaves(ls, L, domain)
+    ls_in = _leaves(ls, lay.leaves, (L,), "ls")
+    nz = _leaves(noise, lay.noise, (T, L), "noise")
     s0 = _f32(s0, "s0", (L, SD))
     actions = _i32(actions, "actions", (T, L))
     bits = _i32(bits, "bits", (T, L, M))
-    lanes_out, phase_out = torch.empty_like(lanes_in), torch.empty_like(phase)
+    ls_out = tuple(torch.empty_like(l) for l in ls_in)
     s_out = torch.empty_like(s0)
     rew = torch.empty((T, L), dtype=torch.float32, device=s0.device)
     args = _base_args(A, L // A, D, H, M, domain, T=T, stack=stack)
     _set_plan(args, rollout_plan(
-        A, L // A, RolloutWidths(D=D, H=H, M=M, stack=stack), cell, False,
+        A, L // A, RolloutWidths(D=D, H=H, M=M, stack=stack,
+                                 state_ints=lay.state_ints), cell, False,
         lanes=lanes, threads=threads))
-    args.ls_in[0], args.ls_in[1] = lanes_in.data_ptr(), phase.data_ptr()
-    args.ls_out[0], args.ls_out[1] = (lanes_out.data_ptr(),
-                                      phase_out.data_ptr())
+    _set_leaves(args.ls_in, ls_in)
+    _set_leaves(args.ls_out, ls_out)
+    _set_leaves(args.noise, nz)
     args.s0, args.s_out = s0.data_ptr(), s_out.data_ptr()
     for i, w in enumerate(weights):
         args.aw[i] = w.data_ptr()
     args.actions, args.bits = actions.data_ptr(), bits.data_ptr()
     args.rew_out = rew.data_ptr()
-    return (args, ((lanes_out, phase_out), s_out, rew),
-            (lanes_in, phase, s0, actions, bits, weights))
+    return (args, (ls_out, s_out, rew),
+            (ls_in, nz, s0, actions, bits, weights))
 
 
 def aip_rollout_multi(ls, h0, wx, wh, b, hw, hb, actions, bits, noise, *,
                       n_agents: int, domain):
     """Whole-horizon IALS rollout, GRU backbone, ONE launch by the plan
-    of ``rollout_plan``: ls (lanes (L, 4, lane_len), phase (L,)) int32,
-    h0 (L, H), stacked weights, actions (T, L), bits (T, L, M) -> (final
-    ls, h_T, rewards (T, L))."""
+    of ``rollout_plan``: ls the domain's int32 leaves ((L, ...) each;
+    traffic lanes (L, 4, lane_len) and phase (L,), the warehouse pos (L, 2)
+    and items (L, 12)), h0 (L, H), stacked weights, actions (T, L), bits
+    (T, L, M), noise the domain's int32 (T, L, ...) leaves (the
+    warehouse's spawns; none for traffic) -> (final ls, h_T, rewards
+    (T, L))."""
     A, D, G3 = wx.shape
     H = G3 // 3
     M = hw.shape[2]
@@ -380,8 +436,8 @@ def aip_rollout_multi(ls, h0, wx, wh, b, hw, hb, actions, bits, noise, *,
     args, out, keep = rollout_args(ls, h0, ws, actions, bits, noise,
                                    n_agents=n_agents, domain=domain, D=D,
                                    H=H, M=M, stack=1, cell="gru")
-    launch("ials_aip_rollout_multi", "aip_rollout_multi", keep[2].device,
-           ctypes.byref(args))
+    launch("ials_aip_rollout_multi", _counters("aip_rollout_multi", domain),
+           keep[2].device, ctypes.byref(args))
     return out
 
 
@@ -392,8 +448,8 @@ def fnn_rollout(ls, buf0, w1, b1, w2, b2, hw, hb, actions, bits, noise, *,
     as ``aip_rollout_multi``."""
     A, SD, K = w1.shape
     M = hw.shape[2]
-    D = 4 * domain.lane_len if domain is not None else 0
-    if D == 0 or SD % D:
+    D = domain_layout(domain).D
+    if SD % D:
         raise ValueError(f"frame buffer width {SD} is not a multiple of "
                          f"the d-set width {D}")
     ws = [_f32(w1, "w1", (A, SD, K)), _f32(b1, "b1", (A, K)),
@@ -402,8 +458,8 @@ def fnn_rollout(ls, buf0, w1, b1, w2, b2, hw, hb, actions, bits, noise, *,
     args, out, keep = rollout_args(ls, buf0, ws, actions, bits, noise,
                                    n_agents=n_agents, domain=domain, D=D,
                                    H=K, M=M, stack=SD // D, cell="fnn")
-    launch("ials_fnn_rollout", "fnn_rollout", keep[2].device,
-           ctypes.byref(args))
+    launch("ials_fnn_rollout", _counters("fnn_rollout", domain),
+           keep[2].device, ctypes.byref(args))
     return out
 
 
@@ -413,21 +469,19 @@ def policy_rollout_args(ls, s0, frames0, aip_w, pol_w, gumbel, bits, done,
                         threads=None):
     """Check ``policy_rollout``'s inputs, allocate its outputs and fill
     its IalsArgs with the launch plan of ``rollout_plan`` (``lanes``,
-    ``cluster``, ``threads`` override it) -> (entry, counter, args,
+    ``cluster``, ``threads`` override it) -> (entry, counters, args,
     outputs, plan, inputs kept alive)."""
-    if noise:
-        raise NotImplementedError("LS noise leaves have no device functor "
-                                  "yet (traffic draws none)")
+    lay = domain_layout(domain)
     L, SD = s0.shape
     A = n_agents
     if L % A:
         raise ValueError(f"lane count {L} not divisible by n_agents={A}")
     T, _, NA = gumbel.shape
     S = frames0.shape[1]
-    lanes_in, phase = _traffic_leaves(ls, L, domain)
-    r_lanes, r_phase = _traffic_leaves(reset_ls, L, domain, prefix=(T,))
-    D = 4 * domain.lane_len
-    obs_dim = D + 1
+    ls_in = _leaves(ls, lay.leaves, (L,), "ls")
+    r_ls = _leaves(reset_ls, lay.leaves, (T, L), "reset_ls")
+    nz = _leaves(noise, lay.noise, (T, L), "noise")
+    D, obs_dim = lay.D, lay.obs_dim
     if kind == "gru":
         G3 = aip_w[0].shape[2]
         H, M, stack = G3 // 3, aip_w[3].shape[2], 1
@@ -456,9 +510,10 @@ def policy_rollout_args(ls, s0, frames0, aip_w, pol_w, gumbel, bits, done,
     done = _i32(done, "done", (T, L))
     dev = s0.device
     plan = rollout_plan(A, L // A, RolloutWidths(
-        D=D, H=H, M=M, stack=stack, S=S, obs_dim=obs_dim, Hp=Hp, n_act=NA),
+        D=D, H=H, M=M, stack=stack, S=S, obs_dim=obs_dim, Hp=Hp, n_act=NA,
+        state_ints=lay.state_ints),
         kind, True, lanes=lanes, cluster=cluster, threads=threads)
-    lanes_out, phase_out = torch.empty_like(lanes_in), torch.empty_like(phase)
+    ls_out = tuple(torch.empty_like(l) for l in ls_in)
     s_out, f_out = torch.empty_like(s0), torch.empty_like(frames0)
     x = torch.empty((T, L, S), dtype=torch.float32, device=dev)
     a = torch.empty((T, L), dtype=torch.int32, device=dev)
@@ -469,11 +524,10 @@ def policy_rollout_args(ls, s0, frames0, aip_w, pol_w, gumbel, bits, done,
                       obs_dim=obs_dim, Hp=Hp, n_act=NA,
                       fast_gates=int(fast_gates))
     _set_plan(args, plan)
-    args.ls_in[0], args.ls_in[1] = lanes_in.data_ptr(), phase.data_ptr()
-    args.ls_out[0], args.ls_out[1] = (lanes_out.data_ptr(),
-                                      phase_out.data_ptr())
-    args.reset_ls[0], args.reset_ls[1] = (r_lanes.data_ptr(),
-                                          r_phase.data_ptr())
+    _set_leaves(args.ls_in, ls_in)
+    _set_leaves(args.ls_out, ls_out)
+    _set_leaves(args.reset_ls, r_ls)
+    _set_leaves(args.noise, nz)
     args.s0, args.s_out = s0.data_ptr(), s_out.data_ptr()
     args.frames0, args.frames_out = frames0.data_ptr(), f_out.data_ptr()
     for i, w in enumerate(aw):
@@ -485,10 +539,9 @@ def policy_rollout_args(ls, s0, frames0, aip_w, pol_w, gumbel, bits, done,
     args.x_out, args.a_out, args.logits_out = (x.data_ptr(), a.data_ptr(),
                                                logits.data_ptr())
     args.v_out, args.rew_out = v.data_ptr(), r.data_ptr()
-    out = ((lanes_out, phase_out), s_out, f_out, x, a, logits, v, r)
-    keep = (lanes_in, phase, r_lanes, r_phase, s0, frames0, aw, pw, gumbel,
-            bits, done)
-    return entry, counter, args, out, plan, keep
+    out = (ls_out, s_out, f_out, x, a, logits, v, r)
+    keep = (ls_in, r_ls, nz, s0, frames0, aw, pw, gumbel, bits, done)
+    return entry, _counters(counter, domain), args, out, plan, keep
 
 
 def policy_rollout(ls, s0, frames0, aip_w, pol_w, gumbel, bits, done,
@@ -499,10 +552,10 @@ def policy_rollout(ls, s0, frames0, aip_w, pol_w, gumbel, bits, done,
     streamed resets), by the plan of ``rollout_plan``. Layout as
     ``ref.policy_rollout_ref`` -> (final ls, s_T, frames_T, x (T, L, S),
     a (T, L) int32, logits (T, L, NA), v (T, L), r (T, L))."""
-    entry, counter, args, out, _, keep = policy_rollout_args(
+    entry, counters, args, out, _, keep = policy_rollout_args(
         ls, s0, frames0, aip_w, pol_w, gumbel, bits, done, noise, reset_ls,
         kind=kind, n_agents=n_agents, fast_gates=fast_gates, domain=domain)
-    launch(entry, counter, keep[4].device, ctypes.byref(args))
+    launch(entry, counters, keep[3].device, ctypes.byref(args))
     return out
 
 
@@ -533,13 +586,16 @@ STEP_MAX_LANES = 8          # aip_step's tile at most (one tick: beyond
 ROLL_MAX_SPLIT = 16         # K-parts of one product at most
 ROLL_MIN_CHAIN = 8          # k-steps a part at least
 TRAFFIC_STATE_INTS = 5      # TrafficDomain::kStateInts
+WAREHOUSE_STATE_INTS = 14   # WarehouseDomain::kStateInts
 
 
 @dataclasses.dataclass(frozen=True)
 class RolloutWidths:
     """The widths a rollout launch runs at: the AIP's d-set D, hidden H
     and influence sources M, the FNN's stack; with the policy its frame
-    width S, the observation obs_dim, hidden Hp and actions n_act."""
+    width S, the observation obs_dim, hidden Hp and actions n_act; the
+    ints of a lane's LS state (``DomainLayout.state_ints``; the step,
+    which has no LS, keeps traffic's)."""
     D: int
     H: int
     M: int

@@ -11,7 +11,8 @@ struct IalsArgs {
   const int* ls_in[kMaxLeaves];      // LS leaves (L, ...) int32
   int* ls_out[kMaxLeaves];
   const int* reset_ls[kMaxLeaves];   // (T, L, ...) streamed reset leaves
-  const void* noise[kMaxLeaves];     // (T, L, ...) LS noise (none: traffic)
+  const void* noise[kMaxLeaves];     // (T, L, ...) LS noise, int32 (traffic
+                                     // none; warehouse the spawns)
   const float* s0;                   // (L, SD) AIP state
   float* s_out;
   const float* frames0;              // (L, S) policy frame stack
@@ -35,7 +36,11 @@ struct IalsArgs {
   const int* mask;                   // serve: (B,) lane validity
   const int* pidx;                   // serve_multi: (B,) policy per lane
   long long T, A, B, D, H, M, stack, S, obs_dim, Hp, n_act;
-  long long domain, lane_len, ext_influence, fast_gates, n_pol;
+  // the LS device functor (0 traffic, 1 warehouse) and its constants:
+  // traffic's lane length and 8-bit u_t, the warehouse's region side,
+  // max_age and vanish_after
+  long long domain, lane_len, ext_influence, region, max_age, vanish_after;
+  long long fast_gates, n_pol;
   // the serving launch plan (aip_step.py::serve_plan): lanes per tile,
   // rows and columns of a thread's register tile, K-chunk rows, ring
   // stages, threads per block, dynamic shared bytes, blocks on the policy

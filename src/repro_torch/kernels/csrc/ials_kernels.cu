@@ -10,19 +10,21 @@
 //   ials_policy_rollout_fnn  <- aip_step.py::policy_rollout (kind="fnn")
 //
 // One source holds the shared device code, templated over the local-
-// simulator domain (TrafficDomain): uniform_from_bits, the AIP cells of
-// aip_step.py:73-135, and the traffic functor (dset, tick, obs) that the
-// Pallas kernels trace from envs/traffic.py. Plain C entry points take
+// simulator domain: uniform_from_bits, the AIP cells of
+// aip_step.py:73-135, and the two functors (dset, tick, obs) that the
+// Pallas kernels trace from envs/traffic.py and envs/warehouse.py
+// (TrafficDomain, WarehouseDomain; each instantiated explicitly). Plain C entry points take
 // one IalsArgs struct (ials_args.cuh: every field 8 bytes, mirrored by
 // ctypes in repro_torch/kernels/aip_step.py), launch on the caller's stream and
 // return cudaGetLastError(). The rational gates and the GRU gate update
 // come from gates.cuh, shared with layer_kernels.cu's gru_sequence.
 //
-// Work per lane-tick (fp32 FLOPs at the slice's widths: obs 41, policy
-// hidden 128, two actions; AIP hidden 64, d-set 40, M = 4, FNN stack 8):
-//   policy forward  2*(41*128 + 128*128 + 128*3) = 44,032
-//   FNN AIP         2*(320*64 + 64*64 + 64*4)    = 49,664
-//   GRU AIP         2*(40*192 + 64*192 + 64*4)   = 40,448
+// Work per lane-tick (fp32 FLOPs at the traffic widths: obs 41, policy
+// hidden 128, two actions; AIP hidden 64, d-set 40, M = 4, FNN stack 8;
+// the warehouse's: 8 frames of 37, five actions, d-set 24, M = 12):
+//   policy forward  2*(41*128 + 128*128 + 128*3) = 44,032  (wh 110,080)
+//   FNN AIP         2*(320*64 + 64*64 + 64*4)    = 49,664  (wh  34,304)
+//   GRU AIP         2*(40*192 + 64*192 + 64*4)   = 40,448  (wh  35,328)
 // At ~250 FLOP per streamed byte these are far above the card's fp32
 // ridge (20 FLOP/B), but the ticks depend on one another: the real bound
 // is T times the critical path of one tick.
@@ -39,11 +41,14 @@
 //  - Two roles: the policy (forward, Gumbel-argmax, frames) and the AIP
 //    and LS (dset, AIP cell and draw, LS tick, resets). With the policy
 //    the plan puts them on the two CTAs of a cluster (the policy's 89 KB
-//    and the FNN AIP's 100 KB do not fit one SM beside the state); they
-//    run the tick's two products side by side, since dset does not read
-//    the action, and meet twice a tick at a cluster barrier: the action
-//    goes to the LS CTA's shared memory, the next observation to the
-//    policy CTA's (distributed shared memory, map_shared_rank).
+//    and the FNN AIP's 100 KB do not fit one SM beside the state); for
+//    traffic they run the tick's two products side by side, since its
+//    dset does not read the action, and meet twice a tick at a cluster
+//    barrier: the action goes to the LS CTA's shared memory, the next
+//    observation to the policy CTA's (distributed shared memory,
+//    map_shared_rank). The warehouse's dset reads the action
+//    (kDsetReadsAction), so there the first barrier comes between the
+//    argmax and the dset, and the roles take turns.
 //  - A tile is roll_lanes lanes, the fewest whose grid the card holds at
 //    once (fewer lanes, shorter ticks): one lane a tile at the main
 //    path's A = 1, B = 16 (16 clusters), 4 at A = 25, B = 16 (100
@@ -107,8 +112,16 @@ __device__ __forceinline__ float activate(float v, int act) {
 
 struct TrafficDomain {
   static constexpr int kStateInts = 5;   // 4 lane masks + phase
+  static constexpr bool kDsetReadsAction = false;
   int lane_len;
   int ext;                               // 8-bit u_t (ext_influence)
+
+  // the widths the functor computes: d-set 4 * lane_len, obs + phase,
+  // u_t 4 (8) bits; lane masks fit an int
+  bool valid(const IalsArgs& p, bool policy) const {
+    return lane_len >= 1 && lane_len <= 30 && p.D == 4 * lane_len &&
+           p.M == (ext ? 8 : 4) && (!policy || p.obs_dim == p.D + 1);
+  }
 
   __device__ void load(const int* const* leaves, long long lane,
                        int* st) const {
@@ -131,14 +144,15 @@ struct TrafficDomain {
     leaves[1][lane] = st[4];
   }
 
-  // d_t = the 4*lane_len occupancy bits, direction-major
-  __device__ float dset_at(const int* st, int k) const {
+  // d_t = the 4*lane_len occupancy bits, direction-major (no action)
+  __device__ float dset_at(const int* st, int action, int k) const {
+    (void)action;
     return (float)((st[k / lane_len] >> (k % lane_len)) & 1);
   }
 
   // obs = occupancy bits then the phase
   __device__ float obs_at(const int* st, int k) const {
-    return k < 4 * lane_len ? dset_at(st, k) : (float)st[4];
+    return k < 4 * lane_len ? dset_at(st, 0, k) : (float)st[4];
   }
 
   // the transition + reward core (rollout_tick): returns the reward
@@ -181,6 +195,111 @@ TrafficDomain traffic_of(const IalsArgs& p) {
 }
 
 // ---------------------------------------------------------------------------
+// the warehouse local simulator as a device functor (envs/warehouse.py
+// make_batched_local_warehouse_env, the counterpart of the reference's
+// rollout_tick / dset_fn / obs_fn traced into a Pallas body): leaf 0 = pos
+// (L, 2) int32 (row, column in the region), leaf 1 = items (L, 12) int32
+// (age + 1 of each item cell's item, 0 = none); one noise leaf, the spawn
+// draws (T, L, 12) int32. In shared memory a lane is its row, its column,
+// then the 12 ages. Item cell i is (row, column) by the iota rule of the
+// reference's _at_item_mask_k: groups of three per edge (top, bottom,
+// left, right), no table.
+// ---------------------------------------------------------------------------
+
+struct WarehouseDomain {
+  static constexpr int kStateInts = 14;  // row, column, 12 ages
+  // the d-set's "at an item cell after the move" reads this tick's action
+  static constexpr bool kDsetReadsAction = true;
+  int side;          // the region's side
+  int max_age;
+  int vanish_after;  // > 0: an item vanishes after this many ticks (§5.4)
+
+  // the widths the functor computes: d-set 24, obs side^2 + 12, u_t 12
+  bool valid(const IalsArgs& p, bool policy) const {
+    return side >= 2 && max_age >= 1 && vanish_after >= 0 && p.D == 24 &&
+           p.M == 12 && p.noise[0] != nullptr &&
+           (!policy || p.obs_dim == side * side + 12);
+  }
+
+  __device__ __forceinline__ bool at_item(int r, int c, int i) const {
+    const int g = i / 3, w = i - 3 * (i / 3);
+    const int ir = g == 0 ? 0 : (g == 1 ? side - 1 : w + 1);
+    const int ic = g == 2 ? 0 : (g == 3 ? side - 1 : w + 1);
+    return ir == r && ic == c;
+  }
+
+  // clip(pos + move(action)): 1 up (-row), 2 down, 3 left, 4 right
+  __device__ __forceinline__ void moved(const int* st, int action, int& r,
+                                        int& c) const {
+    const int dr = action == 1 ? -1 : (action == 2 ? 1 : 0);
+    const int dc = action == 3 ? -1 : (action == 4 ? 1 : 0);
+    r = min(max(st[0] + dr, 0), side - 1);
+    c = min(max(st[1] + dc, 0), side - 1);
+  }
+
+  __device__ void load(const int* const* leaves, long long lane,
+                       int* st) const {
+    st[0] = leaves[0][lane * 2];
+    st[1] = leaves[0][lane * 2 + 1];
+    for (int i = 0; i < 12; ++i) st[2 + i] = leaves[1][lane * 12 + i];
+  }
+
+  __device__ void store(int* const* leaves, long long lane,
+                        const int* st) const {
+    leaves[0][lane * 2] = st[0];
+    leaves[0][lane * 2 + 1] = st[1];
+    for (int i = 0; i < 12; ++i) leaves[1][lane * 12 + i] = st[2 + i];
+  }
+
+  // d_t = the 12 item bits, then "at item cell i before or after the move"
+  __device__ float dset_at(const int* st, int action, int k) const {
+    if (k < 12) return st[2 + k] > 0 ? 1.0f : 0.0f;
+    int r, c;
+    moved(st, action, r, c);
+    return at_item(st[0], st[1], k - 12) || at_item(r, c, k - 12) ? 1.0f
+                                                                  : 0.0f;
+  }
+
+  // obs = the one-hot of the position (side^2 cells), then the item bits
+  __device__ float obs_at(const int* st, int k) const {
+    const int n = side * side;
+    if (k < n) return k / side == st[0] && k % side == st[1] ? 1.0f : 0.0f;
+    return st[2 + k - n] > 0 ? 1.0f : 0.0f;
+  }
+
+  // the transition + reward core (rollout_tick): move, pick up, age,
+  // vanish, spawn from this lane's row of the noise leaf -> the reward
+  __device__ float tick(int* st, int action, const float* u,
+                        const void* const* noise, long long noise_idx) const {
+    const int* spawn = static_cast<const int*>(noise[0]) + noise_idx * 12;
+    int r, c;
+    moved(st, action, r, c);
+    int picked = 0;
+    for (int i = 0; i < 12; ++i) {
+      const int age = st[2 + i];
+      const bool at = at_item(r, c, i);
+      if (at && age > 0) ++picked;
+      int a = at || u[i] > 0.5f ? 0 : age;
+      a = a > 0 ? min(a + 1, max_age) : 0;
+      if (vanish_after > 0 && a > vanish_after) a = 0;
+      if (a == 0 && spawn[i] != 0) a = 1;
+      st[2 + i] = a;
+    }
+    st[0] = r;
+    st[1] = c;
+    return (float)picked;
+  }
+};
+
+WarehouseDomain warehouse_of(const IalsArgs& p) {
+  WarehouseDomain dom;
+  dom.side = (int)p.region;
+  dom.max_age = (int)p.max_age;
+  dom.vanish_after = (int)p.vanish_after;
+  return dom;
+}
+
+// ---------------------------------------------------------------------------
 // The horizon kernels of aip_rollout_multi, fnn_rollout and policy_rollout:
 // weights staged on chip once a launch, a tick spread over the block, the
 // policy and the AIP on two CTAs of a cluster. See the design note at the
@@ -216,11 +335,12 @@ __host__ __device__ inline int roll_part(const IalsArgs& p, int i, int N) {
 }
 
 __host__ __device__ inline RollLayout roll_layout(const IalsArgs& p,
-                                                  bool fnn, bool policy) {
+                                                  bool fnn, bool policy,
+                                                  int SI) {
   RollLayout l{};
   const int R = (int)p.roll_lanes, D = (int)p.D, H = (int)p.H;
   const int M = (int)p.M, S = (int)p.S, Hp = (int)p.Hp;
-  const int NA = (int)p.n_act, NH = NA + 1, SI = TrafficDomain::kStateInts;
+  const int NA = (int)p.n_act, NH = NA + 1;
   int off = 0;
   auto take = [&](int floats) {
     const int o = off;
@@ -538,7 +658,7 @@ horizon_kernel(IalsArgs p, Domain dom) {
   long long tl_sum[16] = {};
   long long tl_last = clock64();
 #endif
-  const RollLayout lay = roll_layout(p, kFnn, kPolicy);
+  const RollLayout lay = roll_layout(p, kFnn, kPolicy, Domain::kStateInts);
   const int C = (int)p.roll_cluster;
   const int rank = (int)(blockIdx.x % C);
   const bool doP = kPolicy && (C == 1 || rank == 0);
@@ -728,11 +848,25 @@ horizon_kernel(IalsArgs p, Domain dom) {
       }
       ROLL_MARK(4);
     }
+    if (Domain::kDsetReadsAction) {
+      // the d-set reads this tick's action: the AIP role waits for it (with
+      // the policy, for the argmax: both CTAs of a cluster meet here, so
+      // the tick's two roles no longer overlap)
+      if (kPolicy) {
+        cross_sync(C);
+      } else {
+        if (tid < R) act[tid] = av;
+        __syncthreads();
+      }
+      ROLL_MARK(13);
+    }
     if (doE) {
-      // d_t = dset(ls): into the FNN's ring (the oldest frame's slot) or dT
+      // d_t = dset(ls, a): into the FNN's ring (the oldest frame's slot) or
+      // dT
       for (int i = tid; i < D * R; i += blockDim.x) {
         const int k = i >> lgR, r = i & mR;
-        const float v = dom.dset_at(ls + r * SI, k);
+        const float v = dom.dset_at(ls + r * SI,
+                                    Domain::kDsetReadsAction ? act[r] : 0, k);
         if (kFnn) state[(head * D + k) * R + r] = v;
         else dT[i] = v;
       }
@@ -759,11 +893,16 @@ horizon_kernel(IalsArgs p, Domain dom) {
                                                                      : 0.0f;
         u[tid] = uu;
       }
-      if (!kPolicy && tid < R) act[tid] = av;
+      if (!kPolicy && !Domain::kDsetReadsAction && tid < R) act[tid] = av;
       ROLL_MARK(7);
     }
-    // the action has reached the LS, u is drawn
-    cross_sync(C);
+    // the action has reached the LS, u is drawn (where the d-set read the
+    // action, the cluster met before it: only the AIP role's block waits)
+    if (Domain::kDsetReadsAction && kPolicy) {
+      if (doE) __syncthreads();
+    } else {
+      cross_sync(C);
+    }
     ROLL_MARK(8);
     if (doE) {
       // LS tick and reward; the streamed done merges in the reset state
@@ -894,7 +1033,8 @@ step_kernel(IalsArgs p, TrafficDomain) {
   long long tl_sum[16] = {};
   long long tl_last = clock64();
 #endif
-  const RollLayout lay = roll_layout(p, false, false);
+  const RollLayout lay = roll_layout(p, false, false,
+                                     TrafficDomain::kStateInts);
   {
     uint32_t dyn;
     asm("mov.u32 %0, %%dynamic_smem_size;" : "=r"(dyn));
@@ -965,11 +1105,11 @@ step_kernel(IalsArgs p, TrafficDomain) {
 
 // A plan the kernel cannot run is refused, never adapted: the plan is
 // aip_step.py::rollout_plan's, and the wrapper raises on the error. kStep
-// launches step_kernel (the GRU role, one tick) on the plan of the GRU
-// horizon without the policy.
-template <bool kFnn, bool kPolicy, bool kStep = false>
-int launch_horizon(const IalsArgs* a, void* stream) {
-  if (a->domain != 0) return (int)cudaErrorInvalidValue;
+// launches step_kernel (the GRU role, one tick, no LS) on the plan of the
+// GRU horizon without the policy; otherwise the horizon kernel carries the
+// LS functor dom.
+template <bool kFnn, bool kPolicy, bool kStep, class Domain>
+int launch_roll(const IalsArgs* a, void* stream, const Domain& dom) {
   const long long R = a->roll_lanes, C = a->roll_cluster;
   const long long nt = a->roll_threads;
   bool ok = (R == 1 || R == 2 || R == 4 || R == 8 || R == 16 || R == 32) &&
@@ -983,12 +1123,14 @@ int launch_horizon(const IalsArgs* a, void* stream) {
             a->T >= 0;
   for (int i = 0; i < 6; ++i)
     ok = ok && a->roll_split[i] >= 1 && a->roll_split[i] <= kRollMaxSplit;
+  if (!kStep) ok = ok && dom.valid(*a, kPolicy);
   if (!ok) return (int)cudaErrorInvalidValue;
-  const RollLayout lay = roll_layout(*a, kFnn, kPolicy);
+  const RollLayout lay = roll_layout(*a, kFnn, kPolicy, Domain::kStateInts);
   const int need = C == 2 ? imax(lay.pol_bytes, lay.aip_bytes)
                           : lay.pol_bytes + lay.aip_bytes;
   if (need > a->roll_smem) return (int)cudaErrorInvalidValue;
-  auto k = kStep ? step_kernel : horizon_kernel<kFnn, kPolicy, TrafficDomain>;
+  void (*k)(IalsArgs, Domain) = horizon_kernel<kFnn, kPolicy, Domain>;
+  if constexpr (kStep) k = step_kernel;
   static int raised[kRollMaxDevices] = {};
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -1012,9 +1154,22 @@ int launch_horizon(const IalsArgs* a, void* stream) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, k, *a, traffic_of(*a));
+  e = cudaLaunchKernelEx(&cfg, k, *a, dom);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// one explicit instantiation per LS domain (IalsArgs::domain: 0 traffic,
+// 1 warehouse); any other domain is refused. The step has no LS.
+template <bool kFnn, bool kPolicy, bool kStep = false>
+int launch_horizon(const IalsArgs* a, void* stream) {
+  if (a->domain == 0)
+    return launch_roll<kFnn, kPolicy, kStep>(a, stream, traffic_of(*a));
+  if constexpr (!kStep) {
+    if (a->domain == 1)
+      return launch_roll<kFnn, kPolicy, false>(a, stream, warehouse_of(*a));
+  }
+  return (int)cudaErrorInvalidValue;
 }
 }  // namespace
 

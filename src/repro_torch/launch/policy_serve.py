@@ -28,8 +28,9 @@ a checkpoint of either package). With ``--n-policies N`` it seeds
 checkpoint 0 and the other N-1 are fresh inits. ``--admission``,
 ``--faults``, ``--reload-at`` and ``--virtual`` are the overload and
 chaos controls of the reference; after a fault run the plan must be
-exhausted. Runs on the card unless ``--device cpu``; without CUDA the
-default raises. ``--domain warehouse`` is not ported yet.
+exhausted. ``--domain warehouse`` serves the warehouse policy (8 stacked
+37-wide observations, 5 actions). Runs on the card unless ``--device
+cpu``; without CUDA the default raises.
 """
 from __future__ import annotations
 

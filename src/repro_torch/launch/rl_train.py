@@ -3,6 +3,8 @@
 
     PYTHONPATH=src python -m repro_torch.launch.rl_train --domain traffic \
         --simulator ials [--aip gru] [--n-agents 25] [--device cuda]
+    PYTHONPATH=src python -m repro_torch.launch.rl_train --domain warehouse \
+        --simulator ials [--aip fnn] [--n-agents 36] [--vanish-after 8]
 
 Pipeline (paper §5.1):
   1. collect a (d_t, u_t) dataset from the GS under a random policy;
@@ -11,16 +13,19 @@ Pipeline (paper §5.1):
      every iteration's acting horizon is one ``policy_rollout`` kernel;
   4. evaluate on the GS every ``--eval-every`` iterations.
 
-Prints one JSON row per iteration with the JAX entry point's field names
-(``iter``, ``wallclock_s``, ``train_reward``, ``env_steps``,
+Domains (paper §5.2-5.4): the traffic grid (policy on one observation,
+the FNN AIP by default) and the warehouse floor (policy on 8 stacked
+observations, the GRU AIP by default; ``--vanish-after k`` makes items
+vanish after k ticks, the finite-memory experiment). Prints one JSON row
+per iteration with the JAX entry point's field names (``iter``,
+``wallclock_s``, ``train_reward``, ``env_steps``,
 ``gs_eval_reward[_per_agent]``) plus the PPO ``loss`` and the iteration's
-wall time ``iter_s`` (ended by a device sync). Runs on the card
-unless ``--device cpu``; without CUDA the default raises. Randomness comes
-from per-stream generators seeded from (seed, stream, position), the
-counterpart of the JAX entry point's ``fold_in`` streams (the numbers differ
-from the JAX package's). Not offered in this slice: the warehouse
-domain, ``--n-workers``, ``--ckpt-dir``, and the untrained-ials / f-ials
-simulators.
+wall time ``iter_s`` (ended by a device sync). Runs on the card unless
+``--device cpu``; without CUDA the default raises. Randomness comes from
+per-stream generators seeded from (seed, stream, position), the
+counterpart of the JAX entry point's ``fold_in`` streams (the numbers
+differ from the JAX package's). Not offered yet: ``--n-workers``,
+``--ckpt-dir``, and the untrained-ials / f-ials simulators.
 """
 from __future__ import annotations
 
@@ -39,6 +44,10 @@ from repro_torch.envs.traffic import (TrafficConfig,
                                       make_batched_local_traffic_env,
                                       make_batched_multi_traffic_env,
                                       make_batched_traffic_env)
+from repro_torch.envs.warehouse import (WarehouseConfig,
+                                        make_batched_local_warehouse_env,
+                                        make_batched_multi_warehouse_env,
+                                        make_batched_warehouse_env)
 from repro_torch.rl import ppo
 
 # generator stream tags (the JAX entry point's fold_in tags)
@@ -62,20 +71,27 @@ def grid_agents(grid: int, n_agents: int):
     return cells[:n_agents]
 
 
-def build_domain(domain: str, n_agents: int = 1, device="cuda"):
+def build_domain(domain: str, vanish_after: int = 0, n_agents: int = 1,
+                 device="cuda"):
     """-> (gs, batched_ls, frame_stack); the GS is multi-agent when
-    n_agents > 1."""
-    if domain != "traffic":
-        raise NotImplementedError(
-            f"domain {domain!r} is not ported yet (ROADMAP Queue 1, item "
-            f"2b: the warehouse GS, LS and device functor)")
-    cfg = TrafficConfig()
+    n_agents > 1. ``vanish_after`` is the warehouse's (§5.4)."""
+    if domain == "traffic":
+        cfg = TrafficConfig()
+        if n_agents > 1:
+            gs = make_batched_multi_traffic_env(
+                cfg, grid_agents(cfg.grid, n_agents), device)
+        else:
+            gs = make_batched_traffic_env(cfg, device)
+        return gs, make_batched_local_traffic_env(cfg, device), 1
+    if domain != "warehouse":
+        raise ValueError(f"unknown domain {domain!r}")
+    cfg = WarehouseConfig(vanish_after=vanish_after)
     if n_agents > 1:
-        gs = make_batched_multi_traffic_env(
+        gs = make_batched_multi_warehouse_env(
             cfg, grid_agents(cfg.grid, n_agents), device)
     else:
-        gs = make_batched_traffic_env(cfg, device)
-    return gs, make_batched_local_traffic_env(cfg, device), 1
+        gs = make_batched_warehouse_env(cfg, device)
+    return gs, make_batched_local_warehouse_env(cfg, device), 8
 
 
 class SimBuild(NamedTuple):
@@ -121,8 +137,9 @@ def prepare_simulator(simulator: str, gs, ls, aip_kind: str, *,
 def run_training(args):
     """The training run, callable in-process."""
     dev = resolve_device(args.device)
-    gs, ls, frame_stack = build_domain(args.domain, args.n_agents, dev)
-    aip_kind = args.aip or "fnn"
+    gs, ls, frame_stack = build_domain(args.domain, args.vanish_after,
+                                       args.n_agents, dev)
+    aip_kind = args.aip or ("gru" if args.domain == "warehouse" else "fnn")
     sb = prepare_simulator(args.simulator, gs, ls, aip_kind,
                            collect_episodes=args.collect_episodes,
                            ep_len=args.episode_len,
@@ -185,6 +202,9 @@ def parse_args(argv=None):
                     help="exact tanh in the policy net instead of the "
                          "rational gates")
     ap.add_argument("--n-agents", type=int, default=1)
+    ap.add_argument("--vanish-after", type=int, default=0,
+                    help="warehouse: items vanish after this many ticks "
+                         "(0: never; paper §5.4)")
     ap.add_argument("--iterations", type=int, default=40)
     ap.add_argument("--eval-every", type=int, default=5)
     ap.add_argument("--n-envs", type=int, default=16)

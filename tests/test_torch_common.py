@@ -73,6 +73,40 @@ def lane_mismatch(streams, finals, T, L, atol=FWD_ATOL):
     return first
 
 
+def jax_ls_fns(domain, vanish_after=0):
+    """The JAX package's LS functions of ``domain`` on kernel-encoded
+    (int32) leaves -> (tick, dset, obs), as the JAX engine hands them to
+    its kernels: the traffic lanes and phase decoded to bool and int8,
+    the warehouse's spawn leaf to bool."""
+    import jax.numpy as jnp
+    if domain == "traffic":
+        from repro.envs import traffic as jtr
+        jls = jtr.make_batched_local_traffic_env(jtr.TrafficConfig())
+
+        def dec(vals):
+            return jtr.LocalTrafficState(lanes=vals[0].astype(bool),
+                                         phase=vals[1].astype(jnp.int8))
+
+        def tick(vals, a, u, nz):
+            st, r = jls.rollout_tick(dec(vals), a, u, None)
+            return (st.lanes.astype(jnp.int32),
+                    st.phase.astype(jnp.int32)), r
+    else:
+        from repro.envs import warehouse as jwh
+        jls = jwh.make_batched_local_warehouse_env(
+            jwh.WarehouseConfig(vanish_after=vanish_after))
+
+        def dec(vals):
+            return jwh.LocalWarehouseState(pos=vals[0], items=vals[1])
+
+        def tick(vals, a, u, nz):
+            st, r = jls.rollout_tick(dec(vals), a, u, nz[0].astype(bool))
+            return (st.pos, st.items), r
+
+    return (tick, lambda vals, a: jls.dset_fn(dec(vals), a),
+            lambda vals: jls.obs_fn(dec(vals)))
+
+
 def assert_lanes_match(streams, finals, margins, T, L, atol=FWD_ATOL,
                        max_flip_share=0.25):
     """The lane and flip rule. ``margins`` (T, L): the port's decision

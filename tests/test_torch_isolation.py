@@ -1,7 +1,7 @@
 """The port stands alone: importing every ``repro_torch`` module leaves
 ``jax`` and ``repro`` out of ``sys.modules``; no module of
 ``src/repro_torch``, not ``chip_smoke.py`` and not the five ablation tools
-that run beside it on the card import them; and without
+and the profiler check that run beside it on the card import them; and without
 CUDA the entry points refuse the default device instead of carrying on
 on the CPU."""
 import ast
@@ -44,7 +44,8 @@ def test_importing_the_port_pulls_in_neither_jax_nor_repro():
     [str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")]
     + ["chip_smoke.py", "tools/flash_tc_ablation.py",
        "tools/flash_f32_ablation.py", "tools/serve_ablation.py",
-       "tools/rollout_ablation.py", "tools/gru_ablation.py"]))
+       "tools/rollout_ablation.py", "tools/gru_ablation.py",
+       "tools/profile_count.py"]))
 def test_no_source_imports_jax_or_repro(path):
     tree = ast.parse((ROOT / path).read_text())
     for node in ast.walk(tree):
@@ -62,5 +63,7 @@ def test_default_device_without_cuda_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")
     from repro_torch.launch import rl_train
-    with pytest.raises(RuntimeError, match="cuda"):
-        rl_train.run_training(rl_train.parse_args(["--iterations", "1"]))
+    for domain in ("traffic", "warehouse"):
+        with pytest.raises(RuntimeError, match="cuda"):
+            rl_train.run_training(rl_train.parse_args(
+                ["--iterations", "1", "--domain", domain]))

@@ -17,7 +17,10 @@ layout, and the route counters of the two flash kernels; the CUDA-core
 flash kernel repeats bitwise at every f32 case and the off-16 bf16 one;
 ``aip_step`` at odd shapes (B = 1, ragged B, A = 1) against its plain
 version and bitwise on a repeat; ``engine.step`` equals a one-tick
-``engine.rollout`` bitwise.
+``engine.rollout`` bitwise; the horizon kernels with the warehouse
+functor (spawn noise, 8 stacked frames, the action read by the d-set, on
+a cluster of two and on one CTA, ``vanish_after``), bitwise on a repeat,
+with their per-domain launch counters and refused launches.
 These tests need a CUDA card and ``nvcc``: they carry the ``gpu`` marker
 and skip without a card.
 They import no JAX, so on a machine without it they run without the
@@ -178,6 +181,118 @@ def test_engine_step_equals_one_tick_rollout(A, B, dev):
     assert chip_smoke.step_matches_rollout(A, B, seed=80 + A + B,
                                            dev=dev) == {
         "aip_step": 1, "aip_rollout_multi": 1}
+
+
+# the warehouse functor: 8 stacked 37-wide frames, five actions, a 24-wide
+# d-set read after the action, 12 sources and the LS's spawn noise
+W = "warehouse"
+
+
+@pytest.mark.parametrize("kind", ["gru", "fnn"])
+@pytest.mark.parametrize("A,B", [(1, 16), (3, 17), (36, 4)])
+def test_warehouse_rollout_kernels_match_plain(kind, A, B, dev):
+    case = chip_smoke.Case(kind, A, B, 40, seed=100 + A + B, dev=dev,
+                           domain=W)
+    flips, err = chip_smoke.check_rollout(case, f"{W} rollout {kind} "
+                                                f"A={A} B={B}")
+    assert err <= chip_smoke.ATOL
+
+
+@pytest.mark.parametrize("kind", ["gru", "fnn"])
+@pytest.mark.parametrize("A,B,vanish", [(1, 1, 0), (1, 16, 0), (3, 17, 8),
+                                        (36, 4, 0)])
+def test_warehouse_policy_rollout_matches_plain(kind, A, B, vanish, dev):
+    """Both routes of the action to the d-set: a cluster of two (the
+    policy's argmax, then the cluster meets) at every shape here, resets
+    inside the horizon, spawns on, items that vanish after 8 ticks."""
+    case = chip_smoke.Case(kind, A, B, 48, seed=110 + A + B, dev=dev,
+                           domain=W, vanish_after=vanish)
+    assert bool(case.done.any())
+    flips, err = chip_smoke.check_policy(case, f"{W} policy {kind} A={A} "
+                                               f"B={B} vanish={vanish}")
+    assert err <= chip_smoke.ATOL
+
+
+@pytest.mark.parametrize("kind", ["gru", "fnn"])
+def test_warehouse_policy_rollout_on_one_cta(kind, dev):
+    """The plan's other route: policy and AIP in one CTA (cluster 1, one
+    lane a tile), where a block barrier takes the action to the d-set. At
+    policy hidden 128 the two roles do not fit one CTA; at 64 they do."""
+    import ctypes
+    from repro_torch.kernels import aip_step as cuda
+    case = chip_smoke.Case(kind, 1, 4, 24, seed=130, dev=dev, domain=W,
+                           pol_hidden=64)
+    entry, counters, args, out, plan, keep = cuda.policy_rollout_args(
+        case.io.ls, case.s0, case.frames0, case.aw, case.pw, case.gumbel,
+        case.bits, case.done, case.io.noise, case.reset_ls, kind=kind,
+        n_agents=1, fast_gates=True, domain=case.ls_env.kernel_domain,
+        lanes=1, cluster=1)
+    assert plan.cluster == 1
+    cuda.launch(entry, counters, dev, ctypes.byref(args))
+    torch.cuda.synchronize()
+    trace = {}
+    plain = case.policy_call(plain=True, trace=trace)
+    margins = torch.minimum(torch.stack(trace["aip"]),
+                            torch.stack(trace["policy"]))
+    (kl, ks, kf, kx, ka, klg, kv, kr), (pl, ps, pf, px, pa, plg, pv, pr) = \
+        out, plain
+    chip_smoke.compare_lanes(
+        f"{W} policy {kind} one CTA",
+        [(kx, px, False), (ka, pa, True), (klg, plg, False),
+         (kv, pv, False), (kr, pr, False)],
+        [(k, p, True) for k, p in zip(kl, pl)]
+        + [(ks, ps, False), (kf, pf, False)], margins, case.T, 4)
+
+
+@pytest.mark.parametrize("kernel", ["policy fnn", "policy gru",
+                                    "fnn_rollout", "aip_rollout_multi"])
+def test_warehouse_horizon_kernels_repeat_bitwise(kernel, dev):
+    kind = "fnn" if "fnn" in kernel else "gru"
+    case = chip_smoke.Case(kind, 3, 16, 32, seed=140, dev=dev, domain=W)
+    call = case.policy_call if kernel.startswith("policy") \
+        else case.rollout_call
+    first, second = call(), call()
+    torch.cuda.synchronize()
+    leaves = [(a, b) for x, y in zip(first, second)
+              for a, b in (zip(x, y) if isinstance(x, tuple) else [(x, y)])]
+    assert all(torch.equal(a, b) for a, b in leaves)
+
+
+@pytest.mark.parametrize("A,B", [(36, 16), (1, 16), (3, 17)])
+def test_warehouse_engine_step_equals_one_tick_rollout(A, B, dev):
+    assert chip_smoke.step_matches_rollout(A, B, seed=150 + A + B, dev=dev,
+                                           domain=W) == {
+        "aip_step": 1, "aip_rollout_multi": 1}
+
+
+def test_warehouse_launches_count_per_domain_and_refusals_raise(dev):
+    """A warehouse launch counts on its kernel's counter and on its
+    "[warehouse]" one; an unknown domain, a missing spawn leaf and a
+    d-set width the functor does not compute are refused by the kernel,
+    and the wrapper raises."""
+    import ctypes
+    from repro_torch.kernels import aip_step as cuda
+    case = chip_smoke.Case("gru", 3, 8, 8, seed=160, dev=dev, domain=W)
+    cuda.reset_launches()
+    case.policy_call()
+    case.rollout_call()
+    torch.cuda.synchronize()
+    assert cuda.LAUNCHES["policy_rollout_gru"] == 1
+    assert cuda.LAUNCHES["policy_rollout_gru[warehouse]"] == 1
+    assert cuda.LAUNCHES["aip_rollout_multi[warehouse]"] == 1
+    assert cuda.LAUNCHES["aip_rollout_multi[traffic]"] == 0
+    for field, value in (("domain", 2), ("D", 25), ("noise", 0)):
+        entry, counters, args, _, _, keep = cuda.policy_rollout_args(
+            case.io.ls, case.s0, case.frames0, case.aw, case.pw,
+            case.gumbel, case.bits, case.done, case.io.noise,
+            case.reset_ls, kind="gru", n_agents=3, fast_gates=True,
+            domain=case.ls_env.kernel_domain)
+        if field == "noise":
+            args.noise[0] = None
+        else:
+            setattr(args, field, value)
+        with pytest.raises(RuntimeError, match="failed to launch"):
+            cuda.launch(entry, counters, dev, ctypes.byref(args))
 
 
 @pytest.mark.parametrize("domain", ["traffic", "warehouse"])

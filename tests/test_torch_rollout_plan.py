@@ -13,10 +13,13 @@ W = cuda.RolloutWidths
 TRAFFIC_FNN = W(D=40, H=64, M=4, stack=8, S=41, obs_dim=41, Hp=128, n_act=2)
 TRAFFIC_GRU = W(D=40, H=64, M=4, S=41, obs_dim=41, Hp=128, n_act=2)
 # the warehouse: 37-wide observations stacked 8 deep, five actions, a
-# 24-wide d-set and 12 influence sources
-WAREHOUSE_GRU = W(D=24, H=64, M=12, S=296, obs_dim=37, Hp=128, n_act=5)
+# 24-wide d-set, 12 influence sources and a 14-int lane state (row,
+# column, 12 ages)
+WH = cuda.WAREHOUSE_STATE_INTS
+WAREHOUSE_GRU = W(D=24, H=64, M=12, S=296, obs_dim=37, Hp=128, n_act=5,
+                  state_ints=WH)
 WAREHOUSE_FNN = W(D=24, H=64, M=12, stack=8, S=296, obs_dim=37, Hp=128,
-                  n_act=5)
+                  n_act=5, state_ints=WH)
 
 CASES = [
     # (A, B, widths, cell, with_policy, overrides)
@@ -134,6 +137,43 @@ def test_rollout_plan_fills_the_card_in_one_wave():
     fnn64 = cuda.rollout_plan(25, 64, TRAFFIC_FNN, "fnn", False)
     assert (multi64.lanes, multi64.grid) == (8, 200)
     assert (fnn64.lanes, fnn64.grid) == (16, 100)
+
+
+def test_domain_layouts_give_the_widths_and_state_ints():
+    """``domain_layout`` is what the wrappers hand the plan and the kernel:
+    the d-set and observation widths, the functor's state ints, the leaf
+    shapes and noise leaves; a domain without a functor raises."""
+    from repro_torch.envs.api import KernelDomain
+    tr = cuda.domain_layout(KernelDomain("traffic", lane_len=10))
+    wh = cuda.domain_layout(KernelDomain("warehouse", region=5, max_age=64))
+    assert (tr.D, tr.obs_dim, tr.state_ints, tr.noise) == (40, 41, 5, ())
+    assert (wh.D, wh.obs_dim, wh.state_ints) == (24, 37, 14)
+    assert wh.leaves == (("pos", (2,)), ("items", (12,)))
+    assert wh.noise == (("spawn", (12,)),)
+    for bad in (None, KernelDomain("storage")):
+        with pytest.raises(NotImplementedError, match="device functor"):
+            cuda.domain_layout(bad)
+
+
+def test_warehouse_policy_plan_sits_at_the_edge_of_shared_memory():
+    """A = 36, B = 16 with the policy (GRU AIP): no tile of more lanes
+    fits, so 2 lanes a tile on a cluster of two, 576 CTAs at one an SM
+    (4.4 waves); the policy role's weights (296 x 128 and 128 x 128 f32)
+    leave under 2 KB of the block's shared memory. The warehouse's 14
+    state ints cost the AIP role 9 ints a lane more than traffic's 5."""
+    p = cuda.rollout_plan(36, 16, WAREHOUSE_GRU, "gru", True)
+    assert (p.lanes, p.cluster, p.grid) == (2, 2, 576)
+    assert cuda.roll_resident(p.cluster, p.threads, p.smem, p.lanes) == \
+        cuda.ROLL_SMS
+    assert 0 <= cuda.ROLL_SMEM_MAX - p.smem < 2_048
+    with pytest.raises(ValueError, match="rollout_plan"):
+        cuda.rollout_plan(36, 16, WAREHOUSE_GRU, "gru", True, lanes=4)
+    traffic_ints = cuda.RolloutWidths(**{
+        **WAREHOUSE_GRU.__dict__, "state_ints": cuda.TRAFFIC_STATE_INTS})
+    for R in (2, 8):
+        a = cuda.roll_smem(WAREHOUSE_GRU, "gru", R, p.splits, p.layers)[1]
+        b = cuda.roll_smem(traffic_ints, "gru", R, p.splits, p.layers)[1]
+        assert a - b == cuda._r16(4 * R * WH) - cuda._r16(4 * R * 5)
 
 
 def test_rollout_plan_splits_narrow_products_over_k():

@@ -151,4 +151,10 @@ def test_ials_args_mirror_matches_the_cuda_header():
     mirror = [(name, getattr(t, "_length_", 1))
               for name, t in cuda.IalsArgs._fields_]
     assert mirror == fields
+    # the LS functor and its constants, in the order both sides read them
+    names = [n for n, _ in fields]
+    i = names.index("domain")
+    assert names[i:i + 6] == ["domain", "lane_len", "ext_influence",
+                              "region", "max_age", "vanish_after"]
+    assert (cuda._DOMAINS["traffic"], cuda._DOMAINS["warehouse"]) == (0, 1)
     assert ctypes.sizeof(cuda.IalsArgs) == 8 * sum(n for _, n in fields)

@@ -605,10 +605,20 @@ def test_policy_serve_chaos_and_checkpoint(tmp_path):
     assert res3["served"] == res3["requests"] > 0
 
 
-def test_policy_serve_refuses_unported_domain_and_missing_card():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 2b"):
-        policy_serve.main(TINY + ["--domain", "warehouse"])
+def test_policy_serve_warehouse_and_missing_card():
+    """``--domain warehouse`` serves slots of 8 stacked 37-wide frames to
+    5 actions; without a card the default device raises, on either
+    domain."""
+    res = policy_serve.main(TINY + ["--domain", "warehouse", "--slot", "8"])
+    assert res["domain"] == "warehouse"
+    assert res["served"] == res["requests"] > 0
+    srv, trace, _ = policy_serve.build_server_and_trace(
+        policy_serve.parse_args(TINY + ["--domain", "warehouse"]))
+    assert trace[0].frame.shape[-1] == 296
+    assert srv._params["pi"]["w"].shape == (128, 5)
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")
-    with pytest.raises(RuntimeError, match="cuda"):
-        policy_serve.main(["--regions", "2", "--duration-s", "0.01"])
+    for domain in ("traffic", "warehouse"):
+        with pytest.raises(RuntimeError, match="cuda"):
+            policy_serve.main(["--domain", domain, "--regions", "2",
+                               "--duration-s", "0.01"])

@@ -1,8 +1,9 @@
 """The port's whole slice in-process on the CPU at a tiny size:
 ``repro_torch.launch.rl_train`` (GS collection -> AIP fit -> PPO on the
-IALS through the engine's ``policy_rollout`` route -> GS evaluation), FNN
-at A = 1 and GRU at A = 3. Rows are finite and the GS evaluation reward
-lies in [0, 1]."""
+IALS through the engine's ``policy_rollout`` route -> GS evaluation) on
+both domains, FNN and GRU at A = 1 and 3 (the warehouse also with
+``--vanish-after 8``). Rows are finite and the GS evaluation reward lies
+in [0, 1]."""
 import math
 
 import pytest
@@ -43,7 +44,32 @@ def test_gs_simulator_trains_on_the_plain_loop():
     assert 0.0 <= out["history"][0]["gs_eval_reward"] <= 1.0
 
 
-def test_unported_domain_raises_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rl_train.run_training(rl_train.parse_args(
-            TINY + ["--domain", "warehouse"]))
+@pytest.mark.parametrize("aip,agents,vanish", [
+    ("fnn", 1, 0), ("gru", 1, 8), ("fnn", 3, 0), ("gru", 3, 0)])
+def test_warehouse_training_end_to_end(aip, agents, vanish, monkeypatch):
+    """``--domain warehouse``: the 8-frame policy over 37-wide
+    observations, its acting horizon one ``policy_rollout`` call an
+    iteration with the warehouse's spawn noise, the GS evaluation on the
+    36-robot floor; the GRU AIP by default."""
+    calls = []
+    orig = ref.policy_rollout_ref
+    monkeypatch.setattr(ref, "policy_rollout_ref",
+                        lambda *a, **kw: calls.append(
+                            (kw["kind"], a[2].shape[1], len(a[8])))
+                        or orig(*a, **kw))
+    argv = TINY + ["--domain", "warehouse", "--n-agents", str(agents),
+                   "--vanish-after", str(vanish)]
+    out = rl_train.run_training(rl_train.parse_args(
+        argv + (["--aip", aip] if aip == "fnn" else [])))
+    assert calls == [(aip, 296, 1)] * 2   # frames 8 x 37, the spawn leaf
+    for r in out["history"]:
+        assert math.isfinite(r["loss"]) and math.isfinite(r["train_reward"])
+        assert 0.0 <= r["gs_eval_reward"] <= 1.0
+        if agents > 1:
+            assert len(r["gs_eval_reward_per_agent"]) == agents
+    assert out["args"]["vanish_after"] == vanish
+
+
+def test_unknown_domain_raises():
+    with pytest.raises(ValueError, match="unknown domain"):
+        rl_train.build_domain("storage", device="cpu")

@@ -6,7 +6,8 @@ card, and how the redesigned kernels compare with the first version.
     python3 tools/rollout_ablation.py [KERNEL ...]   # one CUDA card, nvcc
 
 (KERNEL: policy_rollout[fnn], policy_rollout[gru], fnn_rollout,
-aip_rollout_multi, aip_step; all five without arguments.)
+aip_rollout_multi, aip_step, and the first four with the warehouse
+functor, e.g. policy_rollout[gru][warehouse]; all without arguments.)
 
 Builds, each into a library of its own under ``build/rollout_ablation/``
 (one nvcc each, side by side):
@@ -38,7 +39,8 @@ Builds, each into a library of its own under ``build/rollout_ablation/``
 Then for each kernel at the main path's shape (FNN A = 1, B = 16; GRU
 A = 25, B = 16: ``aip_rollout_multi`` is the GRU horizon without the
 policy, actions streamed) and at A = 1, B = 512 and A = 25, B = 64 (T =
-128) it
+128), and with the warehouse functor at A = 36 and 1, B = 16 (no first
+version: its body carries traffic only), it
 times each build and the kernel under other launch plans: lanes a tile
 1-32, one CTA a tile instead of two (``policy_rollout``, where it fits),
 256 and 128 threads (fewer K-parts), and no K-split at all, as device ms
@@ -68,14 +70,14 @@ sys.path.insert(0, str(ROOT))
 CSRC = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
 OUT = ROOT / "build" / "rollout_ablation"
 T = 128
-# (kernel, cell, A, B): the main path's shapes first
-SHAPES = [(kernel, cell, A, B)
-          for kernel, cell in (("policy_rollout[fnn]", "fnn"),
-                               ("policy_rollout[gru]", "gru"),
-                               ("fnn_rollout", "fnn"),
-                               ("aip_rollout_multi", "gru"))
-          for A, B in (((1, 16) if cell == "fnn" else (25, 16)),
-                       (1, 512), (25, 64))]
+# (kernel, cell, A, B, domain): the main path's shapes first
+KERNELS = (("policy_rollout[fnn]", "fnn"), ("policy_rollout[gru]", "gru"),
+           ("fnn_rollout", "fnn"), ("aip_rollout_multi", "gru"))
+SHAPES = ([(kernel, cell, A, B, "traffic") for kernel, cell in KERNELS
+           for A, B in (((1, 16) if cell == "fnn" else (25, 16)),
+                        (1, 512), (25, 64))]
+          + [(kernel, cell, A, B, "warehouse") for kernel, cell in KERNELS
+             for A, B in ((36, 16), (1, 16))])
 BUILDS = {"kernel": [], "weights from L2": ["-DIALS_ROLL_WEIGHTS_FROM_L2"],
           "timeline": ["-DIALS_ROLL_TIMELINE"],
           "no products": ["-DIALS_ROLL_NO_PRODUCTS"],
@@ -91,7 +93,7 @@ SAME_PLAN = ("weights from L2", "timeline", "integer division")
 PHASES = ("prologue", "policy l1", "policy l2", "policy head",
           "argmax + outputs", "dset", "AIP products", "draw",
           "barrier 1 (action)", "LS tick + resets", "state zero + obs",
-          "barrier 2 (obs)", "frames")
+          "barrier 2 (obs)", "frames", "action to the d-set")
 REPS = 10
 
 
@@ -144,16 +146,17 @@ def runner(lib, case, policy, no_split=False, timeline=False, **plan):
     if policy:
         name, _, args, out, _, keep = cuda.policy_rollout_args(
             case.io.ls, case.s0, case.frames0, case.aw, case.pw,
-            case.gumbel, case.bits, case.done, (), case.reset_ls,
+            case.gumbel, case.bits, case.done, case.io.noise, case.reset_ls,
             kind=case.kind, n_agents=case.A, fast_gates=True, domain=dom,
             **plan)
     else:
         fnn = case.kind == "fnn"
         name = "ials_fnn_rollout" if fnn else "ials_aip_rollout_multi"
-        D = 4 * dom.lane_len
+        D = cuda.domain_layout(dom).D
         args, out, keep = cuda.rollout_args(
-            case.io.ls, case.s0, case.aw, case.actions, case.bits, (),
-            n_agents=case.A, domain=dom, D=D, H=64, M=4,
+            case.io.ls, case.s0, case.aw, case.actions, case.bits,
+            case.io.noise, n_agents=case.A, domain=dom, D=D, H=64,
+            M=case.acfg.n_out,
             stack=case.s0.shape[1] // D if fnn else 1, cell=case.kind,
             **plan)
     if no_split:
@@ -191,13 +194,13 @@ def held_to_plain(case, policy, out, plain, margins, label):
         return compare_lanes(
             label, [(kx, px, False), (ka, pa, True), (klg, plg, False),
                     (kv, pv, False), (kr, pr, False)],
-            [(kl[0], pl[0], True), (kl[1], pl[1], True), (ks, ps, False),
-             (kf, pf, False)], margins, case.T, L)
+            [(k, p, True) for k, p in zip(kl, pl)]
+            + [(ks, ps, False), (kf, pf, False)], margins, case.T, L)
     k_ls, k_s, k_r = out
     p_ls, p_s, p_r = plain
     return compare_lanes(label, [(k_r, p_r, False)],
-                         [(k_ls[0], p_ls[0], True), (k_ls[1], p_ls[1], True),
-                          (k_s, p_s, False)], margins, case.T, L)
+                         [(k, p, True) for k, p in zip(k_ls, p_ls)]
+                         + [(k_s, p_s, False)], margins, case.T, L)
 
 
 def print_timeline(label, marks, args, mhz):
@@ -332,15 +335,18 @@ def main():
     dev = torch.device("cuda", 0)
     seed = 800
     only = set(sys.argv[1:])
-    for kernel, cell, A, B in SHAPES:
+    for kernel, cell, A, B, domain in SHAPES:
         seed += 1
+        if domain != "traffic":
+            kernel = f"{kernel}[{domain}]"
         if only and kernel not in only:
             continue
         policy = kernel.startswith("policy")
-        case = chip_smoke.Case(cell, A, B, T, seed, dev)
+        case = chip_smoke.Case(cell, A, B, T, seed, dev, domain)
         label = f"{kernel} A={A} B={B}"
-        runs = {"first version": dict(lib=built["first version"]),
-                "kernel": dict(lib=built["kernel"])}
+        runs = {"kernel": dict(lib=built["kernel"])}
+        if domain == "traffic":
+            runs["first version"] = dict(lib=built["first version"])
         for name in SAME_PLAN + TIMING_ONLY:
             runs[name] = dict(lib=built[name], timeline=name in TIMELINES)
         for R in (1, 2, 4, 8, 16, 32):

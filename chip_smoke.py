@@ -36,7 +36,29 @@ Phases, each printing its result and time on its own line:
      it: ``policy_rollout`` must launch once per PPO iteration (on the
      warehouse its ``[warehouse]`` counter), losses must be finite, the
      GS evaluation reward in [0, 1], and the two FNN runs must give the
-     same losses and GS evaluation bitwise;
+     same losses, GS evaluation and final parameters bitwise;
+  3b. the paper's simulator grid, resume and the fleet, at phase 3's
+     widths, counters zeroed before each run and read after it: the
+     untrained IALS (traffic GRU, A = 25; one ``policy_rollout`` launch an
+     iteration); the F-IALS on traffic (FNN, A = 1, the empirical
+     marginal) and the warehouse (GRU, A = 36, ``--fixed-marginal 0.1
+     --stateless-f-ials``), which launch no kernel (PPO's plain loop, as
+     in the JAX package), losses finite, GS evaluation in [0, 1], the
+     iteration time logged; the AIP cross-entropies on one traffic
+     dataset (trained, untrained, empirical marginal, fixed 0.1 and 0.5)
+     as a finding, gating nothing; ``--ckpt-dir`` resumes (traffic FNN
+     A = 1, 1 -> 3 iterations; warehouse GRU A = 36, 1 -> 2) whose final
+     parameters equal phase 3's uninterrupted runs' bitwise, with the
+     save and restore times; ``tools/torch_fault_smoke.py --device cuda``
+     (a real SIGTERM to a real process, a clean exit after the flush, a
+     bitwise resume); the actor/learner fleet (traffic FNN A = 1, 2
+     workers, 4 updates): the deterministic run twice, bitwise equal, a
+     2-update run checkpointed and resumed to 4 bitwise equal to it, a
+     faulted run (a kill and a delayed batch on the round-robin
+     schedule, one batch past ``--max-staleness 1``) with its kill and
+     drop counted, an ``--async-fleet`` run; ``policy_rollout_fnn``
+     launches once a produced batch, and the fleet's samples/s is logged
+     beside the integrated trainer's;
   4. the engine's own entry points on both domains (``engine.rollout``
      per backbone, ``engine.step`` with the GRU AIP), counters zeroed
      before and read after: ``fnn_rollout``, ``aip_rollout_multi`` (each
@@ -854,7 +876,7 @@ def _train(argv, label):
     launches = dict(cuda.LAUNCHES)
     hist = out["history"]
     launches["history"] = [(r["loss"], r.get("gs_eval_reward"))
-                           for r in hist]
+                           for r in hist] + [out["final_params_md5"]]
     for row in hist:
         if not math.isfinite(row["loss"]):
             raise AssertionError(f"non-finite loss: {row}")
@@ -868,36 +890,44 @@ def _train(argv, label):
             f"{steps / row['iter_s']:.0f} samples/s, loss {row['loss']:.4f}, "
             f"train reward {row['train_reward']:.4f}"
             + (f", GS eval {row['gs_eval_reward']:.4f}"
-               if "gs_eval_reward" in row else ""))
-    return launches, len(hist)
+               if "gs_eval_reward" in row else "")
+            + (f", checkpoint saved in {row['ckpt_save_s'] * 1e3:.2f} ms"
+               if "ckpt_save_s" in row else ""))
+    return launches, len(hist), out
+
+
+# the full widths of phases 3 and 3b (a resume in 3b must repeat a run of
+# phase 3 bitwise, so both build their commands from these)
+MAIN_ARGS = ["--n-envs", "16", "--rollout-len", "128", "--episode-len",
+             "128", "--eval-every", "1", "--collect-episodes", "64",
+             "--aip-epochs", "2", "--device", "cuda", "--seed", "0"]
 
 
 @phase("main path: rl_train --simulator ials, traffic and warehouse")
 def phase_main_path():
-    common = ["--simulator", "ials", "--n-envs", "16",
-              "--rollout-len", "128", "--episode-len", "128",
-              "--eval-every", "1", "--collect-episodes", "64",
-              "--aip-epochs", "2", "--device", "cuda", "--seed", "0"]
+    common = ["--simulator", "ials"] + MAIN_ARGS
     traffic = common + ["--domain", "traffic"]
-    fnn, n_fnn = _train(traffic + ["--iterations", "3", "--aip", "fnn"],
-                        "traffic fnn A=1")
-    again, _ = _train(traffic + ["--iterations", "3", "--aip", "fnn"],
-                      "traffic fnn A=1 (repeat)")
+    fnn, n_fnn, fnn_out = _train(
+        traffic + ["--iterations", "3", "--aip", "fnn"], "traffic fnn A=1")
+    again, _, _ = _train(traffic + ["--iterations", "3", "--aip", "fnn"],
+                         "traffic fnn A=1 (repeat)")
     hist = fnn.pop("history")
     if hist != again.pop("history") or again != fnn:
         raise AssertionError("the FNN main path does not repeat itself "
                              "bitwise with the same seed")
     log(f"[train] the FNN main path repeated itself bitwise: (loss, GS "
-        f"eval) per iteration {hist!r}, launch counts equal")
-    gru, n_gru = _train(traffic + ["--iterations", "2", "--n-agents", "25",
-                                   "--aip", "gru"], "traffic gru A=25")
+        f"eval) per iteration and final params md5 {hist!r}, launch counts "
+        f"equal")
+    gru, n_gru, gru_out = _train(traffic + ["--iterations", "2",
+                                            "--n-agents", "25", "--aip",
+                                            "gru"], "traffic gru A=25")
     # the warehouse: its main path (GRU AIP, all 36 robots trained), and
     # the FNN AIP on one robot with the finite-memory items (§5.4)
     wh = common + ["--domain", "warehouse", "--iterations", "2"]
-    w_gru, n_w_gru = _train(wh + ["--n-agents", "36"],
-                            "warehouse gru A=36")
-    w_fnn, n_w_fnn = _train(wh + ["--aip", "fnn", "--vanish-after", "8"],
-                            "warehouse fnn A=1 vanish_after=8")
+    w_gru, n_w_gru, w_gru_out = _train(wh + ["--n-agents", "36"],
+                                       "warehouse gru A=36")
+    w_fnn, n_w_fnn, _ = _train(wh + ["--aip", "fnn", "--vanish-after", "8"],
+                               "warehouse fnn A=1 vanish_after=8")
     if fnn["policy_rollout_fnn"] != n_fnn:
         raise AssertionError(f"policy_rollout[fnn] launched "
                              f"{fnn['policy_rollout_fnn']} times in "
@@ -918,17 +948,234 @@ def phase_main_path():
     log(f"[counts] main path traffic FNN A=1: {nonzero(fnn)}; traffic GRU "
         f"A=25: {nonzero(gru)}; warehouse GRU A=36: {nonzero(w_gru)}; "
         f"warehouse FNN A=1: {nonzero(w_fnn)}")
+    # what phase 3b holds its resumes and untrained IALS against
+    ref = {"fnn": fnn_out, "gru": gru_out, "warehouse gru": w_gru_out}
     return {"policy_rollout[fnn]": fnn["policy_rollout_fnn"],
             "policy_rollout[gru]": gru["policy_rollout_gru"],
             "policy_rollout[gru][warehouse]":
                 w_gru["policy_rollout_gru[warehouse]"],
             "policy_rollout[fnn][warehouse]":
-                w_fnn["policy_rollout_fnn[warehouse]"]}
+                w_fnn["policy_rollout_fnn[warehouse]"]}, ref
 
 
 def nonzero(counts):
     """The launch counters that moved."""
     return {k: v for k, v in counts.items() if v}
+
+
+# ---------------------------------------------------------------------------
+# the paper's simulator grid, resume and the fleet (phase 3b)
+# ---------------------------------------------------------------------------
+
+def _no_kernel(counts, label):
+    moved = nonzero({k: v for k, v in counts.items() if k != "history"})
+    if moved:
+        raise AssertionError(f"{label}: the F-IALS runs PPO's plain loop, "
+                             f"but kernels launched: {moved}")
+
+
+def _steady_s(out):
+    """Mean wall time of the iterations after the first."""
+    its = [r["iter_s"] for r in out["history"] if "iter_s" in r][1:]
+    return sum(its) / len(its) if its else float("nan")
+
+
+def _resume(argv, k, n, ref, label, counter, tmp):
+    """``argv`` run for k iterations with ``--ckpt-dir``, then to n from
+    the checkpoint: the resumed run must end on ``ref``'s parameters
+    (phase 3's uninterrupted n-iteration run) bitwise, and act through
+    ``counter`` once an iteration in each part."""
+    ck = ["--ckpt-dir", tmp, "--save-every", "1"]
+    first, n1, out1 = _train(argv + ["--iterations", str(k)] + ck,
+                             f"{label}, {k} iteration(s) checkpointed")
+    res, n2, out2 = _train(argv + ["--iterations", str(n)] + ck,
+                           f"{label}, resumed to {n}")
+    if (first[counter], res[counter]) != (n1, n2):
+        raise AssertionError(f"{label}: {counter} launched {first[counter]}"
+                             f" and {res[counter]} times in {n1} and {n2} "
+                             f"iterations")
+    if out2["resumed_from"] != k:
+        raise AssertionError(f"{label}: resumed from {out2['resumed_from']}"
+                             f", not {k}")
+    want = ref["final_params_md5"]
+    if out2["final_params_md5"] != want:
+        raise AssertionError(f"{label}: the resumed run's params "
+                             f"{out2['final_params_md5']} differ from the "
+                             f"uninterrupted run's {want}")
+    save = [r["ckpt_save_s"] for r in out1["history"] + out2["history"]]
+    log(f"[resume] {label}: resumed from {k}, final params md5 {want} "
+        f"bitwise equal to phase 3's {n}-iteration run; checkpoint save "
+        f"{', '.join(f'{x * 1e3:.2f}' for x in save)} ms, restore "
+        f"{out2['diag']['restore_s'] * 1e3:.2f} ms (templates, read, "
+        f"copy to the card)")
+
+
+def _fleet(argv, label):
+    import torch
+    from repro_torch.kernels import aip_step as cuda
+    from repro_torch.launch import rl_train
+    args = rl_train.parse_args(argv)
+    cuda.reset_launches()
+    out = rl_train.run_training(args)
+    torch.cuda.synchronize()
+    counts = dict(cuda.LAUNCHES)
+    st = out["fleet"]
+    if counts["policy_rollout_fnn"] != st["produced"]:
+        raise AssertionError(f"{label}: policy_rollout[fnn] launched "
+                             f"{counts['policy_rollout_fnn']} times for "
+                             f"{st['produced']} produced batches")
+    losses = [r["loss"] for r in out["history"] if "loss" in r]
+    if len(losses) != st["updates"] or \
+            not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{label}: losses {losses} for "
+                             f"{st['updates']} updates")
+    evals = [r["gs_eval_reward"] for r in out["history"]
+             if "gs_eval_reward" in r]
+    if not evals or not all(0.0 <= e <= 1.0 for e in evals):
+        raise AssertionError(f"{label}: GS evaluation {evals}")
+    sps = st["updates"] * args.n_envs * args.rollout_len / st["wallclock_s"]
+    log(f"[fleet] {label}: {st}, {sps:.0f} samples/s applied, launches "
+        f"{nonzero(counts)}, final params md5 {out['final_params_md5']}")
+    return out, sps
+
+
+def xent_findings(trained, empirical):
+    """The AIP cross-entropies in the diagnostics of the paper's
+    simulators (Fig. 3 bottom, App. E), traffic FNN A = 1 on phase 3's
+    seed: ``trained`` (phase 3's fit, its final loss) and ``empirical``
+    (the F-IALS's empirical marginal) come from the runs; the untrained
+    AIP and the fixed marginals from ``rl_train``'s own simulator build on
+    the same collection stream. A finding, gating nothing but
+    finiteness: the JAX package records Eq. 9's ordering as not holding
+    on traffic, and nothing here expects it to."""
+    from repro_torch.launch import rl_train
+
+    def diag_xent(argv):
+        args = rl_train.parse_args(MAIN_ARGS + ["--domain", "traffic",
+                                                "--aip", "fnn"] + argv)
+        dev, _, sb, _ = rl_train.setup(args)
+        return sb.train(rl_train.sim_stream(args, dev))[1]["aip_xent"]
+
+    f_ials = ["--simulator", "f-ials", "--fixed-marginal"]
+    xe = {"trained": trained,
+          "untrained": diag_xent(["--simulator", "untrained-ials"]),
+          "empirical marginal": empirical,
+          "fixed 0.1": diag_xent(f_ials + ["0.1"]),
+          "fixed 0.5": diag_xent(f_ials + ["0.5"])}
+    if not all(math.isfinite(v) for v in xe.values()):
+        raise AssertionError(f"non-finite cross-entropy: {xe}")
+    log("[xent] traffic, FNN AIP, A = 1, the diagnostics' aip_xent (a "
+        "finding; nothing gated on the order; the untrained AIP's on 8 "
+        "GS episodes, the rest on 64, x 128 ticks): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in xe.items()))
+    return xe
+
+
+def _fault_smoke(device):
+    """``tools/torch_fault_smoke.py --device <device>`` in its own process
+    group, killed whole if it overruns."""
+    import os
+    import signal
+    proc = subprocess.Popen(
+        [sys.executable, str(ROOT / "tools" / "torch_fault_smoke.py"),
+         "--device", device], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    try:
+        text, _ = proc.communicate(timeout=420)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError("tools/torch_fault_smoke.py overran 420 s")
+    if proc.returncode != 0:
+        raise AssertionError(f"tools/torch_fault_smoke.py exited "
+                             f"{proc.returncode}:\n{text[-4000:]}")
+    summary = json.loads(text.strip().splitlines()[-1])
+    log(f"[fault-smoke] {summary}")
+
+
+@phase("the paper's simulator grid, resume and the fleet")
+def phase_grid(dev, ref):
+    import tempfile
+    traffic = MAIN_ARGS + ["--domain", "traffic"]
+    wh = MAIN_ARGS + ["--domain", "warehouse"]
+
+    # 1. the untrained IALS: the IALS's kernel on an AIP at its init
+    un, n_un, un_out = _train(
+        traffic + ["--simulator", "untrained-ials", "--iterations", "2",
+                   "--n-agents", "25", "--aip", "gru"],
+        "untrained-ials traffic gru A=25")
+    if un["policy_rollout_gru"] != n_un:
+        raise AssertionError(f"untrained-ials: policy_rollout[gru] "
+                             f"launched {un['policy_rollout_gru']} times in "
+                             f"{n_un} iterations")
+    log(f"[grid] untrained-ials traffic GRU A=25: steady iteration "
+        f"{_steady_s(un_out):.4f} s against the IALS's "
+        f"{_steady_s(ref['gru']):.4f} s (phase 3), AIP XE "
+        f"{un_out['diag']['aip_xent']:.4f} (trained "
+        f"{ref['gru']['diag']['aip_xent']:.4f})")
+
+    # 2-3. the F-IALS: PPO's plain loop, no kernel
+    f_tr, _, f_tr_out = _train(
+        traffic + ["--simulator", "f-ials", "--iterations", "2", "--aip",
+                   "fnn"], "f-ials traffic fnn A=1 (empirical marginal)")
+    _no_kernel(f_tr, "f-ials traffic")
+    f_wh, _, f_wh_out = _train(
+        wh + ["--simulator", "f-ials", "--iterations", "2", "--n-agents",
+              "36", "--fixed-marginal", "0.1", "--stateless-f-ials"],
+        "f-ials warehouse gru A=36 (fixed 0.1, stateless)")
+    _no_kernel(f_wh, "f-ials warehouse")
+    log(f"[grid] f-ials steady iteration: traffic FNN A=1 "
+        f"{_steady_s(f_tr_out):.4f} s (the IALS {_steady_s(ref['fnn']):.4f}"
+        f" s), warehouse GRU A=36 {_steady_s(f_wh_out):.4f} s (the IALS "
+        f"{_steady_s(ref['warehouse gru']):.4f} s); marginal XE "
+        f"{f_tr_out['diag']['aip_xent']:.4f} and "
+        f"{f_wh_out['diag']['aip_xent']:.4f}")
+    xent_findings(ref["fnn"]["diag"]["aip_xent"],
+                  f_tr_out["diag"]["aip_xent"])
+
+    # 4. resume, bitwise against phase 3's uninterrupted runs
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        _resume(traffic + ["--simulator", "ials", "--aip", "fnn"], 1, 3,
+                ref["fnn"], "traffic fnn A=1", "policy_rollout_fnn",
+                str(Path(tmp) / "traffic"))
+        _resume(wh + ["--simulator", "ials", "--n-agents", "36"], 1, 2,
+                ref["warehouse gru"], "warehouse gru A=36",
+                "policy_rollout_gru[warehouse]", str(Path(tmp) / "wh"))
+
+    # 5. the signal path: a real SIGTERM to a real process
+    _fault_smoke(dev.type)
+
+    # 6. the actor/learner fleet
+    fleet = traffic + ["--simulator", "ials", "--aip", "fnn", "--n-workers",
+                       "2", "--iterations", "4", "--eval-every", "2"]
+    det, sps = _fleet(fleet, "fleet deterministic")
+    again, _ = _fleet(fleet, "fleet deterministic (repeat)")
+    if again["final_params_md5"] != det["final_params_md5"]:
+        raise AssertionError("the deterministic fleet does not repeat "
+                             "itself bitwise")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_") as tmp:
+        ck = ["--ckpt-dir", tmp, "--save-every", "1"]
+        _fleet(fleet + ["--iterations", "2"] + ck,
+               "fleet, 2 updates checkpointed")
+        res, _ = _fleet(fleet + ck, "fleet, resumed to 4")
+    if res["diag"].get("resumed_from") != 2 or \
+            res["final_params_md5"] != det["final_params_md5"]:
+        raise AssertionError(f"the resumed fleet ({res['diag']}, "
+                             f"{res['final_params_md5']}) is not the "
+                             f"uninterrupted one ({det['final_params_md5']})")
+    # worker w produces at the scheduler ticks t with t % 2 == w
+    faulted, _ = _fleet(fleet + ["--kill-worker", "1:3", "--delay-batch",
+                                 "0:0:3", "--max-staleness", "1"],
+                        "fleet faulted")
+    st = faulted["fleet"]
+    if st["kills"] != 1 or st["dropped"] < 1 or not st["faults_exhausted"]:
+        raise AssertionError(f"the faulted fleet counted {st}")
+    _, sps_async = _fleet(fleet + ["--async-fleet"], "fleet async")
+    # phase 3's integrated rate carries the process's first iteration,
+    # the fleet's not: tools/iteration_profile.py --only fleet times both
+    # alike
+    log(f"[fleet] samples/s over 4 updates, evaluations excluded: "
+        f"deterministic {sps:.0f}, async {sps_async:.0f}")
 
 
 @phase("engine entry points: engine.rollout, engine.step")
@@ -1721,7 +1968,8 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     card = phase_build()
     recs = phase_kernels(dev)
-    launches = phase_main_path()
+    launches, main_runs = phase_main_path()
+    phase_grid(dev, main_runs)
     launches.update(phase_engine(dev))
     recs.update(phase_serve_kernels(dev))
     launches.update(phase_serving_path(dev))

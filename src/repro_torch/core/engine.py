@@ -21,6 +21,12 @@ CUDA tensors and runs the plain version for CPU tensors, so there is no
 auto-detection that quietly picks a loop. ``policy_rollout`` is set
 whenever the LS has ``rollout_tick``, ``noise_fn`` and ``obs_fn``.
 
+F-IALS (paper App. E): ``fixed_marginal`` / ``fixed_marginal_vec`` draw
+u_t from a fixed marginal instead of the AIP. As in the JAX package the
+kernel route requires a real AIP, so an F-IALS engine's ``rollout`` is a
+loop of its own ``step_det`` and ``policy_rollout`` is None (PPO runs its
+plain loop). The choice follows the configuration, never the device.
+
 Lanes are agent-major (lane ``a*B + b``) at the kernel boundary, so each
 kernel block indexes its own agent's stacked weights; bool/int8 LS leaves
 travel as int32 (``envs.api.kernel_codec``). The episode-reset schedule
@@ -29,13 +35,14 @@ inside a horizon is closed-form from ``t_in_ep``.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.core import influence
-from repro_torch.envs.api import BatchedEnv, BatchedLocalEnv, kernel_codec
-from repro_torch.nn.act import fast_sigmoid, random_bits
+from repro_torch.envs.api import (BatchedEnv, BatchedLocalEnv, index_tree,
+                                  kernel_codec)
+from repro_torch.nn.act import fast_sigmoid, random_bits, uniform_from_bits
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -113,14 +120,32 @@ def kernel_io(local_env: BatchedLocalEnv, ls_state, env_noise=None):
                     tick_fn, dset_fn, obs_fn)
 
 
+def _check_stateless(stateless, fixed_marginal, fixed_marginal_vec):
+    if stateless and fixed_marginal is None and fixed_marginal_vec is None:
+        raise ValueError(
+            "stateless=True only makes sense for the F-IALS (fixed "
+            "marginal) variants: a trained/untrained AIP needs its "
+            "recurrent state advanced every tick")
+
+
 def make_unified_ials(local_env: BatchedLocalEnv, aip_params,
                       aip_cfg: influence.AIPConfig, *,
-                      n_agents: int = 1) -> BatchedEnv:
+                      n_agents: int = 1,
+                      fixed_marginal: Optional[float] = None,
+                      fixed_marginal_vec=None,
+                      stateless: bool = False) -> BatchedEnv:
     """The fused rollout engine over a natively batched LS. With
     ``n_agents = A > 1`` the LS batch carries every agent of every env
     copy (B*A lanes) and ``aip_params`` leaves are (A, ...) stacked;
     actions are (B, A) and obs (B, A, obs_dim). With A = 1 the agent axis
-    is squeezed off every leaf and ``aip_params`` is one AIP."""
+    is squeezed off every leaf and ``aip_params`` is one AIP.
+
+    ``fixed_marginal`` (scalar) / ``fixed_marginal_vec`` ((M,) shared or
+    (A, M) per agent) make it an F-IALS: u_t ~ Bernoulli(marginal), the
+    AIP's output ignored. ``stateless=True`` (F-IALS only) keeps the
+    ignored AIP state at its init value instead of advancing it; the leaf
+    stays, so the state has the same structure in every variant."""
+    _check_stateless(stateless, fixed_marginal, fixed_marginal_vec)
     A = n_agents
     multi = A > 1
     M = local_env.spec.n_influence
@@ -133,6 +158,16 @@ def make_unified_ials(local_env: BatchedLocalEnv, aip_params,
 
     def _device():
         return tree_leaves(aip_params)[0].device
+
+    if fixed_marginal_vec is not None:
+        marg = torch.broadcast_to(
+            torch.as_tensor(fixed_marginal_vec, dtype=torch.float32,
+                            device=_device()), ash + (M,))
+    elif fixed_marginal is not None:
+        marg = torch.full(ash + (M,), fixed_marginal, dtype=torch.float32,
+                          device=_device())
+    else:
+        marg = None
 
     # (B, A, ...) <-> (B*A, ...) batch-major: the LS's native lane order
     def _flat(tree, B):
@@ -167,16 +202,26 @@ def make_unified_ials(local_env: BatchedLocalEnv, aip_params,
         d_t = local_env.dset_fn(ls_flat, a_flat)        # (B*A, Dd)
         if multi:
             d_t = d_t.reshape(B, A, -1)
-        sample = (influence.step_sample_multi if multi
-                  else influence.step_sample)
-        logits, new_aip, u = sample(aip_params, aip_cfg, state.aip_state,
-                                    d_t, noise["bits"])
+        if marg is None:
+            sample = (influence.step_sample_multi if multi
+                      else influence.step_sample)
+            logits, new_aip, u = sample(aip_params, aip_cfg,
+                                        state.aip_state, d_t, noise["bits"])
+            probs = fast_sigmoid(logits)
+        else:
+            if stateless:
+                new_aip = state.aip_state
+            else:   # eager: ops.aip_step would also draw a u to be ignored
+                fwd = influence.step_multi if multi else influence.step
+                _, new_aip = fwd(aip_params, aip_cfg, state.aip_state, d_t)
+            probs = torch.broadcast_to(marg, (B,) + ash + (M,))
+            u = (uniform_from_bits(noise["bits"]) < probs).to(torch.float32)
         u_flat = u.reshape(B * A, M) if multi else u
         ls2, obs, r, info = local_env.step_det(ls_flat, a_flat, u_flat,
                                                noise["env"])
         info = dict(_unflat(info, B))
         info["u"] = u
-        info["u_probs"] = fast_sigmoid(logits)
+        info["u_probs"] = probs
         if multi:
             obs, r = obs.reshape(B, A, -1), r.reshape(B, A)
         return IALSState(ls_state=_unflat(ls2, B), aip_state=new_aip), \
@@ -216,6 +261,16 @@ def make_unified_ials(local_env: BatchedLocalEnv, aip_params,
         if aip_cfg.kind == "fnn":
             sT = sT.reshape(-1, aip_cfg.stack, aip_cfg.d_in)
         return lane_unfold(sT, A, B)
+
+    def loop_rollout(state: IALSState, actions, noise):
+        """The F-IALS horizon: a loop of ``step_det`` over the T-stacked
+        noise (the JAX engine's scan)."""
+        rews = []
+        for t in range(actions.shape[0]):
+            state, _, r, _ = step_det(state, actions[t],
+                                      index_tree(noise, t))
+            rews.append(r)
+        return state, torch.stack(rews)
 
     def rollout(state: IALSState, actions, noise):
         """(state, actions (T, B[, A]), noise = T-stacked ``noise_fn``) ->
@@ -286,6 +341,10 @@ def make_unified_ials(local_env: BatchedLocalEnv, aip_params,
         obs = local_env.observe(_flat(state.ls_state, B))
         return obs.reshape(B, A, -1) if multi else obs
 
+    if marg is not None:
+        return BatchedEnv(spec=spec, reset=reset, step=step,
+                          observe=observe, rollout=loop_rollout,
+                          noise_fn=noise_fn, step_det=step_det)
     has_horizon = (local_env.rollout_tick is not None
                    and local_env.noise_fn is not None)
     return BatchedEnv(

@@ -154,6 +154,19 @@ def xent_loss(params: Params, cfg: AIPConfig, dsets, us) -> torch.Tensor:
     return _xent(params, cfg, dsets, us, dims=(0, 1))
 
 
+def xent_loss_per_agent(params: Params, cfg: AIPConfig, dsets,
+                        us) -> torch.Tensor:
+    """``xent_loss`` of A stacked AIPs, each on its own agent's data:
+    (A, N, T, ...) -> (A,) (the JAX package's ``vmap`` of it)."""
+    return _xent(params, cfg, dsets, us, dims=(1, 2))
+
+
+def accuracy(params: Params, cfg: AIPConfig, dsets, us) -> torch.Tensor:
+    """Share of the M heads' predictions (logit > 0) that equal u."""
+    pred = (apply_sequence(params, cfg, dsets) > 0).to(torch.float32)
+    return (pred == us).to(torch.float32).mean()
+
+
 def _train_core(cfg: AIPConfig, dsets, us, params, perms, generator, *,
                 epochs: int, batch_size: int, lr: float, window: int):
     """Stacked fit of A AIPs: dsets (A, N, T, d_in), us (A, N, T, M),

@@ -69,9 +69,13 @@ LAUNCHES = {"aip_step": 0, **{k: 0 for k in _HORIZON_COUNTERS},
             "flash_attention[wgmma]": 0, "flash_attention[f32]": 0}
 
 
+_launches_lock = threading.Lock()
+
+
 def reset_launches():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _launches_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 _P = ctypes.c_void_p
@@ -253,8 +257,9 @@ def launch(entry: str, counters, device, *args):
             err = getattr(lib, entry)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{entry} failed to launch: CUDA error {err}")
-    for name in (counters,) if isinstance(counters, str) else counters:
-        LAUNCHES[name] += 1
+    with _launches_lock:    # the async fleet's worker threads launch too
+        for name in (counters,) if isinstance(counters, str) else counters:
+            LAUNCHES[name] += 1
 
 
 @dataclasses.dataclass(frozen=True)

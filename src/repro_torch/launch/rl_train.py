@@ -1,35 +1,60 @@
 """RL training entry point of the port — the paper's workflow end to end
-(counterpart of ``repro/launch/rl_train.py``, integrated trainer only).
+(counterpart of ``repro/launch/rl_train.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.rl_train --domain traffic \
         --simulator ials [--aip gru] [--n-agents 25] [--device cuda]
     PYTHONPATH=src python -m repro_torch.launch.rl_train --domain warehouse \
-        --simulator ials [--aip fnn] [--n-agents 36] [--vanish-after 8]
+        --simulator f-ials --fixed-marginal 0.1 --stateless-f-ials
+    PYTHONPATH=src python -m repro_torch.launch.rl_train --ckpt-dir D \
+        [--save-every 5] [--n-workers 2 [--async-fleet]]
 
 Pipeline (paper §5.1):
   1. collect a (d_t, u_t) dataset from the GS under a random policy;
-  2. fit the AIP (one per agent; stacked when ``--n-agents`` > 1);
-  3. train PPO on the chosen simulator (``ials`` or ``gs``) — on the IALS
-     every iteration's acting horizon is one ``policy_rollout`` kernel;
+  2. build the simulator PPO trains on (``--simulator``): ``gs``; ``ials``
+     (the AIP fitted, one per agent, stacked when ``--n-agents`` > 1);
+     ``untrained-ials`` (the AIP at its random init, its XE on 8
+     episodes reported); ``f-ials`` (u_t from a fixed marginal: the
+     empirical one, per agent when A > 1, or ``--fixed-marginal p``;
+     ``--stateless-f-ials`` leaves the ignored AIP state frozen);
+  3. train PPO on it — on the IALS and the untrained IALS every
+     iteration's acting horizon is one ``policy_rollout`` kernel; the
+     F-IALS runs PPO's plain loop, as in the JAX package;
   4. evaluate on the GS every ``--eval-every`` iterations.
 
 Domains (paper §5.2-5.4): the traffic grid (policy on one observation,
 the FNN AIP by default) and the warehouse floor (policy on 8 stacked
 observations, the GRU AIP by default; ``--vanish-after k`` makes items
-vanish after k ticks, the finite-memory experiment). Prints one JSON row
-per iteration with the JAX entry point's field names (``iter``,
-``wallclock_s``, ``train_reward``, ``env_steps``,
+vanish after k ticks, the finite-memory experiment).
+
+Fault tolerance (``--ckpt-dir``): every generator is
+``repro_torch.stream`` of (seed, stream, position), so a checkpoint needs
+only the iteration index to rewind the randomness. The checkpoint holds
+``{"policy", "opt", "rs", "sim", "it"}`` with the JAX entry point's keys
+and leaf order (so a checkpoint either package wrote restores in the
+other); a run started again with the same command resumes from the
+latest committed one, skipping collection and the AIP fit, and finishes
+bitwise equal to the uninterrupted same-seed run. SIGTERM flushes a
+checkpoint at the next iteration boundary and exits cleanly.
+
+``--n-workers N`` (N >= 1) trains with the actor/learner fleet
+(``distributed/actor_learner.py``): N workers, one learner, the
+``--max-staleness`` drop policy, ``--kill-worker W:TICK`` /
+``--delay-batch W:TICK:N`` scheduled faults. The default deterministic
+schedule resumes bitwise; ``--async-fleet`` runs worker threads.
+
+Prints one JSON row per iteration with the JAX entry point's field names
+(``iter``, ``wallclock_s``, ``train_reward``, ``env_steps``,
 ``gs_eval_reward[_per_agent]``) plus the PPO ``loss`` and the iteration's
-wall time ``iter_s`` (ended by a device sync). Runs on the card unless
-``--device cpu``; without CUDA the default raises. Randomness comes from
-per-stream generators seeded from (seed, stream, position), the
-counterpart of the JAX entry point's ``fold_in`` streams (the numbers
-differ from the JAX package's). Not offered yet: ``--n-workers``,
-``--ckpt-dir``, and the untrained-ials / f-ials simulators.
+wall time ``iter_s`` (ended by a device sync), and returns the history
+with ``final_params_md5`` (the resume oracle), ``resumed_from`` and
+``preempted``. Runs on the card unless ``--device cpu``; without CUDA the
+default raises. The numbers differ from the JAX package's: its
+generators are threefry keys.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import time
 from pathlib import Path
@@ -38,8 +63,11 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, stream
+from repro_torch.checkpoint import ckpt
 from repro_torch.core import collect, engine, influence
+from repro_torch.distributed import actor_learner, fault_injection
+from repro_torch.distributed.fault_tolerance import TrainingGuard
 from repro_torch.envs.traffic import (TrafficConfig,
                                       make_batched_local_traffic_env,
                                       make_batched_multi_traffic_env,
@@ -49,18 +77,10 @@ from repro_torch.envs.warehouse import (WarehouseConfig,
                                         make_batched_multi_warehouse_env,
                                         make_batched_warehouse_env)
 from repro_torch.rl import ppo
+from repro_torch.tree import tree_leaves
 
 # generator stream tags (the JAX entry point's fold_in tags)
 _K_SIM, _K_POLICY, _K_ROLLOUT, _K_TRAIN, _K_EVAL = 0, 1, 2, 3, 4
-
-
-def stream(device, seed: int, tag: int, position: int = 0):
-    """A generator on ``device`` seeded by (seed, tag, position)."""
-    s = int(np.random.SeedSequence([seed, tag, position]).generate_state(
-        1, dtype=np.uint64)[0] >> 1)
-    g = torch.Generator(device=device)
-    g.manual_seed(s)
-    return g
 
 
 def grid_agents(grid: int, n_agents: int):
@@ -95,31 +115,100 @@ def build_domain(domain: str, vanish_after: int = 0, n_agents: int = 1,
 
 
 class SimBuild(NamedTuple):
-    """``train(gen) -> (sim_params, diag)`` fits the simulator;
-    ``make_env(sim_params)`` builds PPO's environment from it."""
+    """A simulator recipe split at the checkpoint boundary: ``template()``
+    is a cheap pytree of the simulator's state with the right shapes (the
+    restore target), ``train(gen)`` makes the real one (collection and
+    the AIP fit: what a resume skips) -> (sim_params, diag), and
+    ``make_env(sim_params)`` builds PPO's environment from either."""
+    template: Callable
     train: Callable
     make_env: Callable
 
 
 def prepare_simulator(simulator: str, gs, ls, aip_kind: str, *,
-                      collect_episodes: int, ep_len: int,
-                      aip_epochs: int) -> SimBuild:
+                      collect_episodes: int, ep_len: int, aip_epochs: int,
+                      fixed_marginal=None, stateless_f_ials: bool = False,
+                      device="cuda") -> SimBuild:
+    """-> SimBuild on ``device``. ``stateless_f_ials`` makes the f-ials
+    simulator keep its (ignored) AIP state frozen instead of advancing
+    it every tick."""
     if simulator == "gs":
-        return SimBuild(train=lambda gen: ({}, {}), make_env=lambda p: gs)
-    if simulator != "ials":
-        raise NotImplementedError(f"simulator {simulator!r} is not ported")
+        return SimBuild(template=lambda: {}, train=lambda gen: ({}, {}),
+                        make_env=lambda p: gs)
+    if simulator not in ("ials", "untrained-ials", "f-ials"):
+        raise ValueError(f"unknown simulator {simulator!r}")
     A = gs.spec.n_agents
     acfg = influence.AIPConfig(
         kind=aip_kind, d_in=gs.spec.dset_dim, n_out=gs.spec.n_influence,
         hidden=64, stack=8 if aip_kind == "fnn" else 1)
 
+    def init_params(gen):
+        if A > 1:
+            return influence.init_aip_stacked(acfg, gen, A, device)
+        return influence.init_aip(acfg, gen, device)
+
+    def template_params():
+        return init_params(stream(device, 0, 0))
+
+    def agent_data(gen, n_eps):
+        data = collect.collect_dataset(gs, gen, n_episodes=n_eps,
+                                       ep_len=ep_len)
+        return collect.per_agent(data) if A > 1 else data  # (A, N, T, ...)
+
+    def make_ials(p, **kw):
+        return engine.make_unified_ials(ls, p, acfg, n_agents=A, **kw)
+
+    if simulator == "untrained-ials":
+        @torch.no_grad()
+        def train(gen):
+            data = agent_data(gen, 8)
+            params = init_params(gen)
+            xent = (influence.xent_loss_per_agent(
+                params, acfg, data["d"], data["u"]).mean() if A > 1
+                else influence.xent_loss(params, acfg, data["d"], data["u"]))
+            return params, {"aip_xent": float(xent)}
+        return SimBuild(template=template_params, train=train,
+                        make_env=make_ials)
+
+    if simulator == "f-ials":
+        marg_shape = (A, gs.spec.n_influence) if A > 1 \
+            else (gs.spec.n_influence,)
+
+        @torch.no_grad()
+        def train(gen):
+            t0 = time.time()
+            data = agent_data(gen, collect_episodes)
+            if fixed_marginal is not None:
+                marg = torch.full(marg_shape, float(fixed_marginal),
+                                  dtype=torch.float32, device=device)
+            else:
+                marg = collect.empirical_marginal(data["u"],
+                                                  per_agent=A > 1)
+            params = init_params(gen)
+            # XE of the fixed marginal on the collected data
+            p = torch.clamp(marg, 1e-6, 1 - 1e-6)
+            if A > 1:
+                p = p[:, None, None, :]         # over (A, N, T, M)
+            u = data["u"]
+            xe = -(u * torch.log(p) + (1 - u) * torch.log(1 - p))
+            diag = {"aip_xent": float(xe.sum(-1).mean()),
+                    "aip_train_time_s": time.time() - t0}
+            return {"aip": params, "marg": marg}, diag
+        return SimBuild(
+            template=lambda: {"aip": template_params(),
+                              "marg": torch.zeros(marg_shape,
+                                                  dtype=torch.float32,
+                                                  device=device)},
+            train=train,
+            make_env=lambda p: make_ials(p["aip"],
+                                         fixed_marginal_vec=p["marg"],
+                                         stateless=stateless_f_ials))
+
     def train(gen):
         t0 = time.time()
-        data = collect.collect_dataset(gs, gen, n_episodes=collect_episodes,
-                                       ep_len=ep_len)
+        data = agent_data(gen, collect_episodes)
         diag = {}
         if A > 1:
-            data = collect.per_agent(data)          # (A, N, T, ...)
             params, m = influence.train_aip_batched(
                 acfg, data["d"], data["u"], gen, epochs=aip_epochs)
             diag["aip_xent_per_agent"] = m["final_loss_per_agent"]
@@ -129,21 +218,58 @@ def prepare_simulator(simulator: str, gs, ls, aip_kind: str, *,
         diag["aip_xent"] = m["final_loss"]
         diag["aip_train_time_s"] = time.time() - t0
         return params, diag
+    return SimBuild(template=template_params, train=train,
+                    make_env=make_ials)
 
-    return SimBuild(train=train, make_env=lambda p: engine.make_unified_ials(
-        ls, p, acfg, n_agents=A))
+
+def build_simulator(simulator: str, gs, ls, aip_kind: str,
+                    generator: torch.Generator, *, collect_episodes: int,
+                    ep_len: int, aip_epochs: int, fixed_marginal=None,
+                    stateless_f_ials: bool = False):
+    """-> (env for PPO, the AIP's diagnostics): ``prepare_simulator``
+    trained in one go, for callers that never resume."""
+    sb = prepare_simulator(
+        simulator, gs, ls, aip_kind, collect_episodes=collect_episodes,
+        ep_len=ep_len, aip_epochs=aip_epochs, fixed_marginal=fixed_marginal,
+        stateless_f_ials=stateless_f_ials, device=generator.device)
+    sim_params, diag = sb.train(generator)
+    return sb.make_env(sim_params), diag
 
 
-def run_training(args):
-    """The training run, callable in-process."""
+def params_md5(tree) -> str:
+    """Digest of every leaf's raw bytes in tree order: two runs agree iff
+    their params are bitwise equal (the resume oracle)."""
+    h = hashlib.md5()
+    for leaf in tree_leaves(tree):
+        h.update(np.ascontiguousarray(leaf.detach().cpu().numpy())
+                 .tobytes())
+    return h.hexdigest()
+
+
+def _parse_faults(kills, delays):
+    events = []
+    for s in kills or []:
+        w, t = (int(x) for x in s.split(":"))
+        events.append(fault_injection.KillWorker(worker_id=w, at_tick=t))
+    for s in delays or []:
+        w, t, n = (int(x) for x in s.split(":"))
+        events.append(fault_injection.DelayBatch(worker_id=w, at_tick=t,
+                                                 ticks=n))
+    return events
+
+
+def setup(args):
+    """-> (device, gs, SimBuild, PPOConfig) of a parsed command line: what
+    both trainers start from."""
     dev = resolve_device(args.device)
     gs, ls, frame_stack = build_domain(args.domain, args.vanish_after,
                                        args.n_agents, dev)
     aip_kind = args.aip or ("gru" if args.domain == "warehouse" else "fnn")
-    sb = prepare_simulator(args.simulator, gs, ls, aip_kind,
-                           collect_episodes=args.collect_episodes,
-                           ep_len=args.episode_len,
-                           aip_epochs=args.aip_epochs)
+    sb = prepare_simulator(
+        args.simulator, gs, ls, aip_kind,
+        collect_episodes=args.collect_episodes, ep_len=args.episode_len,
+        aip_epochs=args.aip_epochs, fixed_marginal=args.fixed_marginal,
+        stateless_f_ials=args.stateless_f_ials, device=dev)
     pcfg = ppo.PPOConfig(obs_dim=gs.spec.obs_dim,
                          n_actions=gs.spec.n_actions,
                          frame_stack=frame_stack, n_envs=args.n_envs,
@@ -151,53 +277,238 @@ def run_training(args):
                          episode_len=args.episode_len,
                          n_agents=args.n_agents,
                          fast_gates=not args.exact_policy_tanh)
-    t_start = time.time()
-    sim_params, diag = sb.train(stream(dev, args.seed, _K_SIM))
+    return dev, gs, sb, pcfg
+
+
+def fresh_state(args, dev, sb: SimBuild, pcfg, opt):
+    """A run from its start: the simulator made (collection, AIP fit), the
+    policy, optimizer and rollout state at their seeded init -> (sim
+    params, diag, env, params, opt_state, rollout state)."""
+    sim_params, diag = sb.train(sim_stream(args, dev))
     env = sb.make_env(sim_params)
     params = ppo.init_policy(pcfg, stream(dev, args.seed, _K_POLICY))
-    opt = ppo.make_optimizer(pcfg)
-    ost = opt.init(params)
-    iteration = ppo.train_iteration_fn(env, pcfg, opt)
     rs = ppo.init_rollout_state(env, pcfg, stream(dev, args.seed,
                                                   _K_ROLLOUT))
+    return sim_params, diag, env, params, opt.init(params), rs
+
+
+def sim_stream(args, dev) -> torch.Generator:
+    """The simulator's generator: its collection, then its AIP."""
+    return stream(dev, args.seed, _K_SIM)
+
+
+def train_stream(args, dev, it: int) -> torch.Generator:
+    """Iteration ``it``'s generator: its rollout, then its learner."""
+    return stream(dev, args.seed, _K_TRAIN, it)
+
+
+def fleet_config(args) -> actor_learner.FleetConfig:
+    return actor_learner.FleetConfig(
+        n_workers=args.n_workers, queue_size=args.queue_size,
+        max_staleness=args.max_staleness, publish_every=args.publish_every,
+        deterministic=not args.async_fleet, seed=args.seed)
+
+
+def run_training(args):
+    """The training run, callable in-process (the resume tests compare a
+    stopped and resumed run against an uninterrupted one this way)."""
+    dev, gs, sb, pcfg = setup(args)
+    t_start = time.time()
+    guard = (TrainingGuard(args.ckpt_dir, save_every=args.save_every)
+             if args.ckpt_dir else None)
+    resume_step = (ckpt.latest_step(args.ckpt_dir)
+                   if args.ckpt_dir else None)
+
+    def eval_row(row, params, it):
+        ke = stream(dev, args.seed, _K_EVAL, it)
+        if args.n_agents > 1:
+            per = ppo.evaluate(gs, pcfg, params, ke, n_episodes=8,
+                               per_agent=True)
+            row["gs_eval_reward_per_agent"] = [round(float(r), 4)
+                                               for r in per]
+            row["gs_eval_reward"] = float(per.mean())
+        else:
+            row["gs_eval_reward"] = ppo.evaluate(gs, pcfg, params, ke,
+                                                 n_episodes=8)
+        return row
+
+    try:
+        run = _run_fleet if args.n_workers > 0 else _run_integrated
+        out = run(args, dev, sb, pcfg, guard, resume_step, eval_row,
+                  t_start)
+    finally:
+        if guard is not None:
+            guard.uninstall()
+    out["device"] = str(dev)
+    if args.out:
+        Path(args.out).write_text(json.dumps(out, indent=1))
+    return out
+
+
+def _run_integrated(args, dev, sb: SimBuild, pcfg, guard, resume_step,
+                    eval_row, t_start):
+    """One process: a train iteration a step, position-keyed generators,
+    whole-state checkpoints."""
+    opt = ppo.make_optimizer(pcfg)
+    start_it = 0
+    if resume_step is not None:
+        # restore into cheap templates first, THEN build the engine from
+        # the restored simulator state (the engine holds its AIP)
+        t0 = time.time()
+        g0 = stream(dev, 0, 0)
+        env_t = sb.make_env(sb.template())
+        policy_t = ppo.init_policy(pcfg, g0)
+        template = {"policy": policy_t, "opt": opt.init(policy_t),
+                    "rs": ppo.init_rollout_state(env_t, pcfg, g0),
+                    "sim": sb.template(),
+                    "it": torch.tensor(0, dtype=torch.int32)}
+        # (copies from pageable host memory: done when restore returns)
+        tree, step, _ = ckpt.restore(args.ckpt_dir, template, resume_step)
+        sim_params = tree["sim"]
+        diag = {"resumed_from": step, "restore_s": time.time() - t0}
+        env = sb.make_env(sim_params)
+        params, ost, rs = tree["policy"], tree["opt"], tree["rs"]
+        start_it = int(tree["it"])
+        print(f"resumed from iteration {start_it}", flush=True)
+    else:
+        sim_params, diag, env, params, ost, rs = fresh_state(
+            args, dev, sb, pcfg, opt)
+    iteration = ppo.train_iteration_fn(env, pcfg, opt)
+
     steps_per_iter = args.n_envs * args.rollout_len * max(args.n_agents, 1)
     history = []
-    for it in range(args.iterations):
+    preempted = False
+    for it in range(start_it, args.iterations):
         t_it = time.time()
-        params, ost, rs, m = iteration(
-            params, ost, rs, stream(dev, args.seed, _K_TRAIN, it))
+        params, ost, rs, m = iteration(params, ost, rs,
+                                       train_stream(args, dev, it))
         row = {"iter": it, "wallclock_s": round(time.time() - t_start, 2),
                "train_reward": float(m["mean_reward"]),
                "loss": float(m["loss"]),
                "env_steps": (it + 1) * steps_per_iter,
                "iter_s": time.time() - t_it}
         if it % args.eval_every == 0 or it == args.iterations - 1:
-            ke = stream(dev, args.seed, _K_EVAL, it)
-            if args.n_agents > 1:
-                per = ppo.evaluate(gs, pcfg, params, ke, n_episodes=8,
-                                   per_agent=True)
-                row["gs_eval_reward_per_agent"] = [round(float(r), 4)
-                                                   for r in per]
-                row["gs_eval_reward"] = float(per.mean())
-            else:
-                row["gs_eval_reward"] = ppo.evaluate(gs, pcfg, params, ke,
-                                                     n_episodes=8)
+            row = eval_row(row, params, it)
         history.append(row)
         print(json.dumps(row), flush=True)
-    out = {"args": vars(args), "diag": diag, "history": history,
-           "device": str(dev),
-           "total_wallclock_s": round(time.time() - t_start, 2)}
-    if args.out:
-        Path(args.out).write_text(json.dumps(out, indent=1))
-    return out
+        if guard is not None:
+            # read the flag BEFORE maybe_save: a successful forced save
+            # clears it
+            was_preempted = guard.preempted
+            t_s = time.time()
+            saved = guard.maybe_save(
+                it + 1,
+                {"policy": params, "opt": ost, "rs": rs, "sim": sim_params,
+                 "it": torch.tensor(it + 1, dtype=torch.int32)},
+                metadata={"mode": "integrated", "iterations_done": it + 1})
+            if saved:
+                row["ckpt_save_s"] = time.time() - t_s
+            if was_preempted and saved:
+                print("preempted: RL checkpoint flushed, exiting cleanly",
+                      flush=True)
+                preempted = True
+                break
+
+    return {"args": vars(args), "diag": diag, "history": history,
+            "preempted": preempted, "resumed_from": start_it,
+            "final_params_md5": params_md5(params),
+            "total_wallclock_s": round(time.time() - t_start, 2)}
+
+
+def _run_fleet(args, dev, sb: SimBuild, pcfg, guard, resume_step,
+               eval_row, t_start):
+    """N workers -> bounded queue -> one learner, in chunks of
+    ``eval_every`` updates (a chunk's end has no batch in flight: that is
+    where checkpoints are taken)."""
+    fcfg = fleet_config(args)
+    events = _parse_faults(args.kill_worker, args.delay_batch)
+    injector = (fault_injection.FaultInjector(
+        fault_injection.FaultPlan.of(*events)) if events else None)
+
+    diag = {}
+    if resume_step is not None:
+        env_t = sb.make_env(sb.template())
+        trainer_t = actor_learner.ActorLearnerTrainer(env_t, pcfg, fcfg,
+                                                      device=dev)
+        state, sim_params, start_v = actor_learner.resume_fleet(
+            args.ckpt_dir, trainer_t, extra_template=sb.template())
+        diag["resumed_from"] = start_v
+        print(f"resumed fleet at learner version {start_v}", flush=True)
+    else:
+        sim_params, diag = sb.train(sim_stream(args, dev))
+        state = None
+    env = sb.make_env(sim_params)
+    trainer = actor_learner.ActorLearnerTrainer(env, pcfg, fcfg,
+                                                injector=injector,
+                                                device=dev)
+    if state is None:
+        state = trainer.init_state()
+
+    # wallclock_s: the seconds in ``trainer.run`` (acting and learning,
+    # without the evaluations)
+    stats = {"produced": 0, "updates": 0, "dropped": 0, "delayed": 0,
+             "wallclock_s": 0.0}
+    history = []
+    preempted = False
+    v = int(state.version)
+    while v < args.iterations:
+        chunk = min(args.eval_every, args.iterations - v)
+        should_stop = (lambda: guard.preempted) if guard is not None \
+            else None
+        state, info = trainer.run(state, chunk, should_stop=should_stop)
+        for k in stats:
+            stats[k] += info[k]
+        v = int(state.version)
+        for h in info["history"]:
+            row = {"iter": h["version"], "worker": h["worker"],
+                   "staleness": h["staleness"], "dropped": h["dropped"]}
+            if not h["dropped"]:
+                row["train_reward"] = h["mean_reward"]
+                row["loss"] = h["loss"]
+            history.append(row)
+        row = eval_row({"iter": v,
+                        "wallclock_s": round(time.time() - t_start, 2)},
+                       state.params, v)
+        history.append(row)
+        print(json.dumps(row), flush=True)
+        if guard is not None:
+            was_preempted = guard.preempted
+            saved = guard.maybe_save(
+                v, {"fleet": state, "extra": sim_params},
+                metadata={"mode": "fleet", **trainer.save_metadata(state)})
+            if was_preempted and saved:
+                print("preempted: fleet checkpoint flushed, exiting cleanly",
+                      flush=True)
+                preempted = True
+                break
+    if guard is not None and not preempted:
+        guard.maybe_save(v, {"fleet": state, "extra": sim_params},
+                         force=True,
+                         metadata={"mode": "fleet",
+                                   **trainer.save_metadata(state)})
+    if injector is not None:
+        stats["kills"] = injector.kills_applied
+        stats["faults_exhausted"] = injector.exhausted
+
+    return {"args": vars(args), "diag": diag, "history": history,
+            "fleet": stats, "preempted": preempted,
+            "final_params_md5": params_md5(state.params),
+            "total_wallclock_s": round(time.time() - t_start, 2)}
 
 
 def parse_args(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--domain", choices=["traffic", "warehouse"],
                     default="traffic")
-    ap.add_argument("--simulator", default="ials", choices=["gs", "ials"])
+    ap.add_argument("--simulator", default="ials",
+                    choices=["gs", "ials", "untrained-ials", "f-ials"])
     ap.add_argument("--aip", default=None, choices=[None, "gru", "fnn"])
+    ap.add_argument("--fixed-marginal", type=float, default=None,
+                    help="f-ials: pin every source's marginal to this p "
+                         "(default: the empirical marginal)")
+    ap.add_argument("--stateless-f-ials", action="store_true",
+                    help="f-ials only: freeze the ignored AIP state "
+                         "instead of advancing it every tick")
     ap.add_argument("--exact-policy-tanh", action="store_true",
                     help="exact tanh in the policy net instead of the "
                          "rational gates")
@@ -217,6 +528,32 @@ def parse_args(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; cuda without a card "
                          "raises")
+    # fault tolerance and the actor/learner fleet
+    ap.add_argument("--ckpt-dir", default="",
+                    help="checkpoint here and resume from the latest "
+                         "committed checkpoint (bitwise on the "
+                         "deterministic paths)")
+    ap.add_argument("--save-every", type=int, default=5,
+                    help="checkpoint every N learner iterations (SIGTERM "
+                         "always forces a flush)")
+    ap.add_argument("--n-workers", type=int, default=0,
+                    help="rollout workers of the actor/learner fleet (0: "
+                         "the integrated trainer)")
+    ap.add_argument("--max-staleness", type=int, default=4,
+                    help="drop batches staler than this many policy "
+                         "versions")
+    ap.add_argument("--publish-every", type=int, default=1,
+                    help="learner updates between parameter publications")
+    ap.add_argument("--queue-size", type=int, default=8)
+    ap.add_argument("--async-fleet", action="store_true",
+                    help="free-running worker threads (throughput mode; "
+                         "no bitwise-resume claim)")
+    ap.add_argument("--kill-worker", action="append", metavar="W:TICK",
+                    help="kill and restart worker W before its produce at "
+                         "fleet tick TICK (repeatable)")
+    ap.add_argument("--delay-batch", action="append", metavar="W:TICK:N",
+                    help="hold the batch worker W produces at TICK for N "
+                         "ticks (drives it past --max-staleness)")
     return ap.parse_args(argv)
 
 

@@ -24,7 +24,7 @@ from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
 class AdamWState(NamedTuple):
-    step: int
+    step: torch.Tensor     # () int32 on the host, as the reference's
     mu: Any
     nu: Any
 
@@ -63,14 +63,15 @@ def adamw(lr: float, *, b1: float = 0.9, b2: float = 0.95,
 
     def init(params):
         zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)
-        return AdamWState(step=0, mu=tree_map(zeros, params),
+        return AdamWState(step=torch.zeros((), dtype=torch.int32),
+                          mu=tree_map(zeros, params),
                           nu=tree_map(zeros, params))
 
     @torch.no_grad()
     def update(grads, state: AdamWState, params):
         grads, gnorm = clip_by_global_norm(grads, clip_norm,
                                            per_agent=per_agent)
-        step = state.step + 1
+        step = int(state.step) + 1
         # bias corrections in f32, as the reference computes them
         c1 = 1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32), step)
         c2 = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32), step)
@@ -87,7 +88,8 @@ def adamw(lr: float, *, b1: float = 0.9, b2: float = 0.95,
             new_m.append(m2)
             new_v.append(v2)
         return (tree_unflatten(params, new_p),
-                AdamWState(step=step, mu=tree_unflatten(params, new_m),
+                AdamWState(step=torch.tensor(step, dtype=torch.int32),
+                           mu=tree_unflatten(params, new_m),
                            nu=tree_unflatten(params, new_v)),
                 {"grad_norm": gnorm, "lr": lr})
 

@@ -1,9 +1,9 @@
 """The port stands alone: importing every ``repro_torch`` module leaves
 ``jax`` and ``repro`` out of ``sys.modules``; no module of
-``src/repro_torch``, not ``chip_smoke.py`` and not the five ablation tools
-and the profiler check that run beside it on the card import them; and without
-CUDA the entry points refuse the default device instead of carrying on
-on the CPU."""
+``src/repro_torch``, not ``chip_smoke.py`` and not the five ablation tools,
+the profiler check, the fault smoke and the iteration profile that run
+beside it on the card import them; and without CUDA the entry points
+refuse the default device instead of carrying on on the CPU."""
 import ast
 import subprocess
 import sys
@@ -45,7 +45,8 @@ def test_importing_the_port_pulls_in_neither_jax_nor_repro():
     + ["chip_smoke.py", "tools/flash_tc_ablation.py",
        "tools/flash_f32_ablation.py", "tools/serve_ablation.py",
        "tools/rollout_ablation.py", "tools/gru_ablation.py",
-       "tools/profile_count.py"]))
+       "tools/profile_count.py", "tools/torch_fault_smoke.py",
+       "tools/iteration_profile.py"]))
 def test_no_source_imports_jax_or_repro(path):
     tree = ast.parse((ROOT / path).read_text())
     for node in ast.walk(tree):

@@ -13,8 +13,10 @@ Phases, each printing its result and time on its own line:
      path's shapes and at larger ones, resets inside the horizon; then
      the four horizon kernels with the warehouse functor (spawn noise, 8
      stacked frames, the d-set read after the action) at A = 36 and 1,
-     B = 16, T = 128, and two ``vanish_after = 8`` cases. Lanes are
-     independent: a lane passes when every leaf matches (integer leaves
+     B = 16, T = 128, and two ``vanish_after = 8`` cases; and
+     ``ops.ials_rollout`` (the ``aip_rollout`` kernel:
+     ``aip_rollout_multi``'s at one agent, unstacked weights) at traffic
+     A = 1, B = 16 and 512. Lanes are independent: a lane passes when every leaf matches (integer leaves
      exactly, float leaves within ATOL); a lane whose first mismatch
      follows a decision the plain version took within FLIP_EPS of its
      threshold counts as a flip; any other mismatch, or flips in more than
@@ -69,6 +71,27 @@ Phases, each printing its result and time on its own line:
      B = 512 and A = 25, B = 512 (where the step's tile is 8 lanes and
      the rollout's 32, on the same K-parts), warehouse A = 36 and 1,
      B = 16;
+  4b. the scalar protocol and the loop baseline, counters zeroed before
+     each run and read after it: (a) the path ``ops.ials_rollout`` at
+     traffic, GRU hidden 64, B = 16 and 512, T = 128: one ``aip_rollout``
+     launch a call (the JSON line's ``launches``), each result held
+     against ``ref.ials_rollout_ref`` by the lane and flip rule; (b) ``batch_local_env`` /
+     ``batch_env`` over the scalar LS (traffic; the warehouse at
+     ``vanish_after`` 0 and 8) and multi-agent GS (traffic A = 25,
+     warehouse A = 36) against the native batched envs, 32 ticks from the
+     same state, actions, u and noise: integer leaves exactly, floats
+     within ATOL; (c) the rows of ``benchmarks/multi_agent_throughput.py``
+     (gs, gs-multi, ials-1, multi-ials, loop-ials) at 16 envs x 128 ticks,
+     traffic A = 25 (FNN AIP, stack 8) and the warehouse A = 36 (GRU),
+     AIPs random from a seed, agent-steps/s each: multi-ials launches one
+     ``fnn_rollout`` / ``aip_rollout_multi[warehouse]`` a horizon,
+     loop-ials (a Python loop over A vmapped scalar IALS a tick) none, and
+     ``batched_over_loop`` must exceed 5 in both domains; (d)
+     ``engine.make_batched_ials`` under ``ppo.make_train_iteration``, one
+     ``policy_rollout[fnn]`` launch an iteration, and ``ppo.make_evaluator``
+     on the scalar GS; (e) ``examples/torch_quickstart.py`` in-process at
+     the reference's sizes: finite losses, GS evaluation in [0, 1], its
+     wall time logged;
   5. the serving kernels against their plain versions: ``serve_forward``
      and ``serve_forward_multi`` (N = 1 and 4) at the traffic (D = 41,
      2 actions) and warehouse (D = 296, 5 actions) widths, hidden 128,
@@ -169,6 +192,7 @@ BF16_RTOL = 2.0 ** -7
 REPLACES = {
     "aip_step": "src/repro/kernels/aip_step.py:150",
     "aip_rollout_multi": "src/repro/kernels/aip_step.py:476",
+    "aip_rollout": "src/repro/kernels/aip_step.py:543",
     "fnn_rollout": "src/repro/kernels/aip_step.py:514",
     "policy_rollout[fnn]": "src/repro/kernels/aip_step.py:745",
     "policy_rollout[gru]": "src/repro/kernels/aip_step.py:745",
@@ -192,6 +216,7 @@ PATHS = {"serve_forward": "policy_serve", "serve_forward_multi":
          "policy_rollout[gru]": "rl_train",
          "policy_rollout[fnn][warehouse]": "rl_train --domain warehouse",
          "policy_rollout[gru][warehouse]": "rl_train --domain warehouse",
+         "aip_rollout": "kernels.ops.ials_rollout",
          "gru_sequence": "kernels.ops",
          "rmsnorm": "kernels.ops", "flash_attention": "kernels.ops",
          "flash_attention[f32]": "kernels.ops"}
@@ -834,6 +859,9 @@ def phase_kernels(dev):
                                            16, 128, 14, dev, True, True)
     recs["policy_rollout[gru]"] = run_case("policy_rollout[gru]", "gru", 25,
                                            16, 128, 15, dev, True, True)
+    # the single-agent horizon (ops.ials_rollout, row 2's kernel at A = 1)
+    recs["aip_rollout"] = run_ials_rollout_case(16, 16, dev)
+    run_ials_rollout_case(512, 17, dev)
     # ... and larger ones, with resets inside the horizon (timed, printed)
     check_aip_step(1, 512, 21, dev)
     check_aip_step(25, 512, 22, dev)
@@ -1235,6 +1263,377 @@ def phase_engine(dev):
             "fnn_rollout[warehouse]": counts["fnn_rollout[warehouse]"],
             "aip_rollout_multi[warehouse]":
                 counts["aip_rollout_multi[warehouse]"]}
+
+
+# ---------------------------------------------------------------------------
+# the scalar protocol and the loop baseline (phase 4b)
+# ---------------------------------------------------------------------------
+
+# phase 4b's widths: the loop baseline at benchmarks/multi_agent_throughput
+# .py's full size, every region an agent
+LOOP_ENVS, LOOP_T = 16, 128
+LOOP_DOMAINS = {"traffic": ("fnn", 8, 25), "warehouse": ("gru", 1, 36)}
+MIN_LOOP_SPEEDUP = 5.0     # the reference's bar for batched_over_loop
+
+
+def ials_rollout_call(case, plain=False, trace=None):
+    """``ops.ials_rollout`` (the ``aip_rollout`` kernel) on ``case``'s
+    inputs with its one AIP's unstacked weights, or its plain version
+    ``ref.ials_rollout_ref`` on the card."""
+    from repro_torch.kernels import ops, ref
+    args = (case.io.ls, case.s0, *(w[0] for w in case.aw), case.actions,
+            case.bits, case.io.noise)
+    if plain:
+        return ref.ials_rollout_ref(*args, tick_fn=case.io.tick_fn,
+                                    dset_fn=case.io.dset_fn, trace=trace)
+    return ops.ials_rollout(*args, tick_fn=case.io.tick_fn,
+                            dset_fn=case.io.dset_fn,
+                            domain=case.ls_env.kernel_domain)
+
+
+def check_ials_rollout(case, name, out=None):
+    """``out`` (a kernel call's result; made here when None) against the
+    plain version, by the lane and flip rule -> (flips, max error)."""
+    import torch
+    k_ls, k_h, k_r = ials_rollout_call(case) if out is None else out
+    torch.cuda.synchronize()
+    trace = {}
+    p_ls, p_h, p_r = ials_rollout_call(case, plain=True, trace=trace)
+    return compare_lanes(
+        name, [(k_r, p_r, False)],
+        [(k, p, True) for k, p in zip(k_ls, p_ls)] + [(k_h, p_h, False)],
+        torch.stack(trace["aip"]), case.T, case.B)
+
+
+def run_ials_rollout_case(B, seed, dev):
+    """``ops.ials_rollout`` at traffic, GRU hidden 64, A = 1, B lanes,
+    T = 128 against its plain version, and timed -> its record."""
+    case = Case("gru", 1, B, 128, seed, dev)
+    name = f"aip_rollout A=1 B={B} T=128"
+    flips, err = check_ials_rollout(case, name)
+
+    def call(plain=False):
+        return ials_rollout_call(case, plain)
+    rec = dict(max_abs_err=err, flips=flips,
+               plan=rollout_plan_text(case, False), ms=time_cuda(call),
+               device_ms=device_ms(call, kernel="horizon_kernel"),
+               plain_ms=time_cuda(lambda: call(True), reps=3, warmup=1),
+               flops=case.flops_per_lane_tick(False) * B * 128,
+               bytes=nbytes((case.io.ls, case.io.noise, case.s0,
+                             [w[0] for w in case.aw], case.bits,
+                             case.actions), call()))
+    log(f"[kernel] {name}: lanes {B}, flips {flips}, max err {err:.3g}, ms "
+        f"{rec['ms']:.3f} (device {rec['device_ms']}), plain ms "
+        f"{rec['plain_ms']:.3f}; plan {rec['plan']}")
+    return rec
+
+
+def _ials_rollout_path(dev):
+    """(a): the path ``ops.ials_rollout`` at traffic, GRU hidden 64,
+    B = 16 and 512, T = 128, counters zeroed before each call and read
+    after it (one ``aip_rollout`` launch, nothing else), each result held
+    against the plain version -> launches on the path."""
+    import torch
+    from repro_torch.kernels import aip_step as cuda
+    total = 0
+    for B, seed in ((16, 150), (512, 151)):
+        case = Case("gru", 1, B, 128, seed, dev)
+        cuda.reset_launches()
+        out = ials_rollout_call(case)
+        torch.cuda.synchronize()
+        counts = nonzero(cuda.LAUNCHES)
+        if counts != {"aip_rollout": 1, "aip_rollout[traffic]": 1}:
+            raise AssertionError(f"ops.ials_rollout B={B}: launches "
+                                 f"{counts}, not one aip_rollout")
+        total += counts["aip_rollout"]
+        flips, err = check_ials_rollout(case, f"ops.ials_rollout B={B}",
+                                        out)
+        log(f"[scalar] ops.ials_rollout A=1 B={B} T=128: launches "
+            f"{counts}, flips {flips}, max err {err:.3g}")
+    return total
+
+
+def _adapters(dev, ticks=32, B=16):
+    """(b): ``batch_local_env`` / ``batch_env`` over the scalar envs
+    against the native batched ones from the same state, actions, u and
+    noise: integer and bool leaves exactly, floats within ATOL."""
+    import torch
+    from repro_torch.envs import api
+    from repro_torch.envs import traffic as tr
+    from repro_torch.envs import warehouse as wh
+    from repro_torch.tree import tree_leaves
+    g = torch.Generator(device=dev)
+    g.manual_seed(160)
+    pairs = [("LS traffic", api.batch_local_env(
+                 tr.make_local_traffic_env(tr.TrafficConfig(), dev)),
+              tr.make_batched_local_traffic_env(tr.TrafficConfig(), dev))]
+    for va in (0, 8):
+        cfg = wh.WarehouseConfig(vanish_after=va)
+        pairs.append((f"LS warehouse vanish_after={va}",
+                      api.batch_local_env(wh.make_local_warehouse_env(cfg,
+                                                                      dev)),
+                      wh.make_batched_local_warehouse_env(cfg, dev)))
+    G, R = tr.TrafficConfig().grid, wh.WarehouseConfig().grid
+    t_ag = [(i, j) for i in range(G) for j in range(G)]
+    w_ag = [(i, j) for i in range(R) for j in range(R)]
+    pairs += [
+        ("GS traffic A=25", api.batch_env(tr.make_multi_traffic_env(
+            tr.TrafficConfig(), t_ag, dev)),
+         tr.make_batched_multi_traffic_env(tr.TrafficConfig(), t_ag, dev)),
+        ("GS warehouse A=36", api.batch_env(wh.make_multi_warehouse_env(
+            wh.WarehouseConfig(), w_ag, dev)),
+         wh.make_batched_multi_warehouse_env(wh.WarehouseConfig(), w_ag,
+                                             dev))]
+    for label, lifted, native in pairs:
+        local = isinstance(native, api.BatchedLocalEnv)
+        A = native.spec.n_agents
+        st = native.reset(g, B)
+        worst = 0.0
+        for t in range(ticks):
+            a = torch.randint(0, native.spec.n_actions,
+                              (B, A) if A > 1 else (B,), generator=g,
+                              device=dev)
+            nz = native.noise_fn(g, B)
+            if local:
+                u = (torch.rand((B, native.spec.n_influence), generator=g,
+                                device=dev) < 0.3).float()
+                out_n = native.step_det(st, a, u, nz)
+                out_l = lifted.step_det(st, a, u, nz)
+            else:
+                out_n = native.step_det(st, a, nz)
+                out_l = lifted.step_det(st, a, nz)
+            for x, y in zip(tree_leaves(out_l), tree_leaves(out_n)):
+                if x.shape != y.shape or x.dtype != y.dtype:
+                    raise AssertionError(f"{label} tick {t}: leaf "
+                                         f"{tuple(x.shape)} {x.dtype} "
+                                         f"against {tuple(y.shape)} "
+                                         f"{y.dtype}")
+                if x.dtype.is_floating_point:
+                    err = float((x - y).abs().max()) if x.numel() else 0.0
+                    worst = max(worst, err)
+                    ok = err <= ATOL
+                else:
+                    ok = torch.equal(x, y)
+                if not ok:
+                    raise AssertionError(f"{label}: the vmap adapter and "
+                                         f"the native env differ at tick "
+                                         f"{t}")
+            st = out_n[0]
+        log(f"[scalar] adapter {label}: {ticks} ticks at B={B} equal to "
+            f"the native env (integer leaves exact, max float err "
+            f"{worst:.3g})")
+
+
+def _rollout_fn(env, n_envs, T, seed, dev):
+    """A random-policy horizon through ``env_rollout`` (the native
+    ``rollout`` when the env has one, else a loop of ``step_det``),
+    reset and noise drawn from a seed -> fn() returning the reward sum."""
+    import torch
+    from repro_torch.envs import api
+    benv = api.as_batched(env)
+    A = env.spec.n_agents
+
+    def run():
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        st = benv.reset(g, n_envs)
+        acts = torch.randint(0, env.spec.n_actions,
+                             (T, n_envs) + ((A,) if A > 1 else ()),
+                             generator=g, device=dev)
+        _, rews = api.env_rollout(benv, st, acts, generator=g)
+        return rews.sum()
+    return run
+
+
+def loop_rollout(single_envs, n_envs, T, seed, dev):
+    """``benchmarks/multi_agent_throughput.py::loop_rollout`` on the port:
+    each agent's scalar IALS lifted by ``batch_env`` (one vmapped step), a
+    Python loop over the agents every tick -> fn() returning the reward
+    sum."""
+    import torch
+    from repro_torch.envs import api
+    benvs = [api.batch_env(e) for e in single_envs]
+
+    def run():
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        states = [b.reset(g, n_envs) for b in benvs]
+        total = 0.0
+        for _ in range(T):
+            a = torch.randint(0, single_envs[0].spec.n_actions, (n_envs,),
+                              generator=g, device=dev)
+            for i, b in enumerate(benvs):
+                states[i], _, r, _ = b.step(states[i], a, g)
+                total = total + r.sum()
+        return total
+    return run
+
+
+def _wall_s(fn, reps=1):
+    """Median wall seconds of ``fn()`` to its last device operation."""
+    import torch
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return statistics.median(out)
+
+
+def _loop_baseline(domain, dev):
+    """(c): the rows of ``benchmarks/multi_agent_throughput.py`` at full
+    width, agent-steps/s each, with the launches of multi-ials and
+    loop-ials -> (rates, speedup)."""
+    import torch
+    from repro_torch.core import engine, ials, influence
+    from repro_torch.envs import traffic as tr
+    from repro_torch.envs import warehouse as wh
+    from repro_torch.kernels import aip_step as cuda
+    from repro_torch.tree import tree_map
+    kind, stack, A = LOOP_DOMAINS[domain]
+    mod, cfg = ((tr, tr.TrafficConfig()) if domain == "traffic"
+                else (wh, wh.WarehouseConfig()))
+    G = cfg.grid
+    agents = [(i, j) for i in range(G) for j in range(G)]
+    assert len(agents) == A
+    gs = (mod.make_traffic_env(cfg, dev) if domain == "traffic"
+          else mod.make_warehouse_env(cfg, dev))
+    gs_multi = getattr(mod, f"make_batched_multi_{domain}_env")(cfg, agents,
+                                                                dev)
+    ls = getattr(mod, f"make_local_{domain}_env")(cfg, dev)
+    bls = getattr(mod, f"make_batched_local_{domain}_env")(cfg, dev)
+    acfg = influence.AIPConfig(kind=kind, d_in=ls.spec.dset_dim,
+                               n_out=ls.spec.n_influence, hidden=64,
+                               stack=stack)
+    g = torch.Generator(device=dev)
+    g.manual_seed(170)
+    aips = influence.init_aip_stacked(acfg, g, A, dev)
+    aip0 = tree_map(lambda l: l[0], aips)
+    n, T = LOOP_ENVS, LOOP_T
+    rows = {"gs": (gs, A), "gs-multi": (gs_multi, A),
+            "ials-1": (engine.make_unified_ials(bls, aip0, acfg), 1),
+            "multi-ials": (engine.make_unified_ials(bls, aips, acfg,
+                                                    n_agents=A), A)}
+    rates, launches = {}, {}
+    for name, (env, per_tick) in rows.items():
+        fn = _rollout_fn(env, n, T, 171, dev)
+        fn()                                     # warm-up
+        cuda.reset_launches()
+        s = _wall_s(fn, reps=3)
+        torch.cuda.synchronize()
+        launches[name] = nonzero(cuda.LAUNCHES)
+        rates[name] = n * T * per_tick / s
+        log(f"[loop] {domain} {name}: {rates[name]:.0f} agent-steps/s "
+            f"({s:.4f} s for {n} envs x {T} ticks x {per_tick} agents a "
+            f"tick); launches {launches[name]}")
+    singles = [ials.make_ials(ls, tree_map(lambda l, i=i: l[i], aips), acfg)
+               for i in range(A)]
+    loop_rollout(singles, n, 8, 172, dev)()     # warm-up, 8 ticks
+    cuda.reset_launches()
+    s = _wall_s(loop_rollout(singles, n, T, 172, dev))
+    launches["loop-ials"] = nonzero(cuda.LAUNCHES)
+    rates["loop-ials"] = n * T * A / s
+    log(f"[loop] {domain} loop-ials: {rates['loop-ials']:.0f} agent-steps/s "
+        f"({s:.3f} s: {T} ticks x {A} vmapped scalar IALS steps of {n} "
+        f"envs); launches {launches['loop-ials']}")
+    want = ("fnn_rollout[traffic]" if domain == "traffic"
+            else "aip_rollout_multi[warehouse]")
+    if launches["multi-ials"].get(want) != 3 or launches["loop-ials"]:
+        raise AssertionError(f"{domain}: multi-ials launched "
+                             f"{launches['multi-ials']} (want {want} once a "
+                             f"horizon), loop-ials {launches['loop-ials']} "
+                             f"(want none)")
+    speedup = rates["multi-ials"] / rates["loop-ials"]
+    log(f"[loop] {domain} batched_over_loop: speedup {speedup:.1f} "
+        f"(multi-ials over loop-ials, A={A}; acceptance > "
+        f"{MIN_LOOP_SPEEDUP:g}); the AIPs are random from a seed: the rate "
+        f"does not depend on training")
+    if not speedup > MIN_LOOP_SPEEDUP:
+        raise AssertionError(f"{domain} batched_over_loop speedup "
+                             f"{speedup:.2f} <= {MIN_LOOP_SPEEDUP}")
+    return rates, speedup
+
+
+def _batched_ials_training(dev):
+    """(d): ``engine.make_batched_ials`` (traffic FNN A = 1) under
+    ``ppo.make_train_iteration``, two iterations, one ``policy_rollout``
+    launch each; then ``ppo.make_evaluator`` on the scalar GS."""
+    import torch
+    from repro_torch.core import engine, influence
+    from repro_torch.envs import traffic as tr
+    from repro_torch.kernels import aip_step as cuda
+    from repro_torch.rl import ppo
+    g = torch.Generator(device=dev)
+    g.manual_seed(180)
+    bls = tr.make_batched_local_traffic_env(tr.TrafficConfig(), dev)
+    acfg = influence.AIPConfig(kind="fnn", d_in=40, n_out=4, hidden=64,
+                               stack=8)
+    env = engine.make_batched_ials(bls, influence.init_aip(acfg, g), acfg)
+    pcfg = ppo.PPOConfig(obs_dim=41, n_actions=2, n_envs=LOOP_ENVS,
+                         rollout_len=LOOP_T, episode_len=LOOP_T)
+    params = ppo.init_policy(pcfg, g)
+    opt, iteration = ppo.make_train_iteration(env, pcfg)
+    ost = opt.init(params)
+    rs = ppo.init_rollout_state(env, pcfg, g)
+    cuda.reset_launches()
+    losses = []
+    for _ in range(2):
+        params, ost, rs, m = iteration(params, ost, rs, g)
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    counts = nonzero(cuda.LAUNCHES)
+    if counts.get("policy_rollout_fnn") != 2 or not all(
+            math.isfinite(x) for x in losses):
+        raise AssertionError(f"make_batched_ials under make_train_iteration:"
+                             f" launches {counts}, losses {losses}")
+    gs = tr.make_traffic_env(tr.TrafficConfig(), dev)
+    evaluator = ppo.make_evaluator(gs, pcfg, n_episodes=8)
+    t0 = time.perf_counter()
+    r = float(evaluator(params, g).mean())
+    eval_s = time.perf_counter() - t0
+    if not 0.0 <= r <= 1.0:
+        raise AssertionError(f"make_evaluator on the scalar GS: {r}")
+    log(f"[scalar] make_batched_ials under make_train_iteration: losses "
+        f"{losses}, launches {counts}; make_evaluator on the scalar GS: "
+        f"reward {r:.4f} in {eval_s:.3f} s (8 episodes x {LOOP_T} ticks)")
+    return counts["policy_rollout_fnn"]
+
+
+def _quickstart():
+    """(e): ``examples/torch_quickstart.py`` in-process at the reference's
+    sizes on the card."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_quickstart", ROOT / "examples" / "torch_quickstart.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    out = mod.main(["--device", "cuda"])
+    r = out["gs_eval_reward"]
+    if not (all(math.isfinite(x) for x in out["losses"])
+            and 0.0 <= r <= 1.0):
+        raise AssertionError(f"quickstart: losses {out['losses']}, GS "
+                             f"evaluation {r}")
+    sec = out["seconds"]
+    log(f"[quickstart] {out['transitions']} transitions, AIP cross-entropy "
+        f"{out['aip_xent'][0]:.4f} -> {out['aip_xent'][1]:.4f}, final loss "
+        f"{out['losses'][-1]:.4f}, IALS reward {out['ials_rewards'][-1]:.4f}"
+        f", GS eval {r:.4f}; wall s: collect {sec['collect']:.2f}, AIP "
+        f"{sec['aip']:.2f}, PPO {sec['ppo']:.2f} (10 iterations), eval "
+        f"{sec['eval']:.2f}, total {sec['total']:.2f}")
+    return out
+
+
+@phase("the scalar protocol and the loop baseline")
+def phase_scalar(dev):
+    n = _ials_rollout_path(dev)
+    _adapters(dev)
+    for domain in LOOP_DOMAINS:
+        _loop_baseline(domain, dev)
+    _batched_ials_training(dev)
+    _quickstart()
+    return {"aip_rollout": n}
 
 
 # ---------------------------------------------------------------------------
@@ -1971,6 +2370,7 @@ def main():
     launches, main_runs = phase_main_path()
     phase_grid(dev, main_runs)
     launches.update(phase_engine(dev))
+    launches.update(phase_scalar(dev))
     recs.update(phase_serve_kernels(dev))
     launches.update(phase_serving_path(dev))
     recs.update(phase_layer_kernels(dev))

@@ -13,8 +13,10 @@ float32.
 ``to_torch`` covers the AIP (GRU and FNN, single and (A, ...) stacked),
 the policy, and the LS, GS, IALS and rollout states: NamedTuple states
 (``LocalTrafficState``, ``TrafficState``, ``LocalWarehouseState``,
-``WarehouseState``, ``IALSState``, ``RolloutState``) are rebuilt as the
-port's classes of the same name.
+``WarehouseState``, ``IALSState``, ``MultiIALSState``, ``RolloutState``)
+are rebuilt as the port's classes of the same name, batched or scalar
+(a scalar state's 0-d leaves stay 0-d), so the JAX scalar envs' states
+carry across into the port's scalar envs.
 This module never imports the JAX package.
 """
 from __future__ import annotations
@@ -24,13 +26,14 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core.engine import IALSState
+from repro_torch.core.ials import MultiIALSState
 from repro_torch.envs.traffic import LocalTrafficState, TrafficState
 from repro_torch.envs.warehouse import LocalWarehouseState, WarehouseState
 from repro_torch.rl.ppo import RolloutState
 
 _STATES = {cls.__name__: cls for cls in
            (LocalTrafficState, TrafficState, LocalWarehouseState,
-            WarehouseState, IALSState, RolloutState)}
+            WarehouseState, IALSState, MultiIALSState, RolloutState)}
 
 
 def array_to_torch(x, device="cuda") -> torch.Tensor:

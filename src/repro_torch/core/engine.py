@@ -27,6 +27,12 @@ kernel route requires a real AIP, so an F-IALS engine's ``rollout`` is a
 loop of its own ``step_det`` and ``policy_rollout`` is None (PPO runs its
 plain loop). The choice follows the configuration, never the device.
 
+``make_batched_ials`` / ``make_batched_multi_ials`` are the historical
+entry points, thin wrappers of ``make_unified_ials``. The reference's
+``use_horizon_kernel=`` and ``mesh=`` arguments are not taken: the route
+is chosen by the tensor's device (``kernels/ops.py``), and sharding is not
+ported.
+
 Lanes are agent-major (lane ``a*B + b``) at the kernel boundary, so each
 kernel block indexes its own agent's stacked weights; bool/int8 LS leaves
 travel as int32 (``envs.api.kernel_codec``). The episode-reset schedule
@@ -354,3 +360,30 @@ def make_unified_ials(local_env: BatchedLocalEnv, aip_params,
         policy_rollout=(policy_rollout
                         if has_horizon and local_env.obs_fn is not None
                         else None))
+
+
+def make_batched_ials(local_env: BatchedLocalEnv, aip_params,
+                      aip_cfg: influence.AIPConfig, *,
+                      fixed_marginal: Optional[float] = None,
+                      fixed_marginal_vec=None,
+                      stateless: bool = False) -> BatchedEnv:
+    """The single-agent engine: ``make_unified_ials`` at A = 1."""
+    return make_unified_ials(local_env, aip_params, aip_cfg, n_agents=1,
+                             fixed_marginal=fixed_marginal,
+                             fixed_marginal_vec=fixed_marginal_vec,
+                             stateless=stateless)
+
+
+def make_batched_multi_ials(local_env: BatchedLocalEnv, aip_params,
+                            aip_cfg: influence.AIPConfig, n_agents: int,
+                            *, fixed_marginal: Optional[float] = None,
+                            fixed_marginal_vec=None,
+                            stateless: bool = False) -> BatchedEnv:
+    """The Distributed IALS, one AIP per agent region (``aip_params``
+    leaves (A, ...) stacked): ``make_unified_ials`` with the agent axis
+    on."""
+    return make_unified_ials(local_env, aip_params, aip_cfg,
+                             n_agents=n_agents,
+                             fixed_marginal=fixed_marginal,
+                             fixed_marginal_vec=fixed_marginal_vec,
+                             stateless=stateless)

@@ -1,2 +1,3 @@
-"""Fault injection of the port (counterpart of ``repro.distributed``;
-the actor/learner fleet and sharding are not ported yet)."""
+"""Distributed training of the port (counterpart of ``repro.distributed``):
+fault tolerance, fault injection and the actor/learner fleet are ported;
+sharding (``distributed/sharding.py``) is not yet."""

@@ -28,8 +28,11 @@ class TrainingGuard:
     once, not at every later step); a signal that arrives while a save is
     being written is answered by the next call, not lost. The displaced
     SIGTERM handler is chained, not replaced, and ``uninstall()`` restores
-    it. Drivers that exit on preemption read ``preempted`` *before*
-    calling ``maybe_save``."""
+    it. Drivers that exit on preemption read ``answered`` *after*
+    ``maybe_save``: it is set by the same read of the flag that decided
+    the save, so a signal landing just before the call is both flushed
+    and seen (a driver reading ``preempted`` before the call would miss
+    it while the save cleared it)."""
 
     def __init__(self, ckpt_dir: str | Path, *, save_every: int = 100,
                  keep: int = 3, install_signal_handler: bool = True):
@@ -37,6 +40,7 @@ class TrainingGuard:
         self.save_every = save_every
         self.keep = keep
         self.preempted = False
+        self.answered = False     # the last maybe_save answered a signal
         self._prev_handler = None
         self._installed = False
         if install_signal_handler:
@@ -74,7 +78,7 @@ class TrainingGuard:
         # only a signal seen before the save is answered by it: one that
         # lands while a periodic save writes stays set for the next call
         # (the reference clears it either way, and so loses such a signal)
-        answered = self.preempted
+        answered = self.answered = self.preempted
         due = force or answered or \
             (self.save_every > 0 and step > 0 and step % self.save_every == 0)
         if due:

@@ -30,6 +30,11 @@ and ages are int32 leaves, as in the JAX package. Item-cell coordinates
 come from the iota rule of ``_at_item_mask_k`` (groups of three per edge:
 top, bottom, left, right); at the region side 5 they equal the reference's
 ``_ITEM_RC`` table.
+
+The scalar protocol (``envs.api.Env`` / ``LocalEnv``, one floor or one
+region, no env axis): ``make_multi_warehouse_env``,
+``make_warehouse_env`` and ``make_local_warehouse_env`` port the
+reference's scalar code, with its spawn draws moved into ``noise_fn``.
 """
 from __future__ import annotations
 
@@ -39,8 +44,9 @@ from typing import NamedTuple, Tuple
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.envs.api import (BatchedEnv, BatchedLocalEnv, EnvSpec,
-                                  KernelDomain, squeeze_agent_env)
+from repro_torch.envs.api import (BatchedEnv, BatchedLocalEnv, Env,
+                                  EnvSpec, KernelDomain, LocalEnv,
+                                  agent_placement, squeeze_agent_env)
 
 
 @dataclass(frozen=True)
@@ -127,14 +133,194 @@ def _region_ages_all(items_h, items_v):
 
 
 def local_warehouse_state(state: WarehouseState, i, j) -> LocalWarehouseState:
-    """The LS view of region (i, j) of a batched GS state: (B, 2) and
-    (B, 12) leaves (``i``, ``j`` index tensors of shape (A,) give (B, A,
-    ...) leaves)."""
+    """The LS view of region (i, j) of a GS state, scalar or batched (the
+    state's leading axes are kept): (..., 2) pos and (..., 12) items;
+    index tensors ``i``, ``j`` of shape (A,) give one view per agent."""
     return LocalWarehouseState(
-        pos=state.pos[:, i, j],
-        items=torch.cat([state.items_h[:, i, j], state.items_h[:, i + 1, j],
-                         state.items_v[:, i, j], state.items_v[:, i, j + 1]],
-                        dim=-1))
+        pos=state.pos[..., i, j, :],
+        items=torch.cat([state.items_h[..., i, j, :],
+                         state.items_h[..., i + 1, j, :],
+                         state.items_v[..., i, j, :],
+                         state.items_v[..., i, j + 1, :]], dim=-1))
+
+
+def _region_items(items_h, items_v, i, j):
+    """One floor's shelves -> the ages of region (i, j) in item-cell
+    order (index tensors give a leading axis per index)."""
+    return torch.cat([items_h[i, j], items_h[i + 1, j], items_v[i, j],
+                      items_v[i, j + 1]], dim=-1)
+
+
+def make_multi_warehouse_env(cfg: WarehouseConfig, agents,
+                             device="cuda") -> Env:
+    """Scalar GS with a trained robot in every listed region: state leaves
+    (R, R, 2) pos, (R+1, R, 3) / (R, R+1, 3) shelves; ``step`` takes (A,)
+    actions and obs / reward / info leaves lead with the agent axis. The
+    reference's scalar step, with its two spawn draws in ``noise_fn``."""
+    R, S = cfg.grid, cfg.region
+    dev = resolve_device(device)
+    agents = torch.as_tensor(agents, dtype=torch.long,
+                             device=dev).reshape(-1, 2)
+    A = agents.shape[0]
+    ais, ajs = agents[:, 0], agents[:, 1]
+    cells = item_cells(S, dev)
+    sel = agent_placement(agents, R, dev)
+    agent_mask = sel.sum(0) > 0
+    ii, jj = torch.meshgrid(torch.arange(R, device=dev),
+                            torch.arange(R, device=dev), indexing="ij")
+    spec = EnvSpec(name="warehouse-gs-multi", obs_dim=S * S + 12,
+                   n_actions=5, n_influence=12, dset_dim=24,
+                   dset_full_dim=24 + S * S, n_agents=A)
+
+    def observe(state: WarehouseState):
+        ages = _region_items(state.items_h, state.items_v, ais, ajs)
+        return torch.cat([_bitmap(state.pos[ais, ajs], S),
+                          (ages > 0).to(torch.float32)], -1)
+
+    def reset(gen: torch.Generator, shape=()):
+        shape = tuple(shape)
+        pos = torch.randint(0, S, shape + (R, R, 2), generator=gen,
+                            device=dev, dtype=torch.int32)
+        items_h = (torch.rand(shape + (R + 1, R, 3), generator=gen,
+                              device=dev) < 0.3).to(torch.int32)
+        items_v = (torch.rand(shape + (R, R + 1, 3), generator=gen,
+                              device=dev) < 0.3).to(torch.int32)
+        return WarehouseState(pos=pos, items_h=items_h, items_v=items_v)
+
+    def noise_fn(gen: torch.Generator, shape=()):
+        shape = tuple(shape)
+        return {"spawn_h": torch.rand(shape + (R + 1, R, 3), generator=gen,
+                                      device=dev) < cfg.p_item,
+                "spawn_v": torch.rand(shape + (R, R + 1, 3), generator=gen,
+                                      device=dev) < cfg.p_item}
+
+    def step_det(state: WarehouseState, actions, noise):
+        pos, items_h, items_v = state
+        region_ages = _region_items(items_h, items_v, ii, jj)  # (R, R, 12)
+
+        # scripted actions for every robot (L1-greedy toward the oldest
+        # active item, the first of equal ages); agents overridden
+        has = region_ages > 0
+        target = first_argmax(torch.where(has, region_ages, -1))
+        dr = cells[0][target] - pos[..., 0]
+        dc = cells[1][target] - pos[..., 1]
+        acts = torch.where(dr < 0, 1, torch.where(
+            dr > 0, 2, torch.where(dc < 0, 3, torch.where(dc > 0, 4, 0))))
+        acts = torch.where(has.any(-1), acts, 0)
+        placed = (sel * actions.reshape(A, 1, 1).long()).sum(0)
+        acts = torch.where(agent_mask, placed, acts)
+        new_pos = _move(pos, acts, S)
+
+        # pickups: robots standing on each shelf cell, from both regions
+        # beside it
+        at = _at_items(new_pos, cells).to(torch.int32)      # (R, R, 12)
+        zh = torch.zeros((1, R, 3), dtype=torch.int32, device=dev)
+        zv = torch.zeros((R, 1, 3), dtype=torch.int32, device=dev)
+        occ_h = (torch.cat([at[..., 0:3], zh], 0)
+                 + torch.cat([zh, at[..., 3:6]], 0))
+        occ_v = (torch.cat([at[..., 6:9], zv], 1)
+                 + torch.cat([zv, at[..., 9:12]], 1))
+        new_h = _age_items(items_h, (occ_h > 0) & (items_h > 0),
+                           noise["spawn_h"], cfg)
+        new_v = _age_items(items_v, (occ_v > 0) & (items_v > 0),
+                           noise["spawn_v"], cfg)
+        new_state = WarehouseState(pos=new_pos, items_h=new_h,
+                                   items_v=new_v)
+
+        # each agent's view
+        ages_before = region_ages[ais, ajs]                  # (A, 12)
+        agent_pos = new_pos[ais, ajs]
+        agent_at = _at_items(agent_pos, cells)
+        reward = (agent_at & (ages_before > 0)).sum(-1).to(torch.float32)
+        # influence sources: neighbour robots on the agent's cells (the
+        # agent's own occupancy taken out)
+        occ_agent = _region_items(occ_h, occ_v, ais, ajs)
+        u = (occ_agent - agent_at.to(torch.int32)) > 0
+        if cfg.vanish_after > 0:
+            # §5.4: the influence event is the disappearance itself
+            u = u | (ages_before >= cfg.vanish_after)
+        at_before = _at_items(pos[ais, ajs], cells)
+        dset = torch.cat([(ages_before > 0).to(torch.float32),
+                          (at_before | agent_at).to(torch.float32)], -1)
+        obs = torch.cat(
+            [_bitmap(agent_pos, S),
+             (_region_items(new_h, new_v, ais, ajs) > 0).to(torch.float32)],
+            -1)
+        info = {"u": u.to(torch.float32), "dset": dset,
+                "dset_full": torch.cat([dset, _bitmap(pos[ais, ajs], S)],
+                                       -1),
+                "ages": ages_before}
+        return new_state, obs, reward, info
+
+    def step(state: WarehouseState, actions, gen: torch.Generator):
+        return step_det(state, actions, noise_fn(gen))
+
+    return Env(spec=spec, reset=reset, step=step, observe=observe,
+               noise_fn=noise_fn, step_det=step_det)
+
+
+def make_warehouse_env(cfg: WarehouseConfig = WarehouseConfig(),
+                       device="cuda") -> Env:
+    """Scalar single-agent GS: the multi-agent env at ``cfg.agent``,
+    squeezed."""
+    multi = make_multi_warehouse_env(cfg, [cfg.agent], device)
+    return squeeze_agent_env(multi, "warehouse-gs")
+
+
+def make_local_warehouse_env(cfg: WarehouseConfig = WarehouseConfig(),
+                             device="cuda") -> LocalEnv:
+    """Scalar LS: the agent's 5 x 5 region only, (2,) pos and (12,) items
+    int32; u_t removes the items neighbours took; the (12,) spawn draw is
+    its ``noise_fn``."""
+    S = cfg.region
+    dev = resolve_device(device)
+    cells = item_cells(S, dev)
+    spec = EnvSpec(name="warehouse-ls", obs_dim=S * S + 12, n_actions=5,
+                   n_influence=12, dset_dim=24, dset_full_dim=24 + S * S)
+
+    def observe(state: LocalWarehouseState):
+        return torch.cat([_bitmap(state.pos, S),
+                          (state.items > 0).to(torch.float32)])
+
+    def reset(gen: torch.Generator, shape=()):
+        shape = tuple(shape)
+        pos = torch.randint(0, S, shape + (2,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        items = (torch.rand(shape + (12,), generator=gen, device=dev)
+                 < 0.3).to(torch.int32)
+        return LocalWarehouseState(pos=pos, items=items)
+
+    def noise_fn(gen: torch.Generator, shape=()):
+        return torch.rand(tuple(shape) + (12,), generator=gen,
+                          device=dev) < cfg.p_item
+
+    def step_det(state: LocalWarehouseState, action, u, spawn):
+        pos, items = state
+        new_pos = _move(pos, action, S)
+        agent_at = _at_items(new_pos, cells)
+        reward = (agent_at & (items > 0)).sum().to(torch.float32)
+        new_items = _age_items(items, agent_at | (u > 0.5),
+                               spawn.to(torch.bool), cfg)
+        new_state = LocalWarehouseState(pos=new_pos, items=new_items)
+        dset = torch.cat([(items > 0).to(torch.float32),
+                          (_at_items(pos, cells) | agent_at
+                           ).to(torch.float32)])
+        info = {"dset": dset,
+                "dset_full": torch.cat([dset, _bitmap(pos, S)]),
+                "ages": items}
+        return new_state, observe(new_state), reward, info
+
+    def step(state: LocalWarehouseState, action, u, gen: torch.Generator):
+        return step_det(state, action, u, noise_fn(gen))
+
+    def dset_fn(state: LocalWarehouseState, action):
+        new_pos = _move(state.pos, action, S)
+        at = _at_items(state.pos, cells) | _at_items(new_pos, cells)
+        return torch.cat([(state.items > 0).to(torch.float32),
+                          at.to(torch.float32)])
+
+    return LocalEnv(spec=spec, reset=reset, step=step, observe=observe,
+                    dset_fn=dset_fn, noise_fn=noise_fn, step_det=step_det)
 
 
 def make_batched_multi_warehouse_env(cfg: WarehouseConfig, agents,

@@ -59,7 +59,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # "flash_attention" counts every flash launch, "flash_attention[wgmma]" and
 # "flash_attention[f32]" the tensor-core and the CUDA-core kernel's; a
 # horizon kernel's "name[domain]" its launches with that LS functor
-_HORIZON_COUNTERS = ("aip_rollout_multi", "fnn_rollout",
+_HORIZON_COUNTERS = ("aip_rollout_multi", "aip_rollout", "fnn_rollout",
                      "policy_rollout_fnn", "policy_rollout_gru")
 LAUNCHES = {"aip_step": 0, **{k: 0 for k in _HORIZON_COUNTERS},
             **{f"{k}[{d}]": 0 for k in _HORIZON_COUNTERS
@@ -423,15 +423,8 @@ def rollout_args(ls, s0, weights, actions, bits, noise, *, n_agents,
             (ls_in, nz, s0, actions, bits, weights))
 
 
-def aip_rollout_multi(ls, h0, wx, wh, b, hw, hb, actions, bits, noise, *,
-                      n_agents: int, domain):
-    """Whole-horizon IALS rollout, GRU backbone, ONE launch by the plan
-    of ``rollout_plan``: ls the domain's int32 leaves ((L, ...) each;
-    traffic lanes (L, 4, lane_len) and phase (L,), the warehouse pos (L, 2)
-    and items (L, 12)), h0 (L, H), stacked weights, actions (T, L), bits
-    (T, L, M), noise the domain's int32 (T, L, ...) leaves (the
-    warehouse's spawns; none for traffic) -> (final ls, h_T, rewards
-    (T, L))."""
+def _gru_rollout(counter, ls, h0, wx, wh, b, hw, hb, actions, bits, noise,
+                 *, n_agents: int, domain):
     A, D, G3 = wx.shape
     H = G3 // 3
     M = hw.shape[2]
@@ -441,9 +434,33 @@ def aip_rollout_multi(ls, h0, wx, wh, b, hw, hb, actions, bits, noise, *,
     args, out, keep = rollout_args(ls, h0, ws, actions, bits, noise,
                                    n_agents=n_agents, domain=domain, D=D,
                                    H=H, M=M, stack=1, cell="gru")
-    launch("ials_aip_rollout_multi", _counters("aip_rollout_multi", domain),
+    launch("ials_aip_rollout_multi", _counters(counter, domain),
            keep[2].device, ctypes.byref(args))
     return out
+
+
+def aip_rollout_multi(ls, h0, wx, wh, b, hw, hb, actions, bits, noise, *,
+                      n_agents: int, domain):
+    """Whole-horizon IALS rollout, GRU backbone, ONE launch by the plan
+    of ``rollout_plan``: ls the domain's int32 leaves ((L, ...) each;
+    traffic lanes (L, 4, lane_len) and phase (L,), the warehouse pos (L, 2)
+    and items (L, 12)), h0 (L, H), stacked weights, actions (T, L), bits
+    (T, L, M), noise the domain's int32 (T, L, ...) leaves (the
+    warehouse's spawns; none for traffic) -> (final ls, h_T, rewards
+    (T, L))."""
+    return _gru_rollout("aip_rollout_multi", ls, h0, wx, wh, b, hw, hb,
+                        actions, bits, noise, n_agents=n_agents,
+                        domain=domain)
+
+
+def aip_rollout(ls, h0, wx, wh, b, hw, hb, actions, bits, noise, *,
+                domain):
+    """The single-agent GRU horizon (the reference's ``aip_rollout``, the
+    A = 1 squeeze of ``aip_rollout_multi``): unstacked 2-D weights, lifted
+    to one agent, on the same kernel; counted as ``aip_rollout``."""
+    return _gru_rollout("aip_rollout", ls, h0, wx[None], wh[None], b[None],
+                        hw[None], hb[None], actions, bits, noise,
+                        n_agents=1, domain=domain)
 
 
 def fnn_rollout(ls, buf0, w1, b1, w2, b2, hw, hb, actions, bits, noise, *,

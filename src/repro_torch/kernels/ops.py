@@ -59,6 +59,19 @@ def ials_rollout_multi(ls, h0, wx, wh, b, hw, hb, actions, bits, noise, *,
                                        tick_fn=tick_fn, dset_fn=dset_fn)
 
 
+def ials_rollout(ls, h0, wx, wh, b, hw, hb, actions, bits, noise, *,
+                 tick_fn, dset_fn, domain):
+    """Whole-horizon IALS rollout of one shared GRU AIP (``aip_rollout``):
+    unstacked 2-D weights; ls (B, ...) leaves, h0 (B, H), actions (T, B),
+    bits (T, B, M), noise (T, B, ...) leaves -> (final ls, h_T, rewards
+    (T, B)). On the card it is ``aip_rollout_multi``'s kernel at A = 1."""
+    if _on_card(h0):
+        return _cuda.aip_rollout(ls, h0, wx, wh, b, hw, hb, actions, bits,
+                                 noise, domain=domain)
+    return _ref.ials_rollout_ref(ls, h0, wx, wh, b, hw, hb, actions, bits,
+                                 noise, tick_fn=tick_fn, dset_fn=dset_fn)
+
+
 def fnn_rollout(ls, buf0, w1, b1, w2, b2, hw, hb, actions, bits, noise, *,
                 n_agents, tick_fn, dset_fn, domain):
     """Whole-horizon IALS rollout, FNN backbone (``fnn_rollout``)."""

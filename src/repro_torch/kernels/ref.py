@@ -150,6 +150,26 @@ def _rollout(cell, ls, s0, weights, actions, bits, noise, *, n_agents,
     return ls, s.reshape(L, -1), torch.stack(rews)
 
 
+def ials_rollout_ref(ls, h0, wx, wh, b, hw, hb, actions, bits, noise, *,
+                     tick_fn, dset_fn, trace=None):
+    """Whole-horizon IALS rollout of one shared GRU AIP: ls tuple of
+    (B, ...) leaves, h0 (B, H), 2-D weights, actions (T, B), bits (T, B,
+    M), noise tuple of (T, B, ...) leaves -> (final ls, h_T (B, H),
+    rewards (T, B) f32): a loop of ``aip_step_ref``'s tick and the LS
+    tick. The ``aip_rollout`` kernel's ground truth; it equals
+    ``ials_rollout_multi_ref`` at ``n_agents = 1``. ``trace`` as there."""
+    ls, h = tuple(ls), h0.float()
+    w = (wx, wh, b, hw, hb)
+    rews = []
+    for t in range(actions.shape[0]):
+        a = actions[t]
+        h, _, u = _gru_tick(w, h, dset_fn(ls, a).float(), bits[t], trace)
+        ls, r = tick_fn(ls, a, u, tuple(n[t] for n in noise))
+        ls = tuple(ls)
+        rews.append(r.float())
+    return ls, h, torch.stack(rews)
+
+
 def ials_rollout_multi_ref(ls, h0, wx, wh, b, hw, hb, actions, bits, noise,
                            *, n_agents: int, tick_fn, dset_fn, trace=None):
     """Whole-horizon IALS rollout, GRU backbone: ls tuple of (L, ...)

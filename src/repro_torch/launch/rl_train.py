@@ -392,9 +392,6 @@ def _run_integrated(args, dev, sb: SimBuild, pcfg, guard, resume_step,
         history.append(row)
         print(json.dumps(row), flush=True)
         if guard is not None:
-            # read the flag BEFORE maybe_save: a successful forced save
-            # clears it
-            was_preempted = guard.preempted
             t_s = time.time()
             saved = guard.maybe_save(
                 it + 1,
@@ -403,7 +400,7 @@ def _run_integrated(args, dev, sb: SimBuild, pcfg, guard, resume_step,
                 metadata={"mode": "integrated", "iterations_done": it + 1})
             if saved:
                 row["ckpt_save_s"] = time.time() - t_s
-            if was_preempted and saved:
+            if guard.answered:
                 print("preempted: RL checkpoint flushed, exiting cleanly",
                       flush=True)
                 preempted = True
@@ -472,11 +469,10 @@ def _run_fleet(args, dev, sb: SimBuild, pcfg, guard, resume_step,
         history.append(row)
         print(json.dumps(row), flush=True)
         if guard is not None:
-            was_preempted = guard.preempted
-            saved = guard.maybe_save(
+            guard.maybe_save(
                 v, {"fleet": state, "extra": sim_params},
                 metadata={"mode": "fleet", **trainer.save_metadata(state)})
-            if was_preempted and saved:
+            if guard.answered:
                 print("preempted: fleet checkpoint flushed, exiting cleanly",
                       flush=True)
                 preempted = True

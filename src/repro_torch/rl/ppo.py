@@ -17,6 +17,11 @@ minibatch permutations the same way. Two routes:
      whole acting loop is ONE ``kernels.ops.policy_rollout`` call, the
      CUDA kernel on the card;
   2. otherwise (the GS, ``--simulator gs``) the plain loop below.
+
+Every entry point takes a ``BatchedEnv`` or a scalar ``Env`` (lifted by
+``envs.api.as_batched``, the vmap adapter). ``make_train_iteration`` and
+``make_evaluator`` are the reference's constructors: an optimizer and its
+iteration, and a greedy evaluator (not cached: it compiles nothing).
 """
 from __future__ import annotations
 
@@ -26,7 +31,7 @@ from typing import Any, NamedTuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.envs.api import (BatchedEnv, horizon_noise, index_tree,
+from repro_torch.envs.api import (as_batched, horizon_noise, index_tree,
                                   stack_trees)
 from repro_torch.nn.act import fast_tanh
 from repro_torch.nn.module import dense, dense_init
@@ -145,8 +150,9 @@ def _seed_frames(obs, cfg: PPOConfig, n: int):
 
 
 @torch.no_grad()
-def init_rollout_state(env: BatchedEnv, cfg: PPOConfig,
+def init_rollout_state(env, cfg: PPOConfig,
                        generator: torch.Generator) -> RolloutState:
+    env = as_batched(env)
     env_state = env.reset(generator, cfg.n_envs)
     frames = _seed_frames(env.observe(env_state), cfg, cfg.n_envs)
     return RolloutState(env_state=env_state, frames=frames,
@@ -155,11 +161,12 @@ def init_rollout_state(env: BatchedEnv, cfg: PPOConfig,
 
 
 @torch.no_grad()
-def draw_rollout_streams(env: BatchedEnv, cfg: PPOConfig,
+def draw_rollout_streams(env, cfg: PPOConfig,
                          generator: torch.Generator):
     """All of a rollout's randomness, drawn before the horizon: (Gumbel
     (T, n_envs, [A,] n_actions), T-stacked env noise, T-stacked reset
     states)."""
+    env = as_batched(env)
     T = cfg.rollout_len
     gum = gumbel_noise(generator, (T, cfg.n_envs) + cfg.agent_shape
                        + (cfg.n_actions,))
@@ -180,11 +187,12 @@ def _logp(logits, a):
 
 
 @torch.no_grad()
-def rollout(env: BatchedEnv, cfg: PPOConfig, params, rs: RolloutState,
+def rollout(env, cfg: PPOConfig, params, rs: RolloutState,
             generator: torch.Generator = None, streams=None):
     """-> (new RolloutState, batch with (T, n_envs, *agent_shape, ...)
     leaves, v_last). ``streams`` = ``draw_rollout_streams``'s triple;
     drawn from ``generator`` when not given."""
+    env = as_batched(env)
     if streams is None:
         streams = draw_rollout_streams(env, cfg, generator)
     gum, env_noise, resets = streams
@@ -315,10 +323,11 @@ def learner_update_fn(cfg: PPOConfig, opt):
     return learner_update
 
 
-def train_iteration_fn(env: BatchedEnv, cfg: PPOConfig, opt):
+def train_iteration_fn(env, cfg: PPOConfig, opt):
     """-> ``train_iteration(params, opt_state, rs, generator, streams=None,
     perms=None) -> (params, opt_state, rs, metrics)``: one rollout, then
     the learner update on its batch."""
+    env = as_batched(env)
     learner_update = learner_update_fn(cfg, opt)
 
     def train_iteration(params, opt_state, rs: RolloutState, generator,
@@ -332,29 +341,53 @@ def train_iteration_fn(env: BatchedEnv, cfg: PPOConfig, opt):
     return train_iteration
 
 
+def make_train_iteration(env, cfg: PPOConfig):
+    """-> (opt, ``train_iteration``): the optimizer of ``cfg`` and one PPO
+    iteration on ``env`` (``train_iteration_fn``'s signature)."""
+    opt = make_optimizer(cfg)
+    return opt, train_iteration_fn(env, cfg, opt)
+
+
 # ---------------------------------------------------------------------------
 # greedy evaluation
 # ---------------------------------------------------------------------------
 
-@torch.no_grad()
-def evaluate(env: BatchedEnv, cfg: PPOConfig, params,
-             generator: torch.Generator, *, n_episodes: int = 8,
-             ep_len: int | None = None, per_agent: bool = False):
-    """Mean per-step reward of the greedy policy on ``env`` (the paper's
-    periodic evaluation on the GS); episodes are the env batch. With
-    ``per_agent`` on a multi-agent env -> the (n_agents,) means."""
+def make_evaluator(env, cfg: PPOConfig, *, n_episodes: int = 8,
+                   ep_len: int | None = None):
+    """-> ``fn(params, generator) -> mean reward`` (a 0-d tensor, or
+    (n_agents,) on a multi-agent env): the greedy policy over
+    ``n_episodes`` episodes of ``ep_len`` ticks (default
+    ``cfg.episode_len``), the episodes being the env batch."""
+    benv = as_batched(env)
     ep_len = ep_len or cfg.episode_len
-    state = env.reset(generator, n_episodes)
-    frames = _seed_frames(env.observe(state), cfg, n_episodes)
-    rews = []
-    for _ in range(ep_len):
-        logits, _ = policy_forward(params, _stack_obs(frames),
-                                   fast_gates=cfg.fast_gates)
-        state, obs, r, _ = env.step(state, torch.argmax(logits, -1),
-                                    generator)
-        frames = torch.cat([frames[..., 1:, :], obs[..., None, :]], dim=-2)
-        rews.append(r)
-    means = torch.stack(rews).mean(0).mean(0)          # () or (n_agents,)
+
+    @torch.no_grad()
+    def run(params, generator: torch.Generator):
+        state = benv.reset(generator, n_episodes)
+        frames = _seed_frames(benv.observe(state), cfg, n_episodes)
+        rews = []
+        for _ in range(ep_len):
+            logits, _ = policy_forward(params, _stack_obs(frames),
+                                       fast_gates=cfg.fast_gates)
+            state, obs, r, _ = benv.step(state, torch.argmax(logits, -1),
+                                         generator)
+            frames = torch.cat([frames[..., 1:, :], obs[..., None, :]],
+                               dim=-2)
+            rews.append(r)
+        return torch.stack(rews).mean(0).mean(0)      # () or (n_agents,)
+
+    return run
+
+
+def evaluate(env, cfg: PPOConfig, params, generator: torch.Generator, *,
+             n_episodes: int = 8, ep_len: int | None = None,
+             per_agent: bool = False):
+    """Mean per-step reward of the greedy policy on ``env`` (the paper's
+    periodic evaluation on the GS); ``env`` a ``BatchedEnv`` or a scalar
+    ``Env``. With ``per_agent`` on a multi-agent env -> the (n_agents,)
+    means."""
+    means = make_evaluator(env, cfg, n_episodes=n_episodes,
+                           ep_len=ep_len)(params, generator)
     if per_agent and cfg.agent_shape:
         return means
     return float(means.mean())

@@ -16,7 +16,8 @@ kernel), the flash kernel's (BH, T, D) entry, the Pallas kernel's own
 layout, and the route counters of the two flash kernels; the CUDA-core
 flash kernel repeats bitwise at every f32 case and the off-16 bf16 one;
 ``aip_step`` at odd shapes (B = 1, ragged B, A = 1) against its plain
-version and bitwise on a repeat; ``engine.step`` equals a one-tick
+version and bitwise on a repeat; ``ops.ials_rollout`` (``aip_rollout``)
+on both domains at B = 1, 17, 512 with one launch a call; ``engine.step`` equals a one-tick
 ``engine.rollout`` bitwise; the horizon kernels with the warehouse
 functor (spawn noise, 8 stacked frames, the action read by the d-set, on
 a cluster of two and on one CTA, ``vanish_after``), bitwise on a repeat,
@@ -67,6 +68,25 @@ def test_policy_rollout_kernel_matches_plain(kind, A, dev):
     case = chip_smoke.Case(kind, A, 20, 48, seed=10 + A, dev=dev)
     assert bool(case.done.any())
     flips, err = chip_smoke.check_policy(case, f"policy {kind} A={A}")
+    assert err <= chip_smoke.ATOL
+
+
+@pytest.mark.parametrize("domain", ["traffic", "warehouse"])
+@pytest.mark.parametrize("B", [1, 17, 512])
+def test_aip_rollout_kernel_matches_plain(domain, B, dev):
+    """``ops.ials_rollout`` (``aip_rollout``: the ``aip_rollout_multi``
+    kernel at one agent, unstacked weights) against its plain version
+    ``ref.ials_rollout_ref``, one ``aip_rollout`` launch a call."""
+    from repro_torch.kernels import aip_step as cuda
+    case = chip_smoke.Case("gru", 1, B, 20, seed=70 + B, dev=dev,
+                           domain=domain)
+    cuda.reset_launches()
+    out = chip_smoke.ials_rollout_call(case)
+    torch.cuda.synchronize()
+    assert chip_smoke.nonzero(cuda.LAUNCHES) == {
+        "aip_rollout": 1, f"aip_rollout[{domain}]": 1}
+    flips, err = chip_smoke.check_ials_rollout(case, f"aip_rollout B={B}",
+                                               out)
     assert err <= chip_smoke.ATOL
 
 

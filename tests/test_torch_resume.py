@@ -82,6 +82,28 @@ def test_sigterm_flushes_and_exits_cleanly(tmp_path, monkeypatch):
     assert signal.getsignal(signal.SIGTERM) == before
 
 
+def test_a_signal_just_before_the_save_is_flushed_and_seen(tmp_path,
+                                                         monkeypatch):
+    """A SIGTERM that lands after an iteration's row and before the save
+    reads the flag (``tools/torch_fault_smoke.py`` signals right after the
+    row streams past): that save answers it, and the driver exits on it
+    instead of training on with the signal cleared."""
+    from repro_torch.distributed import fault_tolerance
+    orig = fault_tolerance.TrainingGuard.maybe_save
+
+    def signal_then_save(self, step, state, **kw):
+        if step == 1:
+            self.preempted = True      # what the handler does
+        return orig(self, step, state, **kw)
+
+    monkeypatch.setattr(fault_tolerance.TrainingGuard, "maybe_save",
+                        signal_then_save)
+    out = _run(["--iterations", "4", "--ckpt-dir", str(tmp_path),
+                "--save-every", "100"])
+    assert out["preempted"] and len(out["history"]) == 1
+    assert ckpt.all_steps(tmp_path) == [1]
+
+
 def test_params_md5_is_the_reference_digest():
     rng = np.random.default_rng(0)
     tree = {"l1": {"w": rng.normal(size=(5, 3)).astype(np.float32),

@@ -61,6 +61,34 @@ Phases, each printing its result and time on its own line:
      drop counted, an ``--async-fleet`` run; ``policy_rollout_fnn``
      launches once a produced batch, and the fleet's samples/s is logged
      beside the integrated trainer's;
+  3c. lane data parallelism: ranks of ``python -m torch.distributed.run``
+     sharing the card on gloo, each a subprocess whose failure fails the
+     script: (a) ``tools/torch_shard_smoke.py`` at 2 ranks (data 2) and 4
+     (data 2, model 2), traffic FNN A = 1, traffic GRU A = 25 (agents
+     replicated, the lanes take "model"), warehouse GRU and FNN A = 36
+     (18 agents a rank on 4 ranks), B = 16, T = 128 at phase 3's widths,
+     and on 4 ranks also traffic GRU A = 25 at B = 64 (16 lanes a rank,
+     where a rank's own launch plan would take other K-parts than the
+     one-process launch's): every output leaf of the
+     sharded ``ppo.rollout``, ``engine.rollout`` and train iteration
+     bitwise equal to the one-process program's, one ``policy_rollout``
+     launch per rank a rollout, one ``aip_rollout_multi`` /
+     ``fnn_rollout`` a rank an ``engine.rollout``; each rank's
+     ``policy_rollout`` device ms on its block (``torch.profiler``, one
+     rank at a time, B = 8 a rank at 2 ranks), the one-process launch's,
+     and the gathers' event ms of one sharded rollout (host included);
+     (b) ``rl_train`` at 2 ranks (traffic FNN A = 1, 3
+     iterations) and 4 ranks (warehouse GRU A = 36, 2 iterations):
+     final-parameter md5, losses and GS evaluations equal to phase 3's
+     one-process runs, each rank launching ``policy_rollout`` once an
+     iteration; (c) phase 3b's one-process traffic
+     checkpoint at iteration 1 resumed under 2 ranks to 3 at
+     ``--save-every 2`` (a save, its gather included, after the second
+     iteration only), equal to phase 3's uninterrupted run; the F-IALS (phase 3b's traffic run) and
+     the GS (one process here) on 2 ranks, PPO's plain loop, whose
+     bitwise repeat is reported, not required (no kernel launched); (d)
+     the steady iteration time at 1 and 2 ranks (traffic) and 1 and 4
+     (warehouse);
   4. the engine's own entry points on both domains (``engine.rollout``
      per backbone, ``engine.step`` with the GRU AIP), counters zeroed
      before and read after: ``fnn_rollout``, ``aip_rollout_multi`` (each
@@ -1008,14 +1036,18 @@ def _steady_s(out):
     return sum(its) / len(its) if its else float("nan")
 
 
-def _resume(argv, k, n, ref, label, counter, tmp):
+def _resume(argv, k, n, ref, label, counter, tmp, keep=None):
     """``argv`` run for k iterations with ``--ckpt-dir``, then to n from
     the checkpoint: the resumed run must end on ``ref``'s parameters
     (phase 3's uninterrupted n-iteration run) bitwise, and act through
-    ``counter`` once an iteration in each part."""
+    ``counter`` once an iteration in each part. ``keep``: a directory to
+    copy the k-iteration checkpoint to (phase 3c resumes it)."""
+    import shutil
     ck = ["--ckpt-dir", tmp, "--save-every", "1"]
     first, n1, out1 = _train(argv + ["--iterations", str(k)] + ck,
                              f"{label}, {k} iteration(s) checkpointed")
+    if keep is not None:
+        shutil.copytree(tmp, keep)
     res, n2, out2 = _train(argv + ["--iterations", str(n)] + ck,
                            f"{label}, resumed to {n}")
     if (first[counter], res[counter]) != (n1, n2):
@@ -1122,7 +1154,7 @@ def _fault_smoke(device):
 
 
 @phase("the paper's simulator grid, resume and the fleet")
-def phase_grid(dev, ref):
+def phase_grid(dev, ref, keep):
     import tempfile
     traffic = MAIN_ARGS + ["--domain", "traffic"]
     wh = MAIN_ARGS + ["--domain", "warehouse"]
@@ -1147,6 +1179,7 @@ def phase_grid(dev, ref):
         traffic + ["--simulator", "f-ials", "--iterations", "2", "--aip",
                    "fnn"], "f-ials traffic fnn A=1 (empirical marginal)")
     _no_kernel(f_tr, "f-ials traffic")
+    ref["f-ials"] = f_tr_out        # phase 3c runs it again on 2 ranks
     f_wh, _, f_wh_out = _train(
         wh + ["--simulator", "f-ials", "--iterations", "2", "--n-agents",
               "36", "--fixed-marginal", "0.1", "--stateless-f-ials"],
@@ -1165,7 +1198,7 @@ def phase_grid(dev, ref):
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
         _resume(traffic + ["--simulator", "ials", "--aip", "fnn"], 1, 3,
                 ref["fnn"], "traffic fnn A=1", "policy_rollout_fnn",
-                str(Path(tmp) / "traffic"))
+                str(Path(tmp) / "traffic"), keep=keep)
         _resume(wh + ["--simulator", "ials", "--n-agents", "36"], 1, 2,
                 ref["warehouse gru"], "warehouse gru A=36",
                 "policy_rollout_gru[warehouse]", str(Path(tmp) / "wh"))
@@ -1204,6 +1237,169 @@ def phase_grid(dev, ref):
     # alike
     log(f"[fleet] samples/s over 4 updates, evaluations excluded: "
         f"deterministic {sps:.0f}, async {sps_async:.0f}")
+
+
+# ---------------------------------------------------------------------------
+# lane data parallelism under torch.distributed (phase 3c)
+# ---------------------------------------------------------------------------
+
+RANKS_TIMEOUT_S = 240
+
+
+def _ranks(world, argv, label):
+    """``python -m torch.distributed.run --standalone --nproc-per-node
+    world <argv>`` in its own process group, killed whole if it overruns
+    -> its output; a non-zero exit fails the phase."""
+    import os
+    import signal
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src") + (
+        os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+    env["OMP_NUM_THREADS"] = "1"
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(world), *argv], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        start_new_session=True)
+    try:
+        text, _ = proc.communicate(timeout=RANKS_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"{label}: {world} ranks overran "
+                             f"{RANKS_TIMEOUT_S} s")
+    if proc.returncode != 0:
+        raise AssertionError(f"{label}: {world} ranks exited "
+                             f"{proc.returncode}:\n{text[-6000:]}")
+    log(f"[ranks] {label}: {world} ranks in "
+        f"{time.perf_counter() - t0:.1f} s (processes started included)")
+    return text
+
+
+def _shard_smoke(world, model, extra, label, tmp):
+    out = Path(tmp) / f"shard_{label}.json"
+    _ranks(world, ["tools/torch_shard_smoke.py", "--device", "cuda",
+                   "--backend", "gloo", "--model", str(model),
+                   "--time-reps", "5", "--json", str(out), *extra],
+           f"shard smoke {label}")
+    summary = json.loads(out.read_text())
+    if not summary["ok"]:
+        raise AssertionError(f"shard smoke {label}: {summary}")
+    for case, r in summary["cases"].items():
+        tim = r.get("timing_per_rank") or []
+        times = "" if not tim else (
+            "; policy_rollout device ms per rank on its block, one rank at "
+            "a time: " + ", ".join(str(t["block_device_ms"]) for t in tim)
+            + f"; one process {tim[0]['one_process_device_ms']}; gathers "
+            "of one sharded rollout, event ms per rank (host included): "
+            + ", ".join(f"{t['gather_event_ms']:.3f}" for t in tim))
+        log(f"[shard] {label} {case}: {r['leaves']} leaves bitwise equal "
+            f"to the one-process program (rollout "
+            f"{r['parts']['rollout']['leaves']}, engine "
+            f"{r['parts']['engine']['leaves']}, train "
+            f"{r['parts']['train']['leaves']}); launches per rank "
+            f"{r['launches_per_rank'][0]}{times}")
+    return summary
+
+
+def _train_ranks(world, argv, ref, label, tmp, bitwise=True,
+                 counter=None):
+    """``rl_train`` on ``world`` gloo ranks: its final params, losses and
+    GS evaluations must equal ``ref``'s (the one-process run) bitwise;
+    with ``bitwise`` False (PPO's plain loop, whose GEMMs may take other
+    algorithms at other row counts) they are compared and reported. Each
+    rank must launch ``counter`` once an iteration it ran (None: no
+    kernel at all)."""
+    out = Path(tmp) / f"rl_{label.replace(' ', '_')}.json"
+    _ranks(world, ["-m", "repro_torch.launch.rl_train", *argv,
+                   "--dist-backend", "gloo", "--out", str(out)],
+           f"rl_train {label}")
+    got = json.loads(out.read_text())
+
+    def hist(o):
+        return [(r["loss"], r.get("gs_eval_reward")) for r in o["history"]
+                if "loss" in r]
+    skip = got["resumed_from"]
+    same = (got["final_params_md5"] == ref["final_params_md5"]
+            and hist(got) == hist(ref)[skip:])
+    if got["world_size"] != world or (bitwise and not same):
+        raise AssertionError(
+            f"rl_train {label} on {world} ranks: md5 "
+            f"{got['final_params_md5']}, (loss, GS eval) {hist(got)}; the "
+            f"one-process run: {ref['final_params_md5']}, "
+            f"{hist(ref)[skip:]}")
+    if not all(math.isfinite(x) for x, _ in hist(got)):
+        raise AssertionError(f"rl_train {label}: non-finite loss")
+    want = {} if counter is None else {counter: len(hist(got))}
+    for r, counts in enumerate(got["launches_per_rank"]):
+        if {k: v for k, v in counts.items() if k == counter or
+                counter is None} != want:
+            raise AssertionError(f"rl_train {label}: rank {r} launched "
+                                 f"{counts}, expected {want}")
+    log(f"[ranks] rl_train {label} on {world} ranks: final params md5 "
+        f"{got['final_params_md5']}, losses and GS evaluations "
+        + ("bitwise equal to" if same else
+           f"NOT bitwise equal to (a finding; md5 "
+           f"{ref['final_params_md5']}, (loss, GS eval) "
+           f"{hist(ref)[skip:]} against {hist(got)})")
+        + f" the one-process run; steady iteration "
+        f"{_steady_s(got):.4f} s (one process {_steady_s(ref):.4f} s); "
+        f"launches per rank {got['launches_per_rank']}")
+    return got
+
+
+@phase("lane data parallelism: ranks of torch.distributed.run on gloo")
+def phase_ranks(ref, keep):
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_") as tmp:
+        # (a) the sharded programs against the one-process one
+        cases = ("traffic:fnn:1,traffic:gru:25,warehouse:gru:36,"
+                 "warehouse:fnn:36")
+        _shard_smoke(2, 1, ["--cases", cases], "2 ranks (data 2)", tmp)
+        # + 64 lanes of traffic GRU A = 25, 16 a rank: a rank's own plan
+        # would take other K-parts than the one-process launch's
+        _shard_smoke(4, 2, ["--cases", cases + ",traffic:gru:25:64"],
+                     "4 ranks (data 2, model 2)", tmp)
+        # (b) rl_train under ranks, (c) a one-process checkpoint resumed
+        traffic = MAIN_ARGS + ["--domain", "traffic", "--simulator", "ials",
+                               "--aip", "fnn", "--iterations", "3"]
+        pol_fnn = "policy_rollout_fnn"
+        t2 = _train_ranks(2, traffic, ref["fnn"], "traffic fnn A=1", tmp,
+                          counter=pol_fnn)
+        w4 = _train_ranks(4, MAIN_ARGS + [
+            "--domain", "warehouse", "--simulator", "ials", "--n-agents",
+            "36", "--iterations", "2"], ref["warehouse gru"],
+            "warehouse gru A=36", tmp,
+            counter="policy_rollout_gru[warehouse]")
+        res = _train_ranks(2, traffic + ["--ckpt-dir", keep,
+                                         "--save-every", "2"],
+                           ref["fnn"], "traffic fnn A=1 resumed from 1",
+                           tmp, counter=pol_fnn)
+        saves = [r.get("ckpt_save_s") for r in res["history"]]
+        if res["resumed_from"] != 1 or [s is not None for s in saves] != [
+                True, False]:
+            raise AssertionError(f"the 2-rank run resumed from "
+                                 f"{res['resumed_from']}, not 1, or saved "
+                                 f"off --save-every 2: {saves}")
+        log(f"[ranks] resumed at --save-every 2: iteration 1 saved in "
+            f"{saves[0] * 1e3:.2f} ms (the global rollout state's gather "
+            f"and rank 0's write), iteration 2 saved nothing")
+        # PPO's plain loop on the ranks' lanes: runs, bitwise reported
+        _train_ranks(2, MAIN_ARGS + [
+            "--domain", "traffic", "--simulator", "f-ials", "--iterations",
+            "2", "--aip", "fnn"], ref["f-ials"], "f-ials traffic fnn A=1",
+            tmp, bitwise=False)
+        gs = MAIN_ARGS + ["--domain", "traffic", "--simulator", "gs",
+                          "--iterations", "2"]
+        _, _, gs_one = _train(gs, "gs traffic A=1 (one process)")
+        _train_ranks(2, gs, gs_one, "gs traffic A=1", tmp, bitwise=False)
+    # (d) the steady iteration time at 1, 2 and 4 ranks
+    log(f"[ranks] steady iteration, traffic FNN A=1 (16 envs): 1 rank "
+        f"{_steady_s(ref['fnn']):.4f} s, 2 ranks {_steady_s(t2):.4f} s; "
+        f"warehouse GRU A=36: 1 rank "
+        f"{_steady_s(ref['warehouse gru']):.4f} s, 4 ranks "
+        f"{_steady_s(w4):.4f} s (ranks share the card on gloo)")
 
 
 @phase("engine entry points: engine.rollout, engine.step")
@@ -2368,7 +2564,11 @@ def main():
     card = phase_build()
     recs = phase_kernels(dev)
     launches, main_runs = phase_main_path()
-    phase_grid(dev, main_runs)
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_keep_") as keep:
+        ckpt_at_1 = str(Path(keep) / "traffic_at_1")
+        phase_grid(dev, main_runs, ckpt_at_1)
+        phase_ranks(main_runs, ckpt_at_1)
     launches.update(phase_engine(dev))
     launches.update(phase_scalar(dev))
     recs.update(phase_serve_kernels(dev))

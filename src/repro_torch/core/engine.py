@@ -29,9 +29,22 @@ plain loop). The choice follows the configuration, never the device.
 
 ``make_batched_ials`` / ``make_batched_multi_ials`` are the historical
 entry points, thin wrappers of ``make_unified_ials``. The reference's
-``use_horizon_kernel=`` and ``mesh=`` arguments are not taken: the route
-is chosen by the tensor's device (``kernels/ops.py``), and sharding is not
-ported.
+``use_horizon_kernel=`` argument is not taken: the route is chosen by the
+tensor's device (``kernels/ops.py``).
+
+``mesh=`` (a ``DeviceMesh`` of ``launch/mesh.py::make_host_mesh``, one
+process a rank) makes the engine one rank's share of a lane-parallel
+IALS under the rules of ``distributed/sharding.py``: ``reset`` and
+``noise_fn`` take the global ``n_envs``, draw the global lanes and agents
+from the generator (which advances as in the one-process run) and keep
+this rank's block; every other entry works on blocks; the stacked AIP
+weights are sliced to the rank's agents when the agent axis is taken. The
+kernels launch on the block with the K-parts planned for the global
+(A, B) (``aip_step.shard_plan``), so each lane sums in the order of
+the one-process launch and the sharded horizon is bitwise equal to it.
+The global batch must shard over every axis the agents leave
+(``sharding.require_lane_sharding``). A size-1 mesh or ``None`` leaves
+the one-process program untouched.
 
 Lanes are agent-major (lane ``a*B + b``) at the kernel boundary, so each
 kernel block indexes its own agent's stacked weights; bool/int8 LS leaves
@@ -46,6 +59,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from repro_torch.core import influence
+from repro_torch.distributed import sharding
 from repro_torch.envs.api import (BatchedEnv, BatchedLocalEnv, index_tree,
                                   kernel_codec)
 from repro_torch.nn.act import fast_sigmoid, random_bits, uniform_from_bits
@@ -139,7 +153,7 @@ def make_unified_ials(local_env: BatchedLocalEnv, aip_params,
                       n_agents: int = 1,
                       fixed_marginal: Optional[float] = None,
                       fixed_marginal_vec=None,
-                      stateless: bool = False) -> BatchedEnv:
+                      stateless: bool = False, mesh=None) -> BatchedEnv:
     """The fused rollout engine over a natively batched LS. With
     ``n_agents = A > 1`` the LS batch carries every agent of every env
     copy (B*A lanes) and ``aip_params`` leaves are (A, ...) stacked;
@@ -150,16 +164,21 @@ def make_unified_ials(local_env: BatchedLocalEnv, aip_params,
     (A, M) per agent) make it an F-IALS: u_t ~ Bernoulli(marginal), the
     AIP's output ignored. ``stateless=True`` (F-IALS only) keeps the
     ignored AIP state at its init value instead of advancing it; the leaf
-    stays, so the state has the same structure in every variant."""
+    stays, so the state has the same structure in every variant.
+
+    ``mesh`` makes it one rank's share (module docstring): ``n_agents``
+    stays the global A, and the blocks carry this rank's agents."""
     _check_stateless(stateless, fixed_marginal, fixed_marginal_vec)
-    A = n_agents
-    multi = A > 1
+    if mesh is not None and sharding.mesh_size(mesh) == 1:
+        mesh = None
+    A_glob = n_agents
+    multi = A_glob > 1
+    ash_glob = (A_glob,) if multi else ()
     M = local_env.spec.n_influence
     spec = dataclasses.replace(
         local_env.spec,
         name=local_env.spec.name + ("+multi-ials" if multi else "+ials"),
-        n_agents=A)
-    ash = (A,) if multi else ()
+        n_agents=A_glob)
     domain = local_env.kernel_domain
 
     def _device():
@@ -168,12 +187,25 @@ def make_unified_ials(local_env: BatchedLocalEnv, aip_params,
     if fixed_marginal_vec is not None:
         marg = torch.broadcast_to(
             torch.as_tensor(fixed_marginal_vec, dtype=torch.float32,
-                            device=_device()), ash + (M,))
+                            device=_device()), ash_glob + (M,))
     elif fixed_marginal is not None:
-        marg = torch.full(ash + (M,), fixed_marginal, dtype=torch.float32,
-                          device=_device())
+        marg = torch.full(ash_glob + (M,), fixed_marginal,
+                          dtype=torch.float32, device=_device())
     else:
         marg = None
+    if mesh is not None:        # this rank's agents of the stacked leaves
+        aip_params = sharding.shard_ials_aip_params(aip_params, mesh, A_glob)
+        if marg is not None:
+            marg = sharding.shard_ials_aip_params(marg, mesh, A_glob)
+        lanes_k = sharding.lane_factor(A_glob, mesh)
+        agent_ax = sharding.ials_lane_axes(1, A_glob, mesh)[1]
+    A = A_glob if mesh is None or agent_ax is None \
+        else A_glob // sharding.axis_size(mesh, agent_ax)   # local agents
+    ash = (A,) if multi else ()
+
+    def _plan_for(B):
+        """The global (A, B) whose launch plan a block's kernels take."""
+        return None if mesh is None else (A_glob, B * lanes_k)
 
     # (B, A, ...) <-> (B*A, ...) batch-major: the LS's native lane order
     def _flat(tree, B):
@@ -189,17 +221,38 @@ def make_unified_ials(local_env: BatchedLocalEnv, aip_params,
     def _batch(state: IALSState) -> int:
         return tree_leaves(state.ls_state)[0].shape[0]
 
+    def _unflat_glob(tree, B):
+        if not multi:
+            return tree
+        return tree_map(lambda l: l.reshape((B, A_glob) + l.shape[1:]), tree)
+
     def reset(gen: torch.Generator, n_envs: int):
-        return IALSState(
-            ls_state=_unflat(local_env.reset(gen, n_envs * A), n_envs),
-            aip_state=influence.init_state(aip_cfg, (n_envs,) + ash,
+        """(n_envs global) -> the state, this rank's block under a mesh."""
+        state = IALSState(
+            ls_state=_unflat_glob(local_env.reset(gen, n_envs * A_glob),
+                                  n_envs),
+            aip_state=influence.init_state(aip_cfg, (n_envs,) + ash_glob,
                                            device=_device()))
+        if mesh is None:
+            return state
+        sharding.require_lane_sharding(n_envs, A_glob, mesh)
+        return sharding.shard_ials_state(state, mesh, A_glob)
 
     def noise_fn(gen: torch.Generator, n_envs: int):
-        bits = random_bits((n_envs,) + ash + (M,), gen)
-        env = (local_env.noise_fn(gen, n_envs * A)
+        """(n_envs global) -> one tick's bits and LS noise (the LS noise's
+        (n_envs * A, ...) lanes batch-major), this rank's block under a
+        mesh."""
+        bits = random_bits((n_envs,) + ash_glob + (M,), gen)
+        env = (local_env.noise_fn(gen, n_envs * A_glob)
                if local_env.noise_fn is not None else None)
-        return {"bits": bits, "env": env}
+        if mesh is None:
+            return {"bits": bits, "env": env}
+        sharding.require_lane_sharding(n_envs, A_glob, mesh)
+        env = _flat(sharding.shard_ials_state(_unflat_glob(env, n_envs),
+                                              mesh, A_glob),
+                    n_envs // lanes_k)
+        return {"bits": sharding.shard_ials_state(bits, mesh, A_glob),
+                "env": env}
 
     def step_det(state: IALSState, actions, noise):
         B = actions.shape[0]
@@ -234,17 +287,32 @@ def make_unified_ials(local_env: BatchedLocalEnv, aip_params,
             obs, r, info
 
     def step(state: IALSState, actions, gen: torch.Generator):
-        return step_det(state, actions, noise_fn(gen, actions.shape[0]))
+        B = actions.shape[0] * (1 if mesh is None else lanes_k)
+        return step_det(state, actions, noise_fn(gen, B))
 
     # --- whole-horizon path: agent-major lanes at the kernel boundary ---
+    # (the module's folds, with the agent axis kept at one local agent)
+    def _lf(x):
+        return lane_fold(x, A) if A > 1 or not multi else x[:, 0]
+
+    def _lu(x, B):
+        return lane_unfold(x, A, B) if A > 1 or not multi else x[:, None]
+
+    def _sf(x):
+        return stream_fold(x, A) if A > 1 or not multi else x[:, :, 0]
+
+    def _su(x, B):
+        return (stream_unfold(x, A, B) if A > 1 or not multi
+                else x[:, :, None])
+
     def _noise_fold(x, B):   # (T, B*A, ...) batch-major -> (T, A*B, ...)
         if not multi:
             return x
-        return stream_fold(x.reshape((x.shape[0], B, A) + x.shape[2:]), A)
+        return _sf(x.reshape((x.shape[0], B, A) + x.shape[2:]))
 
     def _io(state, noise, B):
         return kernel_io(local_env,
-                         tree_map(lambda l: lane_fold(l, A), state.ls_state),
+                         tree_map(_lf, state.ls_state),
                          tree_map(lambda l: _noise_fold(l, B),
                                   noise["env"]))
 
@@ -260,13 +328,13 @@ def make_unified_ials(local_env: BatchedLocalEnv, aip_params,
                 p["head"]["w"], p["head"]["b"])
 
     def _aip_fold(aip_state):             # -> (L, K) flat kernel state
-        s = lane_fold(aip_state, A)
+        s = _lf(aip_state)
         return s.reshape(s.shape[0], -1)
 
     def _aip_unfold(sT, B):
         if aip_cfg.kind == "fnn":
             sT = sT.reshape(-1, aip_cfg.stack, aip_cfg.d_in)
-        return lane_unfold(sT, A, B)
+        return _lu(sT, B)
 
     def loop_rollout(state: IALSState, actions, noise):
         """The F-IALS horizon: a loop of ``step_det`` over the T-stacked
@@ -289,12 +357,12 @@ def make_unified_ials(local_env: BatchedLocalEnv, aip_params,
         final, sT, rews = fn(
             io.ls, _aip_fold(state.aip_state),
             *_aip_weights(_stacked(aip_params)),
-            stream_fold(actions, A).to(torch.int32),
-            stream_fold(noise["bits"], A), io.noise, n_agents=A,
-            tick_fn=io.tick_fn, dset_fn=io.dset_fn, domain=domain)
-        ls_T = tree_map(lambda l: lane_unfold(l, A, B), io.decode(final))
+            _sf(actions).to(torch.int32), _sf(noise["bits"]), io.noise,
+            n_agents=A, tick_fn=io.tick_fn, dset_fn=io.dset_fn,
+            domain=domain, plan_for=_plan_for(B))
+        ls_T = tree_map(lambda l: _lu(l, B), io.decode(final))
         return (IALSState(ls_state=ls_T, aip_state=_aip_unfold(sT, B)),
-                stream_unfold(rews, A, B))
+                _su(rews, B))
 
     def policy_rollout(state: IALSState, frames, t_in_ep, pol_params,
                        gumbel, noise, reset_states, *, episode_len: int,
@@ -309,8 +377,7 @@ def make_unified_ials(local_env: BatchedLocalEnv, aip_params,
         B = _batch(state)
         T = gumbel.shape[0]
         io = _io(state, noise, B)
-        rls = io.encode(tree_leaves(tree_map(lambda l: stream_fold(l, A),
-                                             reset_states.ls_state)))
+        rls = io.encode(tree_leaves(tree_map(_sf, reset_states.ls_state)))
         ticks = (t_in_ep[None, :] + 1
                  + torch.arange(T, dtype=torch.int32,
                                 device=t_in_ep.device)[:, None])
@@ -319,26 +386,25 @@ def make_unified_ials(local_env: BatchedLocalEnv, aip_params,
         done_lanes = done_env.to(torch.int32)
         if multi:                       # lane a*B + b <-> env b
             done_lanes = done_lanes.repeat(1, A)
-        frames_l = lane_fold(frames, A)                   # (L, k, d)
+        frames_l = _lf(frames)                            # (L, k, d)
         stack, d_obs = frames_l.shape[-2], frames_l.shape[-1]
         fin, sT, fT, x, a, logits, v, r = ops.policy_rollout(
             io.ls, _aip_fold(state.aip_state),
             frames_l.reshape(frames_l.shape[0], -1),
             _aip_weights(_stacked(aip_params)),
-            flat_policy_weights(pol_params), stream_fold(gumbel, A),
-            stream_fold(noise["bits"], A), done_lanes, io.noise, rls,
+            flat_policy_weights(pol_params), _sf(gumbel),
+            _sf(noise["bits"]), done_lanes, io.noise, rls,
             kind=aip_cfg.kind, n_agents=A, fast_gates=fast_gates,
             tick_fn=io.tick_fn, dset_fn=io.dset_fn, obs_fn=io.obs_fn,
-            domain=domain)
-        ls_T = tree_map(lambda l: lane_unfold(l, A, B), io.decode(fin))
-        frames_T = lane_unfold(fT.reshape(-1, stack, d_obs), A, B)
-        r_u = stream_unfold(r, A, B)
+            domain=domain, plan_for=_plan_for(B))
+        ls_T = tree_map(lambda l: _lu(l, B), io.decode(fin))
+        frames_T = _lu(fT.reshape(-1, stack, d_obs), B)
+        r_u = _su(r, B)
         done_b = torch.broadcast_to(
             done_env.reshape(done_env.shape + (1,) * (1 if multi else 0)),
             r_u.shape).to(torch.float32)
-        out = {"x": stream_unfold(x, A, B), "a": stream_unfold(a, A, B),
-               "logits": stream_unfold(logits, A, B),
-               "v": stream_unfold(v, A, B), "r": r_u, "done": done_b}
+        out = {"x": _su(x, B), "a": _su(a, B), "logits": _su(logits, B),
+               "v": _su(v, B), "r": r_u, "done": done_b}
         return (IALSState(ls_state=ls_T, aip_state=_aip_unfold(sT, B)),
                 frames_T, t_out, out)
 
@@ -350,7 +416,7 @@ def make_unified_ials(local_env: BatchedLocalEnv, aip_params,
     if marg is not None:
         return BatchedEnv(spec=spec, reset=reset, step=step,
                           observe=observe, rollout=loop_rollout,
-                          noise_fn=noise_fn, step_det=step_det)
+                          noise_fn=noise_fn, step_det=step_det, mesh=mesh)
     has_horizon = (local_env.rollout_tick is not None
                    and local_env.noise_fn is not None)
     return BatchedEnv(
@@ -359,26 +425,28 @@ def make_unified_ials(local_env: BatchedLocalEnv, aip_params,
         step_det=step_det,
         policy_rollout=(policy_rollout
                         if has_horizon and local_env.obs_fn is not None
-                        else None))
+                        else None),
+        mesh=mesh)
 
 
 def make_batched_ials(local_env: BatchedLocalEnv, aip_params,
                       aip_cfg: influence.AIPConfig, *,
                       fixed_marginal: Optional[float] = None,
                       fixed_marginal_vec=None,
-                      stateless: bool = False) -> BatchedEnv:
+                      stateless: bool = False, mesh=None) -> BatchedEnv:
     """The single-agent engine: ``make_unified_ials`` at A = 1."""
     return make_unified_ials(local_env, aip_params, aip_cfg, n_agents=1,
                              fixed_marginal=fixed_marginal,
                              fixed_marginal_vec=fixed_marginal_vec,
-                             stateless=stateless)
+                             stateless=stateless, mesh=mesh)
 
 
 def make_batched_multi_ials(local_env: BatchedLocalEnv, aip_params,
                             aip_cfg: influence.AIPConfig, n_agents: int,
                             *, fixed_marginal: Optional[float] = None,
                             fixed_marginal_vec=None,
-                            stateless: bool = False) -> BatchedEnv:
+                            stateless: bool = False,
+                            mesh=None) -> BatchedEnv:
     """The Distributed IALS, one AIP per agent region (``aip_params``
     leaves (A, ...) stacked): ``make_unified_ials`` with the agent axis
     on."""
@@ -386,4 +454,4 @@ def make_batched_multi_ials(local_env: BatchedLocalEnv, aip_params,
                              n_agents=n_agents,
                              fixed_marginal=fixed_marginal,
                              fixed_marginal_vec=fixed_marginal_vec,
-                             stateless=stateless)
+                             stateless=stateless, mesh=mesh)

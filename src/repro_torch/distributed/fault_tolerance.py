@@ -35,10 +35,13 @@ class TrainingGuard:
     it while the save cleared it)."""
 
     def __init__(self, ckpt_dir: str | Path, *, save_every: int = 100,
-                 keep: int = 3, install_signal_handler: bool = True):
+                 keep: int = 3, install_signal_handler: bool = True,
+                 writer: bool = True):
         self.ckpt_dir = Path(ckpt_dir)
         self.save_every = save_every
         self.keep = keep
+        self.writer = writer      # False: decide as a writer would, write
+        #                           nothing (the ranks other than 0)
         self.preempted = False
         self.answered = False     # the last maybe_save answered a signal
         self._prev_handler = None
@@ -73,17 +76,31 @@ class TrainingGuard:
         state, step, _ = ckpt.restore(self.ckpt_dir, target, step)
         return state, step
 
+    def periodic(self, step: int) -> bool:
+        """Whether ``step`` is a periodic save's (every ``save_every``)."""
+        return self.save_every > 0 and step > 0 and step % self.save_every == 0
+
     def maybe_save(self, step: int, state, *, force: bool = False,
-                   metadata: Optional[Dict] = None) -> bool:
+                   metadata: Optional[Dict] = None,
+                   preempted: Optional[bool] = None) -> bool:
+        """Save ``state`` if a save is due: forced, periodic, or answering
+        a signal -> whether it was due. ``state`` may be a function that
+        makes the tree, called only when a save is due (on every rank
+        alike, writer or not: it may be a collective). ``preempted``: the
+        signal as the ranks agreed on it, read instead of this process's
+        flag, so every rank decides alike; a signal that arrives after
+        the agreement stays set for the next call."""
         # only a signal seen before the save is answered by it: one that
         # lands while a periodic save writes stays set for the next call
         # (the reference clears it either way, and so loses such a signal)
-        answered = self.answered = self.preempted
-        due = force or answered or \
-            (self.save_every > 0 and step > 0 and step % self.save_every == 0)
+        answered = self.answered = (self.preempted if preempted is None
+                                    else preempted)
+        due = force or answered or self.periodic(step)
         if due:
-            ckpt.save(self.ckpt_dir, step, state, metadata=metadata,
-                      keep=self.keep)
+            tree = state() if callable(state) else state
+            if self.writer:
+                ckpt.save(self.ckpt_dir, step, tree, metadata=metadata,
+                          keep=self.keep)
             if answered:
                 self.preempted = False  # the flush answered the signal
         return due

@@ -1,0 +1,423 @@
+"""Lane data parallelism of the IALS engine and PPO (the IALS half of
+``repro/distributed/sharding.py``, over ``torch.distributed``).
+
+The rules are the reference's, pure functions of shapes and of the mesh's
+axis names and sizes. The engine's state leaves are (B, ...) single-agent
+or (B, A, ...) multi-agent, rollout-state leaves follow the same layout,
+and streamed leaves prepend a horizon axis ((T, B, [A,] ...)):
+
+- env lanes (B) shard over the data-parallel axes ("pod", "data"), plus
+  "model" when the agent axis leaves it idle;
+- the agent axis (A) and the stacked per-agent AIP weights (leading
+  (A, ...) leaves) co-shard over "model" when A divides it;
+- PPO policy and optimizer parameters replicate.
+
+Every rule degrades to replication when a dim does not divide its axis.
+
+A spec is a tuple with one entry per dimension (an axis name, a tuple of
+names, or ``None``), trailing ``None``s trimmed: ``tuple(P(...))`` of the
+reference's ``PartitionSpec``. A mesh is a ``DeviceMesh``
+(``launch/mesh.py::make_host_mesh``) or any object with ``.axis_names`` /
+``.mesh_dim_names`` and ``.shape`` (a dict, or a tuple in the names'
+order). The rules read nothing else.
+
+The eager counterparts of the reference's ``device_put`` /
+``with_sharding_constraint``, for a ``DeviceMesh`` over the whole
+process group (one rank a mesh position):
+
+- ``shard_ials_state`` / ``shard_ials_stream`` take a *global* tree and
+  return this rank's block of every leaf;
+- ``gather_ials_state`` / ``gather_ials_stream`` are their inverse, an
+  ``all_gather`` over the world that rebuilds the global tree;
+- ``constrain_ials_state`` checks that local blocks match the rule (eager
+  PyTorch has no layout to constrain); a no-op on a size-1 mesh.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.tree import tree_map
+
+IALS_LANE_AXES = ("pod", "data")
+IALS_AGENT_AXIS = "model"
+
+
+class _View(NamedTuple):
+    axis_names: tuple
+    shape: dict
+
+
+def _view(mesh) -> _View:
+    names = getattr(mesh, "mesh_dim_names", None) or mesh.axis_names
+    names = tuple(names)
+    shape = mesh.shape
+    if hasattr(shape, "items"):
+        return _View(names, dict(shape))
+    return _View(names, dict(zip(names, tuple(shape))))
+
+
+def axis_size(mesh, name: str) -> int:
+    m = _view(mesh)
+    return m.shape[name] if name in m.axis_names else 1
+
+
+def mesh_size(mesh) -> int:
+    """Device count of a mesh (only its sizes consulted)."""
+    n = 1
+    for v in _view(mesh).shape.values():
+        n *= v
+    return n
+
+
+def ials_lane_axes(batch: int, n_agents: int, mesh):
+    """-> (lane_axes, agent_axis | None): which mesh axes the env-lane dim
+    and the agent dim take, with divisibility fallback. The two are
+    decided together so lanes can absorb an idle "model" axis."""
+    m = _view(mesh)
+    agent_ax = None
+    if (n_agents > 1 and IALS_AGENT_AXIS in m.axis_names
+            and m.shape[IALS_AGENT_AXIS] > 1
+            and n_agents % m.shape[IALS_AGENT_AXIS] == 0):
+        agent_ax = IALS_AGENT_AXIS
+    lane = []
+    rem = batch
+    cand = IALS_LANE_AXES + (() if agent_ax else (IALS_AGENT_AXIS,))
+    for a in cand:
+        if a in m.axis_names and m.shape[a] > 1 and rem % m.shape[a] == 0:
+            lane.append(a)
+            rem //= m.shape[a]
+    return tuple(lane), agent_ax
+
+
+def _lead(axes):
+    if not axes:
+        return None
+    return axes if len(axes) > 1 else axes[0]
+
+
+def _pspec(specs, ndim) -> tuple:
+    """Pad to ndim, then trim trailing Nones (a replicated leaf is ())."""
+    specs = list(specs) + [None] * (ndim - len(specs))
+    while specs and specs[-1] is None:
+        specs.pop()
+    return tuple(specs)
+
+
+def _shape(leaf) -> tuple:
+    return tuple(getattr(leaf, "shape", ()))
+
+
+def ials_state_pspec(leaf, mesh, n_agents: int) -> tuple:
+    """One engine-state / rollout-state leaf -> spec. Dim 0 is the
+    env-lane (B) dim; dim 1 is the agent dim when the leaf carries it
+    (``shape[1] == n_agents``); everything else replicates."""
+    shape = _shape(leaf)
+    if len(shape) == 0:
+        return ()
+    lane, agent_ax = ials_lane_axes(shape[0], n_agents, mesh)
+    specs = [_lead(lane)]
+    if (n_agents > 1 and len(shape) >= 2 and shape[1] == n_agents
+            and agent_ax is not None):
+        specs.append(agent_ax)
+    return _pspec(specs, len(shape))
+
+
+def ials_state_specs(state, mesh, n_agents: int = 1):
+    """The spec of every leaf of an engine ``IALSState`` (or a PPO
+    ``RolloutState``), in the tree's structure (read the leaves back with
+    ``spec_leaves``)."""
+    return tree_map(lambda l: ials_state_pspec(l, mesh, n_agents), state)
+
+
+def ials_stream_pspec(leaf, mesh, batch: int, n_agents: int) -> tuple:
+    """A streamed (T, B, [A,] ...) leaf: time replicated, then the state
+    rule shifted one dim right."""
+    shape = _shape(leaf)
+    if len(shape) <= 1:
+        return ()
+    lane, agent_ax = ials_lane_axes(batch, n_agents, mesh)
+    specs = [None, _lead(lane) if shape[1] == batch else None]
+    if (n_agents > 1 and len(shape) >= 3 and shape[2] == n_agents
+            and agent_ax is not None and shape[1] == batch):
+        specs.append(agent_ax)
+    return _pspec(specs, len(shape))
+
+
+def ials_stream_specs(tree, mesh, batch: int, n_agents: int = 1):
+    return tree_map(lambda l: ials_stream_pspec(l, mesh, batch, n_agents),
+                    tree)
+
+
+def ials_aip_param_pspec(leaf, mesh, n_agents: int = 1,
+                         batch: int = 0) -> tuple:
+    """A stacked (A, ...) AIP leaf puts A on the axis the state's agent
+    dim took (replicated when A does not divide); single-agent AIPs
+    replicate."""
+    _, agent_ax = ials_lane_axes(batch or 1, n_agents, mesh)
+    shape = _shape(leaf)
+    if (n_agents > 1 and len(shape) >= 1 and shape[0] == n_agents
+            and agent_ax is not None):
+        return _pspec([agent_ax], len(shape))
+    return ()
+
+
+def ials_aip_param_specs(params, mesh, n_agents: int = 1, batch: int = 0):
+    return tree_map(
+        lambda l: ials_aip_param_pspec(l, mesh, n_agents, batch), params)
+
+
+def ials_replicated_specs(params):
+    """PPO policy / optimizer params: replicated everywhere (pure DP)."""
+    return tree_map(lambda _: (), params)
+
+
+def spec_leaves(specs, like) -> list:
+    """The specs of a ``*_specs`` tree in ``tree_leaves(like)`` order."""
+    out = []
+    tree_map(lambda _, s: out.append(s), like, specs)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# this rank's blocks
+# ---------------------------------------------------------------------------
+
+def _axes(entry) -> tuple:
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def _coordinate(mesh, rank=None) -> dict:
+    """{axis name: index} of ``rank`` (default: this process) in a
+    ``DeviceMesh`` (or a duck mesh with ``get_coordinate()``)."""
+    names = _view(mesh).axis_names
+    if rank is None:
+        coord = mesh.get_coordinate()
+        if coord is None:
+            raise ValueError("this rank is not in the mesh")
+    else:
+        hit = (mesh.mesh == rank).nonzero()
+        if hit.shape[0] != 1:
+            raise ValueError(f"rank {rank} is not in the mesh once")
+        coord = hit[0].tolist()
+    return dict(zip(names, coord))
+
+
+def _block_index(entry, sizes, coord):
+    """-> (index of the block, number of blocks) of one spec entry: the
+    first axis named is the major one, as in a ``PartitionSpec``."""
+    idx, n = 0, 1
+    for a in _axes(entry):
+        idx = idx * sizes[a] + coord[a]
+        n *= sizes[a]
+    return idx, n
+
+
+def local_block(leaf: torch.Tensor, spec: tuple, mesh, coord=None):
+    """This rank's block of a global ``leaf`` under ``spec``."""
+    sizes = _view(mesh).shape
+    coord = coord or _coordinate(mesh)
+    out = leaf
+    for dim, entry in enumerate(spec):
+        idx, n = _block_index(entry, sizes, coord)
+        if n == 1:
+            continue
+        if leaf.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(leaf.shape)} does not "
+                             f"divide into {n} blocks ({entry})")
+        size = leaf.shape[dim] // n
+        out = out.narrow(dim, idx * size, size)
+    return out.contiguous()
+
+
+def gather_block(local: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
+    """The global leaf of this rank's block ``local`` under ``spec``: one
+    ``all_gather`` over the world (every rank's block, replicas
+    included), each block written to its place."""
+    if not any(_axes(e) for e in spec):
+        return local
+    if not dist.is_initialized():
+        raise RuntimeError("gathering a sharded tree needs an initialised "
+                           "process group")
+    sizes = _view(mesh).shape
+    world = dist.get_world_size()
+    if mesh_size(mesh) != world:
+        raise ValueError(f"the mesh holds {mesh_size(mesh)} ranks, the "
+                         f"process group {world}")
+    src = local.contiguous()
+    wire = src.view(torch.uint8) if src.dtype == torch.bool else src
+    blocks = [torch.empty_like(wire) for _ in range(world)]
+    dist.all_gather(blocks, wire)
+    gshape = list(local.shape)
+    for dim, entry in enumerate(spec):
+        gshape[dim] *= _block_index(entry, sizes, {a: 0 for a in sizes})[1]
+    out = torch.empty(gshape, dtype=wire.dtype, device=local.device)
+    for r, blk in enumerate(blocks):
+        coord = _coordinate(mesh, r)
+        idx = []
+        for dim, entry in enumerate(spec):
+            i, n = _block_index(entry, sizes, coord)
+            d = local.shape[dim]
+            idx.append(slice(i * d, (i + 1) * d) if n > 1 else slice(None))
+        out[tuple(idx)] = blk
+    return out.view(torch.bool) if src.dtype == torch.bool else out
+
+
+def lane_factor(n_agents: int, mesh) -> int:
+    """How many lane blocks a fully lane-sharded batch has: the product of
+    every lane-candidate axis the agents leave (the sharded engine and
+    ``rl_train`` require such a batch; ``require_lane_sharding``)."""
+    m = _view(mesh)
+    _, agent_ax = ials_lane_axes(1, n_agents, mesh)
+    n = 1
+    for a in IALS_LANE_AXES + (() if agent_ax else (IALS_AGENT_AXIS,)):
+        if a in m.axis_names:
+            n *= m.shape[a]
+    return n
+
+
+def require_lane_sharding(batch: int, n_agents: int, mesh):
+    """Raise unless ``batch`` lanes shard over every axis the agents leave
+    (the reference would replicate them: under ``torch.distributed``
+    every rank would then run every lane, which no caller asks for)."""
+    k = lane_factor(n_agents, mesh)
+    if batch % k:
+        raise ValueError(
+            f"n_envs={batch} does not divide over the {k} lane blocks of "
+            f"the mesh {_view(mesh).shape} (n_agents={n_agents}); pick an "
+            f"n_envs that is a multiple of {k}")
+
+
+def _global_state_shape(shape, mesh, n_agents, batch):
+    """The global shape of a rank's block of a ``batch``-lane state leaf."""
+    _, agent_ax = ials_lane_axes(batch, n_agents, mesh)
+    g = list(shape)
+    if g:
+        g[0] = batch
+    if (agent_ax is not None and len(g) >= 2
+            and g[1] * axis_size(mesh, agent_ax) == n_agents):
+        g[1] = n_agents
+    return tuple(g)
+
+
+def _global_stream_shape(shape, mesh, n_agents, batch):
+    return shape[:1] + _global_state_shape(shape[1:], mesh, n_agents, batch)
+
+
+class _Leaf(NamedTuple):
+    shape: tuple
+
+
+def shard_ials_state(tree, mesh, n_agents: int = 1):
+    """This rank's block of every leaf of a global engine / rollout state
+    (the eager twin of ``constrain_ials_state``); the tree as it is on a
+    size-1 mesh or ``None``."""
+    if mesh is None or mesh_size(mesh) == 1:
+        return tree
+    coord = _coordinate(mesh)
+    return tree_map(lambda l: local_block(
+        l, ials_state_pspec(l, mesh, n_agents), mesh, coord), tree)
+
+
+def shard_ials_stream(tree, mesh, batch: int, n_agents: int = 1):
+    """This rank's block of every leaf of a global (T, B, [A,] ...)
+    stream."""
+    if mesh is None or mesh_size(mesh) == 1:
+        return tree
+    coord = _coordinate(mesh)
+    return tree_map(lambda l: local_block(
+        l, ials_stream_pspec(l, mesh, batch, n_agents), mesh, coord), tree)
+
+
+def gather_ials_state(tree, mesh, n_agents: int, batch: int):
+    """The inverse of ``shard_ials_state``: the global tree, on every rank.
+    ``batch`` is the global lane count (a block's lanes cannot tell a
+    sharded batch from a replicated one)."""
+    if mesh is None or mesh_size(mesh) == 1:
+        return tree
+    return tree_map(lambda l: gather_block(l, ials_state_pspec(
+        _Leaf(_global_state_shape(tuple(l.shape), mesh, n_agents, batch)),
+        mesh, n_agents), mesh), tree)
+
+
+def gather_ials_stream(tree, mesh, batch: int, n_agents: int = 1):
+    """The inverse of ``shard_ials_stream``."""
+    if mesh is None or mesh_size(mesh) == 1:
+        return tree
+    return tree_map(lambda l: gather_block(l, ials_stream_pspec(
+        _Leaf(_global_stream_shape(tuple(l.shape), mesh, n_agents, batch)),
+        mesh, batch, n_agents), mesh), tree)
+
+
+def shard_ials_aip_params(params, mesh, n_agents: int = 1):
+    """This rank's agents of stacked (A, ...) AIP weights
+    (``ials_aip_param_specs``); single-agent AIPs as they are."""
+    if mesh is None or mesh_size(mesh) == 1:
+        return params
+    coord = _coordinate(mesh)
+    return tree_map(lambda l: local_block(
+        l, ials_aip_param_pspec(l, mesh, n_agents), mesh, coord), params)
+
+
+def constrain_ials_state(state, mesh, n_agents: int, batch: int):
+    """Check that every leaf of ``state`` is the block the IALS rule gives
+    a rank of a ``batch``-lane global state; returns ``state``. A no-op on
+    a size-1 mesh or ``None``, as the reference's is."""
+    if mesh is None or mesh_size(mesh) == 1:
+        return state
+    sizes = _view(mesh).shape
+
+    def check(l):
+        g = _global_state_shape(tuple(l.shape), mesh, n_agents, batch)
+        spec = ials_state_pspec(_Leaf(g), mesh, n_agents)
+        want = list(g)
+        for dim, entry in enumerate(spec):
+            want[dim] //= _block_index(entry, sizes,
+                                       {a: 0 for a in sizes})[1]
+        if tuple(want) != tuple(l.shape):
+            raise ValueError(
+                f"a leaf of shape {tuple(l.shape)} is not a rank's block "
+                f"of a {batch}-lane state ({g} under {spec}, block "
+                f"{tuple(want)})")
+        return l
+
+    tree_map(check, state)
+    return state
+
+
+def shard_env(env, mesh, n_agents: int = 1):
+    """A ``BatchedEnv`` whose ``reset`` / ``noise_fn`` draw the global
+    ``n_envs`` from the generator and keep this rank's lanes, and whose
+    ``step`` draws the global noise: the GS under a mesh. Its agents never
+    shard (a GS couples them), so a mesh whose "model" axis would take
+    the agent axis raises. The env as it is on a size-1 mesh or ``None``."""
+    if mesh is None or mesh_size(mesh) == 1:
+        return env
+    if ials_lane_axes(1, n_agents, mesh)[1] is not None:
+        raise ValueError(
+            f"shard_env: the mesh {_view(mesh).shape} would shard the "
+            f"{n_agents} agents of {env.spec.name}, whose simulator couples "
+            f"them; use a mesh with model = 1")
+    if env.noise_fn is None or env.step_det is None:
+        raise ValueError(f"shard_env: {env.spec.name} has no noise_fn / "
+                         f"step_det to draw its global noise from")
+    k = lane_factor(n_agents, mesh)
+
+    def reset(gen, n_envs):
+        require_lane_sharding(n_envs, n_agents, mesh)
+        return shard_ials_state(env.reset(gen, n_envs), mesh, n_agents)
+
+    def noise_fn(gen, n_envs):
+        require_lane_sharding(n_envs, n_agents, mesh)
+        return shard_ials_state(env.noise_fn(gen, n_envs), mesh, n_agents)
+
+    def step(state, actions, gen):
+        return env.step_det(state, actions,
+                            noise_fn(gen, actions.shape[0] * k))
+
+    return env._replace(reset=reset, noise_fn=noise_fn, step=step,
+                        mesh=mesh)

@@ -105,6 +105,9 @@ class BatchedEnv(NamedTuple):
     noise_fn: Any = None   # (gen, n_envs) -> one tick's randomness pytree
     step_det: Any = None   # (state, actions, noise) -> (state, obs, r, info)
     policy_rollout: Any = None  # the actor-in-the-loop horizon (engine)
+    mesh: Any = None       # set: reset / noise_fn take the global n_envs
+    #                        and return this rank's block, and every other
+    #                        entry works on blocks (distributed/sharding.py)
 
 
 class BatchedLocalEnv(NamedTuple):

@@ -381,14 +381,28 @@ def aip_step(d, h, wx, wh, b, hw, hb, bits):
     return tuple(o[:, 0] for o in out)
 
 
+def shard_plan(A: int, B: int, widths: "RolloutWidths", cell: str,
+               with_policy: bool, plan_for=None, **kw) -> "RolloutPlan":
+    """The launch plan of an A x B block of a larger launch: its own lanes,
+    threads and shared bytes, and the K-parts (``splits``) of the plan
+    for ``plan_for`` = the global (A, B), so each lane of the block sums
+    in the order the one-process launch sums it (the K-parts set the
+    order; lanes and threads do not). ``plan_for=None`` is
+    ``rollout_plan`` of the block itself; ``kw`` overrides as there."""
+    if plan_for is not None and "splits" not in kw:
+        kw["splits"] = rollout_plan(*plan_for, widths, cell,
+                                    with_policy).splits
+    return rollout_plan(A, B, widths, cell, with_policy, **kw)
+
+
 def rollout_args(ls, s0, weights, actions, bits, noise, *, n_agents,
                  domain, D, H, M, stack, cell, lanes=None,
-                 threads=None):
+                 threads=None, plan_for=None):
     """Check a whole-horizon rollout's inputs (actions streamed, no
     policy), allocate its outputs and fill its IalsArgs with the launch
-    plan of ``rollout_plan`` for AIP ``cell`` ("gru" or "fnn"; ``lanes``
-    / ``threads`` override the plan) -> (args, outputs, inputs kept
-    alive)."""
+    plan of ``shard_plan`` for AIP ``cell`` ("gru" or "fnn"; ``lanes``
+    / ``threads`` override the plan; ``plan_for`` the global (A, B) of a
+    sharded launch) -> (args, outputs, inputs kept alive)."""
     lay = domain_layout(domain)
     if D != lay.D:
         raise ValueError(f"the AIP reads a d-set of {D}; the {domain.name} "
@@ -407,10 +421,10 @@ def rollout_args(ls, s0, weights, actions, bits, noise, *, n_agents,
     s_out = torch.empty_like(s0)
     rew = torch.empty((T, L), dtype=torch.float32, device=s0.device)
     args = _base_args(A, L // A, D, H, M, domain, T=T, stack=stack)
-    _set_plan(args, rollout_plan(
+    _set_plan(args, shard_plan(
         A, L // A, RolloutWidths(D=D, H=H, M=M, stack=stack,
                                  state_ints=lay.state_ints), cell, False,
-        lanes=lanes, threads=threads))
+        plan_for, lanes=lanes, threads=threads))
     _set_leaves(args.ls_in, ls_in)
     _set_leaves(args.ls_out, ls_out)
     _set_leaves(args.noise, nz)
@@ -424,7 +438,7 @@ def rollout_args(ls, s0, weights, actions, bits, noise, *, n_agents,
 
 
 def _gru_rollout(counter, ls, h0, wx, wh, b, hw, hb, actions, bits, noise,
-                 *, n_agents: int, domain):
+                 *, n_agents: int, domain, plan_for=None):
     A, D, G3 = wx.shape
     H = G3 // 3
     M = hw.shape[2]
@@ -433,24 +447,26 @@ def _gru_rollout(counter, ls, h0, wx, wh, b, hw, hb, actions, bits, noise,
           _f32(hb, "hb", (A, M))]
     args, out, keep = rollout_args(ls, h0, ws, actions, bits, noise,
                                    n_agents=n_agents, domain=domain, D=D,
-                                   H=H, M=M, stack=1, cell="gru")
+                                   H=H, M=M, stack=1, cell="gru",
+                                   plan_for=plan_for)
     launch("ials_aip_rollout_multi", _counters(counter, domain),
            keep[2].device, ctypes.byref(args))
     return out
 
 
 def aip_rollout_multi(ls, h0, wx, wh, b, hw, hb, actions, bits, noise, *,
-                      n_agents: int, domain):
+                      n_agents: int, domain, plan_for=None):
     """Whole-horizon IALS rollout, GRU backbone, ONE launch by the plan
     of ``rollout_plan``: ls the domain's int32 leaves ((L, ...) each;
     traffic lanes (L, 4, lane_len) and phase (L,), the warehouse pos (L, 2)
     and items (L, 12)), h0 (L, H), stacked weights, actions (T, L), bits
     (T, L, M), noise the domain's int32 (T, L, ...) leaves (the
     warehouse's spawns; none for traffic) -> (final ls, h_T, rewards
-    (T, L))."""
+    (T, L)). ``plan_for``: the global (A, B) of a sharded launch
+    (``shard_plan``)."""
     return _gru_rollout("aip_rollout_multi", ls, h0, wx, wh, b, hw, hb,
                         actions, bits, noise, n_agents=n_agents,
-                        domain=domain)
+                        domain=domain, plan_for=plan_for)
 
 
 def aip_rollout(ls, h0, wx, wh, b, hw, hb, actions, bits, noise, *,
@@ -464,7 +480,7 @@ def aip_rollout(ls, h0, wx, wh, b, hw, hb, actions, bits, noise, *,
 
 
 def fnn_rollout(ls, buf0, w1, b1, w2, b2, hw, hb, actions, bits, noise, *,
-                n_agents: int, domain):
+                n_agents: int, domain, plan_for=None):
     """Whole-horizon IALS rollout, FNN backbone, ONE launch by the plan of
     ``rollout_plan``: buf0 (L, stack*d_in) flat frame buffers; otherwise
     as ``aip_rollout_multi``."""
@@ -479,7 +495,8 @@ def fnn_rollout(ls, buf0, w1, b1, w2, b2, hw, hb, actions, bits, noise, *,
           _f32(hw, "hw", (A, K, M)), _f32(hb, "hb", (A, M))]
     args, out, keep = rollout_args(ls, buf0, ws, actions, bits, noise,
                                    n_agents=n_agents, domain=domain, D=D,
-                                   H=K, M=M, stack=SD // D, cell="fnn")
+                                   H=K, M=M, stack=SD // D, cell="fnn",
+                                   plan_for=plan_for)
     launch("ials_fnn_rollout", _counters("fnn_rollout", domain),
            keep[2].device, ctypes.byref(args))
     return out
@@ -488,11 +505,12 @@ def fnn_rollout(ls, buf0, w1, b1, w2, b2, hw, hb, actions, bits, noise, *,
 def policy_rollout_args(ls, s0, frames0, aip_w, pol_w, gumbel, bits, done,
                         noise, reset_ls, *, kind: str, n_agents: int,
                         fast_gates: bool, domain, lanes=None, cluster=None,
-                        threads=None):
+                        threads=None, plan_for=None):
     """Check ``policy_rollout``'s inputs, allocate its outputs and fill
-    its IalsArgs with the launch plan of ``rollout_plan`` (``lanes``,
-    ``cluster``, ``threads`` override it) -> (entry, counters, args,
-    outputs, plan, inputs kept alive)."""
+    its IalsArgs with the launch plan of ``shard_plan`` (``lanes``,
+    ``cluster``, ``threads`` override it; ``plan_for`` the global (A, B)
+    of a sharded launch) -> (entry, counters, args, outputs, plan, inputs
+    kept alive)."""
     lay = domain_layout(domain)
     L, SD = s0.shape
     A = n_agents
@@ -531,10 +549,10 @@ def policy_rollout_args(ls, s0, frames0, aip_w, pol_w, gumbel, bits, done,
     bits = _i32(bits, "bits", (T, L, M))
     done = _i32(done, "done", (T, L))
     dev = s0.device
-    plan = rollout_plan(A, L // A, RolloutWidths(
+    plan = shard_plan(A, L // A, RolloutWidths(
         D=D, H=H, M=M, stack=stack, S=S, obs_dim=obs_dim, Hp=Hp, n_act=NA,
         state_ints=lay.state_ints),
-        kind, True, lanes=lanes, cluster=cluster, threads=threads)
+        kind, True, plan_for, lanes=lanes, cluster=cluster, threads=threads)
     ls_out = tuple(torch.empty_like(l) for l in ls_in)
     s_out, f_out = torch.empty_like(s0), torch.empty_like(frames0)
     x = torch.empty((T, L, S), dtype=torch.float32, device=dev)
@@ -568,7 +586,7 @@ def policy_rollout_args(ls, s0, frames0, aip_w, pol_w, gumbel, bits, done,
 
 def policy_rollout(ls, s0, frames0, aip_w, pol_w, gumbel, bits, done,
                    noise, reset_ls, *, kind: str, n_agents: int,
-                   fast_gates: bool, domain):
+                   fast_gates: bool, domain, plan_for=None):
     """A whole PPO acting horizon in ONE launch (policy forward,
     Gumbel-argmax, AIP cell ``kind`` and draw, LS tick, frame refill,
     streamed resets), by the plan of ``rollout_plan``. Layout as
@@ -576,7 +594,8 @@ def policy_rollout(ls, s0, frames0, aip_w, pol_w, gumbel, bits, done,
     a (T, L) int32, logits (T, L, NA), v (T, L), r (T, L))."""
     entry, counters, args, out, _, keep = policy_rollout_args(
         ls, s0, frames0, aip_w, pol_w, gumbel, bits, done, noise, reset_ls,
-        kind=kind, n_agents=n_agents, fast_gates=fast_gates, domain=domain)
+        kind=kind, n_agents=n_agents, fast_gates=fast_gates, domain=domain,
+        plan_for=plan_for)
     launch(entry, counters, keep[3].device, ctypes.byref(args))
     return out
 

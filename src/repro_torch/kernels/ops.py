@@ -48,12 +48,15 @@ def aip_step_multi(d, h, wx, wh, b, hw, hb, bits):
 
 
 def ials_rollout_multi(ls, h0, wx, wh, b, hw, hb, actions, bits, noise, *,
-                       n_agents, tick_fn, dset_fn, domain):
-    """Whole-horizon IALS rollout, GRU backbone (``aip_rollout_multi``)."""
+                       n_agents, tick_fn, dset_fn, domain, plan_for=None):
+    """Whole-horizon IALS rollout, GRU backbone (``aip_rollout_multi``).
+    ``plan_for``: the global (A, B) whose K-parts a sharded block's
+    launch takes (``aip_step.shard_plan``); the plain version has no
+    plan."""
     if _on_card(h0):
         return _cuda.aip_rollout_multi(ls, h0, wx, wh, b, hw, hb, actions,
                                        bits, noise, n_agents=n_agents,
-                                       domain=domain)
+                                       domain=domain, plan_for=plan_for)
     return _ref.ials_rollout_multi_ref(ls, h0, wx, wh, b, hw, hb, actions,
                                        bits, noise, n_agents=n_agents,
                                        tick_fn=tick_fn, dset_fn=dset_fn)
@@ -73,12 +76,12 @@ def ials_rollout(ls, h0, wx, wh, b, hw, hb, actions, bits, noise, *,
 
 
 def fnn_rollout(ls, buf0, w1, b1, w2, b2, hw, hb, actions, bits, noise, *,
-                n_agents, tick_fn, dset_fn, domain):
+                n_agents, tick_fn, dset_fn, domain, plan_for=None):
     """Whole-horizon IALS rollout, FNN backbone (``fnn_rollout``)."""
     if _on_card(buf0):
         return _cuda.fnn_rollout(ls, buf0, w1, b1, w2, b2, hw, hb, actions,
                                  bits, noise, n_agents=n_agents,
-                                 domain=domain)
+                                 domain=domain, plan_for=plan_for)
     return _ref.fnn_rollout_ref(ls, buf0, w1, b1, w2, b2, hw, hb, actions,
                                 bits, noise, n_agents=n_agents,
                                 tick_fn=tick_fn, dset_fn=dset_fn)
@@ -86,13 +89,13 @@ def fnn_rollout(ls, buf0, w1, b1, w2, b2, hw, hb, actions, bits, noise, *,
 
 def policy_rollout(ls, s0, frames0, aip_w, pol_w, gumbel, bits, done,
                    noise, reset_ls, *, kind, n_agents, fast_gates, tick_fn,
-                   dset_fn, obs_fn, domain):
+                   dset_fn, obs_fn, domain, plan_for=None):
     """A whole PPO acting horizon (``policy_rollout``), either cell."""
     if _on_card(s0):
         return _cuda.policy_rollout(
             ls, s0, frames0, aip_w, pol_w, gumbel, bits, done, noise,
             reset_ls, kind=kind, n_agents=n_agents, fast_gates=fast_gates,
-            domain=domain)
+            domain=domain, plan_for=plan_for)
     return _ref.policy_rollout_ref(
         ls, s0, frames0, aip_w, pol_w, gumbel, bits, done, noise, reset_ls,
         kind=kind, n_agents=n_agents, fast_gates=fast_gates,

@@ -42,6 +42,27 @@ checkpoint at the next iteration boundary and exits cleanly.
 ``--delay-batch W:TICK:N`` scheduled faults. The default deterministic
 schedule resumes bitwise; ``--async-fleet`` runs worker threads.
 
+Lane data parallelism: under ``torch.distributed.run`` (``WORLD_SIZE`` >
+1) each process is a rank of a ("data", "model" = 1) ``DeviceMesh``
+(``launch/mesh.py``) and holds ``n_envs / world`` env lanes:
+
+    python -m torch.distributed.run --standalone --nproc-per-node 2 \
+        -m repro_torch.launch.rl_train --device cpu --dist-backend gloo ...
+
+The simulator's parameters (rank 0 collects and fits), the policy init
+and the global rollout state are broadcast from rank 0 and checked by md5
+on every rank; every iteration's acting horizon runs on the rank's lanes,
+the batch is gathered and the learner runs replicated, so the run equals
+the one-process run bitwise on the kernel routes (``ials``,
+``untrained-ials``; ``gs`` and ``f-ials`` run PPO's plain loop, whose
+matrix products may take other algorithms at other row counts). Rank 0
+evaluates, prints the rows, writes ``--out`` and writes the checkpoint, of
+the gathered global state (a checkpoint resumes under any world size).
+The preemption decision is agreed over the ranks (``all_reduce`` MAX).
+``--dist-backend`` defaults to nccl on cuda and gloo on cpu; ranks on one
+card need gloo. A world size that does not divide ``n_envs``, the fleet
+under ranks and NCCL with more ranks than cards raise.
+
 Prints one JSON row per iteration with the JAX entry point's field names
 (``iter``, ``wallclock_s``, ``train_reward``, ``env_steps``,
 ``gs_eval_reward[_per_agent]``) plus the PPO ``loss`` and the iteration's
@@ -56,6 +77,7 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
+import os
 import time
 from pathlib import Path
 from typing import Callable, NamedTuple
@@ -66,7 +88,7 @@ import torch
 from repro_torch import resolve_device, stream
 from repro_torch.checkpoint import ckpt
 from repro_torch.core import collect, engine, influence
-from repro_torch.distributed import actor_learner, fault_injection
+from repro_torch.distributed import actor_learner, fault_injection, sharding
 from repro_torch.distributed.fault_tolerance import TrainingGuard
 from repro_torch.envs.traffic import (TrafficConfig,
                                       make_batched_local_traffic_env,
@@ -76,8 +98,10 @@ from repro_torch.envs.warehouse import (WarehouseConfig,
                                         make_batched_local_warehouse_env,
                                         make_batched_multi_warehouse_env,
                                         make_batched_warehouse_env)
+from repro_torch.launch.mesh import (init_ranks, make_host_mesh,
+                                     rank0_alone)
 from repro_torch.rl import ppo
-from repro_torch.tree import tree_leaves
+from repro_torch.tree import tree_leaves, tree_map
 
 # generator stream tags (the JAX entry point's fold_in tags)
 _K_SIM, _K_POLICY, _K_ROLLOUT, _K_TRAIN, _K_EVAL = 0, 1, 2, 3, 4
@@ -119,7 +143,8 @@ class SimBuild(NamedTuple):
     is a cheap pytree of the simulator's state with the right shapes (the
     restore target), ``train(gen)`` makes the real one (collection and
     the AIP fit: what a resume skips) -> (sim_params, diag), and
-    ``make_env(sim_params)`` builds PPO's environment from either."""
+    ``make_env(sim_params, mesh=None)`` builds PPO's environment from
+    either (one rank's share of it under a mesh)."""
     template: Callable
     train: Callable
     make_env: Callable
@@ -134,7 +159,8 @@ def prepare_simulator(simulator: str, gs, ls, aip_kind: str, *,
     it every tick."""
     if simulator == "gs":
         return SimBuild(template=lambda: {}, train=lambda gen: ({}, {}),
-                        make_env=lambda p: gs)
+                        make_env=lambda p, mesh=None: sharding.shard_env(
+                            gs, mesh, gs.spec.n_agents))
     if simulator not in ("ials", "untrained-ials", "f-ials"):
         raise ValueError(f"unknown simulator {simulator!r}")
     A = gs.spec.n_agents
@@ -155,8 +181,9 @@ def prepare_simulator(simulator: str, gs, ls, aip_kind: str, *,
                                        ep_len=ep_len)
         return collect.per_agent(data) if A > 1 else data  # (A, N, T, ...)
 
-    def make_ials(p, **kw):
-        return engine.make_unified_ials(ls, p, acfg, n_agents=A, **kw)
+    def make_ials(p, mesh=None, **kw):
+        return engine.make_unified_ials(ls, p, acfg, n_agents=A, mesh=mesh,
+                                        **kw)
 
     if simulator == "untrained-ials":
         @torch.no_grad()
@@ -200,9 +227,9 @@ def prepare_simulator(simulator: str, gs, ls, aip_kind: str, *,
                                                   dtype=torch.float32,
                                                   device=device)},
             train=train,
-            make_env=lambda p: make_ials(p["aip"],
-                                         fixed_marginal_vec=p["marg"],
-                                         stateless=stateless_f_ials))
+            make_env=lambda p, mesh=None: make_ials(
+                p["aip"], mesh, fixed_marginal_vec=p["marg"],
+                stateless=stateless_f_ials))
 
     def train(gen):
         t0 = time.time()
@@ -258,10 +285,38 @@ def _parse_faults(kills, delays):
     return events
 
 
-def setup(args):
+def join_ranks(args):
+    """-> (device, mesh): under ``torch.distributed.run`` (``WORLD_SIZE`` >
+    1) this rank joins the process group (``--dist-backend``, default nccl
+    on cuda and gloo on cpu; ``--dist-init``, default ``env://``) and the
+    mesh is ``make_host_mesh()``; a single process gets
+    ``(resolve_device(--device), None)``. Refuses what it would otherwise
+    run differently: the fleet under ranks, NCCL with more ranks than
+    cards, and an ``n_envs`` the ranks do not divide."""
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return resolve_device(args.device), None
+    if args.n_workers > 0:
+        raise ValueError("--n-workers > 0 under torch.distributed.run: the "
+                         "actor/learner fleet takes no mesh; run it as one "
+                         "process")
+    resolve_device(args.device)
+    backend = args.dist_backend or ("nccl" if torch.device(
+        args.device).type == "cuda" else "gloo")
+    dev = init_ranks(backend, args.device, init_method=args.dist_init,
+                     timeout_s=args.dist_timeout_s)
+    mesh = make_host_mesh()
+    try:
+        sharding.require_lane_sharding(args.n_envs, args.n_agents, mesh)
+    except ValueError:
+        torch.distributed.destroy_process_group()
+        raise
+    return dev, mesh
+
+
+def setup(args, dev=None):
     """-> (device, gs, SimBuild, PPOConfig) of a parsed command line: what
-    both trainers start from."""
-    dev = resolve_device(args.device)
+    both trainers start from (on ``dev``, default ``--device``)."""
+    dev = dev if dev is not None else resolve_device(args.device)
     gs, ls, frame_stack = build_domain(args.domain, args.vanish_after,
                                        args.n_agents, dev)
     aip_kind = args.aip or ("gru" if args.domain == "warehouse" else "fnn")
@@ -280,16 +335,36 @@ def setup(args):
     return dev, gs, sb, pcfg
 
 
-def fresh_state(args, dev, sb: SimBuild, pcfg, opt):
+def fresh_state(args, dev, sb: SimBuild, pcfg, opt, mesh=None):
     """A run from its start: the simulator made (collection, AIP fit), the
     policy, optimizer and rollout state at their seeded init -> (sim
-    params, diag, env, params, opt_state, rollout state)."""
-    sim_params, diag = sb.train(sim_stream(args, dev))
+    params, diag, env, params, opt_state, rollout state). Under a mesh
+    rank 0 collects and fits while the others wait (``rank0_alone``, not
+    bound by ``--dist-timeout-s``) and start from templates; the simulator,
+    the policy init and the global rollout state are then rank 0's on
+    every rank (checked by md5), and each rank keeps its block of the
+    rollout state."""
+    with rank0_alone(mesh):
+        if _rank0(mesh):
+            sim_params, diag = sb.train(sim_stream(args, dev))
+        else:
+            sim_params, diag = sb.template(), None
+    sim_params = _broadcast(sim_params, mesh)
+    box = [diag]
+    if mesh is not None:
+        torch.distributed.broadcast_object_list(box, 0)
     env = sb.make_env(sim_params)
-    params = ppo.init_policy(pcfg, stream(dev, args.seed, _K_POLICY))
-    rs = ppo.init_rollout_state(env, pcfg, stream(dev, args.seed,
-                                                  _K_ROLLOUT))
-    return sim_params, diag, env, params, opt.init(params), rs
+    params = _broadcast(ppo.init_policy(pcfg, stream(dev, args.seed,
+                                                     _K_POLICY)), mesh)
+    rs = _broadcast(ppo.init_rollout_state(env, pcfg, stream(
+        dev, args.seed, _K_ROLLOUT)), mesh)
+    for tree, what in ((sim_params, "the simulator"), (params, "the policy"),
+                       (rs, "the rollout state")):
+        _agree_md5(tree, what, mesh)
+    if mesh is not None:
+        env = sb.make_env(sim_params, mesh)
+    return (sim_params, box[0], env, params, opt.init(params),
+            ppo.shard_rollout(rs, mesh, pcfg.n_agents))
 
 
 def sim_stream(args, dev) -> torch.Generator:
@@ -309,12 +384,59 @@ def fleet_config(args) -> actor_learner.FleetConfig:
         deterministic=not args.async_fleet, seed=args.seed)
 
 
+def _rank0(mesh) -> bool:
+    return mesh is None or torch.distributed.get_rank() == 0
+
+
+def _broadcast(tree, mesh):
+    """Rank 0's values of every leaf, on every rank (a new tree)."""
+    if mesh is None:
+        return tree
+
+    def one(leaf):
+        t = leaf.contiguous().clone()
+        wire = t.view(torch.uint8) if t.dtype == torch.bool else t
+        torch.distributed.broadcast(wire, 0)
+        return t
+    return tree_map(one, tree)
+
+
+def _agree_md5(tree, what, mesh):
+    """Raise unless every rank holds ``tree`` bitwise (by md5)."""
+    if mesh is None:
+        return
+    md5s = [None] * torch.distributed.get_world_size()
+    torch.distributed.all_gather_object(md5s, params_md5(tree))
+    if len(set(md5s)) != 1:
+        raise RuntimeError(f"the ranks disagree on {what}: md5 {md5s}")
+
+
+def _any_rank(flag: bool, mesh, dev) -> bool:
+    """``flag`` reduced with MAX over the ranks (the flag itself alone)."""
+    if mesh is None:
+        return flag
+    t = torch.tensor([int(flag)], dtype=torch.int32, device=dev)
+    torch.distributed.all_reduce(t, op=torch.distributed.ReduceOp.MAX)
+    return bool(t.item())
+
+
 def run_training(args):
     """The training run, callable in-process (the resume tests compare a
-    stopped and resumed run against an uninterrupted one this way)."""
-    dev, gs, sb, pcfg = setup(args)
+    stopped and resumed run against an uninterrupted one this way); one
+    rank of it under ``torch.distributed.run``."""
+    dev, mesh = join_ranks(args)
+    try:
+        return _run_training(args, dev, mesh)
+    finally:
+        if mesh is not None:
+            torch.distributed.destroy_process_group()
+
+
+def _run_training(args, dev, mesh):
+    dev, gs, sb, pcfg = setup(args, dev)
     t_start = time.time()
-    guard = (TrainingGuard(args.ckpt_dir, save_every=args.save_every)
+    guard = (TrainingGuard(args.ckpt_dir, save_every=args.save_every,
+                           writer=_rank0(mesh))
              if args.ckpt_dir else None)
     resume_step = (ckpt.latest_step(args.ckpt_dir)
                    if args.ckpt_dir else None)
@@ -333,22 +455,33 @@ def run_training(args):
         return row
 
     try:
-        run = _run_fleet if args.n_workers > 0 else _run_integrated
-        out = run(args, dev, sb, pcfg, guard, resume_step, eval_row,
-                  t_start)
+        if args.n_workers > 0:
+            out = _run_fleet(args, dev, sb, pcfg, guard, resume_step,
+                             eval_row, t_start)
+        else:
+            out = _run_integrated(args, dev, sb, pcfg, guard, resume_step,
+                                  eval_row, t_start, mesh)
     finally:
         if guard is not None:
             guard.uninstall()
     out["device"] = str(dev)
-    if args.out:
+    if mesh is not None:      # what each rank launched (kernels' counters)
+        from repro_torch.kernels import aip_step
+        out["world_size"] = torch.distributed.get_world_size()
+        out["launches_per_rank"] = [None] * out["world_size"]
+        torch.distributed.all_gather_object(
+            out["launches_per_rank"],
+            {k: v for k, v in aip_step.LAUNCHES.items() if v})
+    if args.out and _rank0(mesh):
         Path(args.out).write_text(json.dumps(out, indent=1))
     return out
 
 
 def _run_integrated(args, dev, sb: SimBuild, pcfg, guard, resume_step,
-                    eval_row, t_start):
-    """One process: a train iteration a step, position-keyed generators,
-    whole-state checkpoints."""
+                    eval_row, t_start, mesh=None):
+    """A train iteration a step, position-keyed generators, whole-state
+    checkpoints; under a mesh each rank acts on its lanes and rank 0
+    evaluates, prints and writes."""
     opt = ppo.make_optimizer(pcfg)
     start_it = 0
     if resume_step is not None:
@@ -364,16 +497,19 @@ def _run_integrated(args, dev, sb: SimBuild, pcfg, guard, resume_step,
                     "it": torch.tensor(0, dtype=torch.int32)}
         # (copies from pageable host memory: done when restore returns)
         tree, step, _ = ckpt.restore(args.ckpt_dir, template, resume_step)
+        _agree_md5(tree, "the restored checkpoint", mesh)
         sim_params = tree["sim"]
         diag = {"resumed_from": step, "restore_s": time.time() - t0}
-        env = sb.make_env(sim_params)
-        params, ost, rs = tree["policy"], tree["opt"], tree["rs"]
+        env = sb.make_env(sim_params, mesh)
+        params, ost = tree["policy"], tree["opt"]
+        rs = ppo.shard_rollout(tree["rs"], mesh, pcfg.n_agents)
         start_it = int(tree["it"])
-        print(f"resumed from iteration {start_it}", flush=True)
+        if _rank0(mesh):
+            print(f"resumed from iteration {start_it}", flush=True)
     else:
         sim_params, diag, env, params, ost, rs = fresh_state(
-            args, dev, sb, pcfg, opt)
-    iteration = ppo.train_iteration_fn(env, pcfg, opt)
+            args, dev, sb, pcfg, opt, mesh)
+    iteration = ppo.train_iteration_fn(env, pcfg, opt, mesh)
 
     steps_per_iter = args.n_envs * args.rollout_len * max(args.n_agents, 1)
     history = []
@@ -387,25 +523,37 @@ def _run_integrated(args, dev, sb: SimBuild, pcfg, guard, resume_step,
                "loss": float(m["loss"]),
                "env_steps": (it + 1) * steps_per_iter,
                "iter_s": time.time() - t_it}
-        if it % args.eval_every == 0 or it == args.iterations - 1:
+        if _rank0(mesh) and (it % args.eval_every == 0
+                             or it == args.iterations - 1):
             row = eval_row(row, params, it)
         history.append(row)
-        print(json.dumps(row), flush=True)
+        if _rank0(mesh):
+            print(json.dumps(row), flush=True)
         if guard is not None:
             t_s = time.time()
+            # the checkpoint holds the global rollout state, whatever the
+            # world size: gathered (a collective) only when a save is due,
+            # which the ranks decide alike on the signal they agreed on
             saved = guard.maybe_save(
-                it + 1,
-                {"policy": params, "opt": ost, "rs": rs, "sim": sim_params,
-                 "it": torch.tensor(it + 1, dtype=torch.int32)},
-                metadata={"mode": "integrated", "iterations_done": it + 1})
+                it + 1, lambda: {
+                    "policy": params, "opt": ost,
+                    "rs": ppo.gather_rollout(rs, mesh, pcfg.n_agents,
+                                             pcfg.n_envs),
+                    "sim": sim_params,
+                    "it": torch.tensor(it + 1, dtype=torch.int32)},
+                metadata={"mode": "integrated", "iterations_done": it + 1},
+                preempted=(None if mesh is None else
+                           _any_rank(guard.preempted, mesh, dev)))
             if saved:
                 row["ckpt_save_s"] = time.time() - t_s
             if guard.answered:
-                print("preempted: RL checkpoint flushed, exiting cleanly",
-                      flush=True)
+                if _rank0(mesh):
+                    print("preempted: RL checkpoint flushed, exiting "
+                          "cleanly", flush=True)
                 preempted = True
                 break
 
+    _agree_md5(params, "the final policy", mesh)
     return {"args": vars(args), "diag": diag, "history": history,
             "preempted": preempted, "resumed_from": start_it,
             "final_params_md5": params_md5(params),
@@ -524,6 +672,20 @@ def parse_args(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; cuda without a card "
                          "raises")
+    # ranks under torch.distributed.run (WORLD_SIZE > 1)
+    ap.add_argument("--dist-backend", default=None,
+                    choices=[None, "nccl", "gloo"],
+                    help="process group backend under torch.distributed."
+                         "run (default: nccl on cuda, gloo on cpu; ranks "
+                         "sharing one card need gloo)")
+    ap.add_argument("--dist-init", default=None,
+                    help="process group init method (default env://; a "
+                         "file:// store needs no port)")
+    ap.add_argument("--dist-timeout-s", type=float, default=600,
+                    help="a collective that waits longer fails, not hangs "
+                         "(it spans rank 0's GS evaluation and checkpoint "
+                         "writes, which the other ranks wait for; not its "
+                         "collection and AIP fit at the start)")
     # fault tolerance and the actor/learner fleet
     ap.add_argument("--ckpt-dir", default="",
                     help="checkpoint here and resume from the latest "

@@ -22,6 +22,19 @@ Every entry point takes a ``BatchedEnv`` or a scalar ``Env`` (lifted by
 ``envs.api.as_batched``, the vmap adapter). ``make_train_iteration`` and
 ``make_evaluator`` are the reference's constructors: an optimizer and its
 iteration, and a greedy evaluator (not cached: it compiles nothing).
+
+Lane data parallelism (``mesh=``, a ``DeviceMesh`` of
+``launch/mesh.py::make_host_mesh``, one process a rank): the env is made
+for the mesh (``engine.make_unified_ials(mesh=)``, or
+``distributed/sharding.py::shard_env`` for the GS), so its resets and
+noise are this rank's blocks of the global draws; the Gumbel noise is
+drawn globally and sliced the same way. The rollout runs on the rank's
+block, then its batch and final frames are gathered, so ``v_last`` and
+the learner see the global batch: the learner runs replicated, on every
+rank with the same generator, and gives the one-process parameters,
+optimizer state and metrics bit for bit, without an all-reduce whose
+order would differ. The rollout state stays a block (``shard_rollout``
+/ ``gather_rollout`` move it to and from the global layout).
 """
 from __future__ import annotations
 
@@ -31,6 +44,7 @@ from typing import Any, NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding
 from repro_torch.envs.api import (as_batched, horizon_noise, index_tree,
                                   stack_trees)
 from repro_torch.nn.act import fast_tanh
@@ -141,35 +155,75 @@ def _stack_obs(frames):
     return frames.reshape(frames.shape[:-2] + (-1,))
 
 
-def _seed_frames(obs, cfg: PPOConfig, n: int):
-    frames = torch.zeros((n,) + cfg.agent_shape
-                         + (cfg.frame_stack, cfg.obs_dim),
+def _seed_frames(obs, cfg: PPOConfig):
+    """Frames of a fresh episode: zeros, the observation (n, [A,] obs_dim)
+    last."""
+    frames = torch.zeros(obs.shape[:-1] + (cfg.frame_stack, cfg.obs_dim),
                          dtype=torch.float32, device=obs.device)
     frames[..., -1, :] = obs
     return frames
 
 
+def _mesh(env, mesh):
+    """The mesh of a sharded call (None for a size-1 one); the env must
+    have been made for it."""
+    if mesh is None or sharding.mesh_size(mesh) == 1:
+        return None
+    if env.mesh is None:
+        raise ValueError(
+            f"a sharded rollout needs an env made for the mesh "
+            f"(engine.make_unified_ials(mesh=) or sharding.shard_env); "
+            f"{env.spec.name} draws its global lanes")
+    return mesh
+
+
+def shard_rollout(rs: RolloutState, mesh, n_agents: int = 1) -> RolloutState:
+    """This rank's block of a global rollout state under the IALS rules
+    (env lanes over the data axes, the agent axis of frames and engine
+    state co-sharded over "model" when it divides). The state as it is
+    for ``mesh=None`` or a size-1 mesh."""
+    return sharding.shard_ials_state(rs, mesh, n_agents)
+
+
+def gather_rollout(rs: RolloutState, mesh, n_agents: int,
+                   n_envs: int) -> RolloutState:
+    """The global rollout state of every rank's block (a collective): what
+    a checkpoint holds, whatever the world size."""
+    return sharding.gather_ials_state(rs, mesh, n_agents, n_envs)
+
+
 @torch.no_grad()
-def init_rollout_state(env, cfg: PPOConfig,
-                       generator: torch.Generator) -> RolloutState:
+def init_rollout_state(env, cfg: PPOConfig, generator: torch.Generator,
+                       mesh=None) -> RolloutState:
+    """The rollout state at its seeded init. An env made for a mesh gives
+    this rank's block of it; with ``mesh`` and an env that draws its
+    global lanes, the global state is made and ``shard_rollout`` keeps the
+    rank's block (the reference's placement)."""
     env = as_batched(env)
     env_state = env.reset(generator, cfg.n_envs)
-    frames = _seed_frames(env.observe(env_state), cfg, cfg.n_envs)
-    return RolloutState(env_state=env_state, frames=frames,
-                        t_in_ep=torch.zeros((cfg.n_envs,), dtype=torch.int32,
-                                            device=frames.device))
+    frames = _seed_frames(env.observe(env_state), cfg)
+    rs = RolloutState(env_state=env_state, frames=frames,
+                      t_in_ep=torch.zeros((frames.shape[0],),
+                                          dtype=torch.int32,
+                                          device=frames.device))
+    if env.mesh is not None:
+        return rs
+    return shard_rollout(rs, mesh, cfg.n_agents)
 
 
 @torch.no_grad()
 def draw_rollout_streams(env, cfg: PPOConfig,
-                         generator: torch.Generator):
+                         generator: torch.Generator, mesh=None):
     """All of a rollout's randomness, drawn before the horizon: (Gumbel
     (T, n_envs, [A,] n_actions), T-stacked env noise, T-stacked reset
-    states)."""
+    states). Under a mesh, this rank's blocks of the global draws, the
+    generator advancing as in the one-process run."""
     env = as_batched(env)
+    mesh = _mesh(env, mesh)
     T = cfg.rollout_len
     gum = gumbel_noise(generator, (T, cfg.n_envs) + cfg.agent_shape
                        + (cfg.n_actions,))
+    gum = sharding.shard_ials_stream(gum, mesh, cfg.n_envs, cfg.n_agents)
     env_noise = horizon_noise(env.noise_fn, generator, T, cfg.n_envs)
     resets = stack_trees([env.reset(generator, cfg.n_envs)
                           for _ in range(T)])
@@ -188,13 +242,16 @@ def _logp(logits, a):
 
 @torch.no_grad()
 def rollout(env, cfg: PPOConfig, params, rs: RolloutState,
-            generator: torch.Generator = None, streams=None):
+            generator: torch.Generator = None, streams=None, mesh=None):
     """-> (new RolloutState, batch with (T, n_envs, *agent_shape, ...)
     leaves, v_last). ``streams`` = ``draw_rollout_streams``'s triple;
-    drawn from ``generator`` when not given."""
+    drawn from ``generator`` when not given. Under a mesh ``rs`` and
+    ``streams`` are this rank's blocks, the returned state too; the batch
+    and ``v_last`` are gathered (global)."""
     env = as_batched(env)
+    mesh = _mesh(env, mesh)
     if streams is None:
-        streams = draw_rollout_streams(env, cfg, generator)
+        streams = draw_rollout_streams(env, cfg, generator, mesh)
     gum, env_noise, resets = streams
     if env.policy_rollout is not None:
         env_state, frames, t_in_ep, out = env.policy_rollout(
@@ -218,8 +275,7 @@ def rollout(env, cfg: PPOConfig, params, rs: RolloutState,
             tt = rs.t_in_ep + 1
             done = tt >= cfg.episode_len
             env_state = _where_done(done, index_tree(resets, t), env_state)
-            frames0 = _seed_frames(env.observe(env_state), cfg,
-                                   frames.shape[0])
+            frames0 = _seed_frames(env.observe(env_state), cfg)
             frames = torch.where(
                 done.reshape((-1,) + (1,) * (frames.dim() - 1)), frames0,
                 frames)
@@ -231,7 +287,15 @@ def rollout(env, cfg: PPOConfig, params, rs: RolloutState,
                          "done": done_b.to(torch.float32)})
             rs = RolloutState(env_state, frames, tt)
         batch = {k: torch.stack([row[k] for row in rows]) for k in rows[0]}
-    _, v_last = policy_forward(params, _stack_obs(rs.frames),
+    # v_last on contiguous frames: a GEMM's algorithm may follow its
+    # operand's strides, and the kernel route's unfolded frames are strided
+    frames = rs.frames.contiguous()
+    if mesh is not None:    # the global batch, v_last at the global shape
+        batch = sharding.gather_ials_stream(batch, mesh, cfg.n_envs,
+                                            cfg.n_agents)
+        frames = sharding.gather_ials_state(frames, mesh, cfg.n_agents,
+                                            cfg.n_envs)
+    _, v_last = policy_forward(params, _stack_obs(frames),
                                fast_gates=cfg.fast_gates)
     return rs, batch, v_last
 
@@ -315,25 +379,32 @@ def learner_update_fn(cfg: PPOConfig, opt):
                     tree_unflatten(params, [l.detach() for l in leaves]))
                 mb_losses.append(loss.detach())
             epoch_losses.append(torch.stack(mb_losses).mean())
+        # means over contiguous copies: the order of the sum must not
+        # follow the batch's strides (a gathered batch is contiguous, the
+        # kernel route's unfolded one is not)
         metrics = {"loss": torch.stack(epoch_losses).mean(),
-                   "mean_reward": batch["r"].mean(),
-                   "mean_value": batch["v"].mean()}
+                   "mean_reward": batch["r"].contiguous().mean(),
+                   "mean_value": batch["v"].contiguous().mean()}
         return params, opt_state, metrics
 
     return learner_update
 
 
-def train_iteration_fn(env, cfg: PPOConfig, opt):
+def train_iteration_fn(env, cfg: PPOConfig, opt, mesh=None):
     """-> ``train_iteration(params, opt_state, rs, generator, streams=None,
     perms=None) -> (params, opt_state, rs, metrics)``: one rollout, then
-    the learner update on its batch."""
+    the learner update on its batch. ``mesh``: ``rs`` is this rank's block
+    (checked against the rule at entry), the learner runs replicated on
+    the gathered batch (the module docstring)."""
     env = as_batched(env)
+    mesh = _mesh(env, mesh)
     learner_update = learner_update_fn(cfg, opt)
 
     def train_iteration(params, opt_state, rs: RolloutState, generator,
                         streams=None, perms=None):
+        sharding.constrain_ials_state(rs, mesh, cfg.n_agents, cfg.n_envs)
         rs, batch, v_last = rollout(env, cfg, params, rs, generator,
-                                    streams)
+                                    streams, mesh)
         params, opt_state, metrics = learner_update(
             params, opt_state, batch, v_last, generator, perms)
         return params, opt_state, rs, metrics
@@ -341,11 +412,11 @@ def train_iteration_fn(env, cfg: PPOConfig, opt):
     return train_iteration
 
 
-def make_train_iteration(env, cfg: PPOConfig):
+def make_train_iteration(env, cfg: PPOConfig, mesh=None):
     """-> (opt, ``train_iteration``): the optimizer of ``cfg`` and one PPO
     iteration on ``env`` (``train_iteration_fn``'s signature)."""
     opt = make_optimizer(cfg)
-    return opt, train_iteration_fn(env, cfg, opt)
+    return opt, train_iteration_fn(env, cfg, opt, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -364,7 +435,7 @@ def make_evaluator(env, cfg: PPOConfig, *, n_episodes: int = 8,
     @torch.no_grad()
     def run(params, generator: torch.Generator):
         state = benv.reset(generator, n_episodes)
-        frames = _seed_frames(benv.observe(state), cfg, n_episodes)
+        frames = _seed_frames(benv.observe(state), cfg)
         rews = []
         for _ in range(ep_len):
             logits, _ = policy_forward(params, _stack_obs(frames),

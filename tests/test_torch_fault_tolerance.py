@@ -84,6 +84,34 @@ def test_guard_keeps_a_signal_that_lands_during_a_save(tmp_path,
     assert guard.maybe_save(2, _tree()) and not guard.preempted
 
 
+def test_guard_decides_on_the_agreed_flag_and_makes_the_state_when_due(
+        tmp_path):
+    """Under ranks: ``preempted=`` (the flag the ranks agreed on) decides
+    in place of this process's own, a signal that arrived after the
+    agreement stays set for the next call, and a state given as a
+    function is made only when a save is due, on a writer and a
+    non-writer alike (it may be a collective); a non-writer writes
+    nothing."""
+    made = []
+
+    def make():
+        made.append(1)
+        return _tree()
+    for writer, d in ((True, tmp_path / "w"), (False, tmp_path / "n")):
+        made.clear()
+        guard = TrainingGuard(d, save_every=3, writer=writer,
+                              install_signal_handler=False)
+        assert not guard.maybe_save(1, make, preempted=False)
+        guard.preempted = True         # after the ranks agreed on False
+        assert not guard.maybe_save(2, make, preempted=False)
+        assert made == [] and guard.preempted and not guard.answered
+        assert guard.maybe_save(3, make, preempted=False)   # periodic
+        assert made == [1] and guard.preempted and not guard.answered
+        assert guard.maybe_save(4, make, preempted=True)    # agreed
+        assert made == [1, 1] and guard.answered and not guard.preempted
+        assert ckpt.all_steps(d) == ([3, 4] if writer else [])
+
+
 def test_guard_sigterm_chains_and_uninstalls(tmp_path):
     """Stacked guards both see SIGTERM (the newer handler chains the
     displaced one), and uninstall() restores exactly what it displaced."""

@@ -1,9 +1,10 @@
 """The port stands alone: importing every ``repro_torch`` module leaves
 ``jax`` and ``repro`` out of ``sys.modules``; no module of
 ``src/repro_torch``, not ``chip_smoke.py`` and not the five ablation tools,
-the profiler check, the fault smoke and the iteration profile that run
-beside it on the card, not the port's examples (the quickstart, the two
-training sweeps) and not the chaos smoke and docs check import them; and without CUDA the entry points
+the profiler check, the fault smoke, the shard smoke and the iteration
+profile that run beside it on the card, not the port's examples (the
+quickstart, the two training sweeps) and not the chaos smoke and docs
+check import them; and without CUDA the entry points
 refuse the default device instead of carrying on on the CPU."""
 import ast
 import subprocess
@@ -48,7 +49,8 @@ def test_importing_the_port_pulls_in_neither_jax_nor_repro():
        "tools/rollout_ablation.py", "tools/gru_ablation.py",
        "tools/profile_count.py", "tools/torch_fault_smoke.py",
        "tools/iteration_profile.py", "tools/torch_serve_chaos.py",
-       "tools/torch_docs_check.py", "examples/torch_quickstart.py",
+       "tools/torch_docs_check.py", "tools/torch_shard_smoke.py",
+       "examples/torch_quickstart.py",
        "examples/torch_train_traffic.py",
        "examples/torch_train_warehouse.py"]))
 def test_no_source_imports_jax_or_repro(path):

@@ -297,3 +297,38 @@ def test_set_plan_fills_the_ials_args(A, B):
             args.roll_threads, args.roll_smem) == (
         p.lanes, p.rows_per_thread, p.cluster, p.threads, p.smem)
     assert tuple(args.roll_split) == p.splits
+
+
+SHARD_CASES = [
+    # (global A, global B, agent blocks, lane blocks, widths, cell, policy)
+    (25, 64, 1, 4, TRAFFIC_GRU, "gru", True),    # own plan: other K-parts
+    (1, 512, 1, 4, TRAFFIC_GRU, "gru", True),
+    (1, 16, 1, 2, TRAFFIC_FNN, "fnn", True),     # the main path, 2 ranks
+    (25, 16, 1, 4, TRAFFIC_GRU, "gru", True),
+    (36, 16, 2, 2, WAREHOUSE_GRU, "gru", True),  # 18 agents x 8 lanes
+    (25, 64, 1, 4, TRAFFIC_GRU, "gru", False),
+    (36, 16, 2, 2, WAREHOUSE_FNN, "fnn", False),
+]
+
+
+@pytest.mark.parametrize("A,B,ka,kb,w,cell,pol", SHARD_CASES,
+                         ids=[f"A{c[0]}-B{c[1]}-{c[2]}x{c[3]}-{c[5]}-"
+                              f"{'pol' if c[6] else 'aip'}"
+                              for c in SHARD_CASES])
+def test_shard_plan_carries_the_global_splits(A, B, ka, kb, w, cell, pol):
+    """A rank's block of A / ka agents x B / kb lanes plans its own tile,
+    threads and shared bytes but takes the global launch's K-parts
+    (``aip_step.shard_plan``), so every lane sums in the order of the
+    one-process launch; without ``plan_for`` it is the block's own plan.
+    At traffic A = 25, 64 lanes on 4 ranks, the block's own plan would
+    split the policy's first two products differently."""
+    a, b = A // ka, B // kb
+    glob = cuda.rollout_plan(A, B, w, cell, pol)
+    own = cuda.rollout_plan(a, b, w, cell, pol)
+    pinned = cuda.shard_plan(a, b, w, cell, pol, plan_for=(A, B))
+    assert pinned.splits == glob.splits
+    assert (pinned.A, pinned.B) == (a, b)
+    assert pinned.smem <= cuda.ROLL_SMEM_MAX
+    assert cuda.shard_plan(a, b, w, cell, pol) == own
+    if (A, B, pol) == (25, 64, True):
+        assert own.splits != glob.splits

@@ -62,6 +62,12 @@ REQUIRED_SNIPPETS = (
     "rl/ppo.py::make_evaluator",
     # the guard's deliberate difference
     "distributed/fault_tolerance.py::TrainingGuard",
+    # lane data parallelism
+    "distributed/sharding.py::shard_ials_state",
+    "distributed/sharding.py::gather_ials_state",
+    "kernels/aip_step.py::shard_plan",
+    "launch/mesh.py::make_host_mesh",
+    "tools/torch_shard_smoke.py",
     # entry points
     "python -m repro_torch.launch.rl_train",
     "python -m repro_torch.launch.policy_serve",

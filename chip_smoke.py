@@ -120,6 +120,24 @@ Phases, each printing its result and time on its own line:
      on the scalar GS; (e) ``examples/torch_quickstart.py`` in-process at
      the reference's sizes: finite losses, GS evaluation in [0, 1], its
      wall time logged;
+  4c. analysis, the dry-run's IALS cells (``launch/dryrun.py``): the 12
+     rows of ``IALS_SWEEP`` on the host mesh (one rank with the whole
+     batch), each counted on the CPU's plain route (``op_analysis``) and
+     run once on the card's kernel route from the same inputs (drawn on
+     the CPU and moved), counters zeroed before and read after: every
+     cell ``ok``, one ``policy_rollout`` launch for ``policy_rollout``
+     and ``train_iteration``, one ``aip_rollout_multi`` / ``fnn_rollout``
+     for an ``engine.rollout``, and nothing else; every output leaf of
+     the card's run held against the counted plain run by the lane and
+     flip rule (``train_iteration``: its rollout's outputs, then the
+     learner's within ATOL when no lane flipped); each program's device
+     ms (``device_ms``; where no profile holds every launch, the calls
+     queued behind a spin kernel and timed by CUDA events, the host's
+     enqueue left out: ``queued_device_ms``) must not fall below its
+     model-FLOP bound (``model_flops_total / n_chips / peak``); logged
+     with the share, the counted HBM bytes and the unfused plain route's
+     ``t_memory``, and the peak bytes on the card; then a pod1 and a
+     pod2 row, counted only;
   5. the serving kernels against their plain versions: ``serve_forward``
      and ``serve_forward_multi`` (N = 1 and 4) at the traffic (D = 41,
      2 actions) and warehouse (D = 296, 5 actions) widths, hidden 128,
@@ -197,9 +215,6 @@ ATOL = 1e-4            # float leaves, kernel vs plain version (fp32 GEMM
 #                        reduction order differs; gates round identically)
 FLIP_EPS = 1e-4        # a decision this close to its threshold may flip
 MAX_FLIP_SHARE = 0.01
-PEAK_FP32_FLOPS = 67e12   # H100 SXM, fp32 outside the tensor cores
-PEAK_BF16_FLOPS = 989e12  # H100 SXM, bf16 tensor cores, dense
-PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 SOURCE = "src/repro_torch/kernels/csrc/ials_kernels.cu"
 LAYER_SOURCE = "src/repro_torch/kernels/csrc/layer_kernels.cu"
 GRU_SOURCE = "src/repro_torch/kernels/csrc/gru_kernels.cu"
@@ -411,13 +426,13 @@ def nbytes(*tensors):
 
 def bound(flops, bytes_, dtype="float32"):
     """(bound_ms, bound_by): the larger of the operations and the bytes
-    over the card's published rates: the fp32 rate of the CUDA cores for
-    float32 inputs, the bf16 tensor-core rate for bfloat16 inputs (bf16
-    products summed in f32 are what ``wgmma`` computes), and the memory
-    rate."""
-    peak = PEAK_BF16_FLOPS if dtype == "bfloat16" else PEAK_FP32_FLOPS
-    t_ops = flops / peak * 1e3
-    t_mem = bytes_ / PEAK_BYTES * 1e3
+    over the card's published rates (``op_analysis``'s constants): the
+    fp32 rate of the CUDA cores for float32 inputs, the bf16 tensor-core
+    rate for bfloat16 inputs (bf16 products summed in f32 are what
+    ``wgmma`` computes), and the memory rate."""
+    from repro_torch.distributed import op_analysis
+    t_ops = flops / op_analysis.peak_flops(dtype) * 1e3
+    t_mem = bytes_ / op_analysis.HBM_BW * 1e3
     return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
 
 
@@ -556,12 +571,14 @@ class Case:
             state_ints=domain_layout(self.ls_env.kernel_domain).state_ints)
 
     def flops_per_lane_tick(self, policy):
-        w = self.widths()
-        f = (2 * (w.stack * w.D * w.H + w.H * w.H + w.H * w.M)
-             if self.kind == "fnn"
-             else 2 * (w.D * 3 * w.H + w.H * 3 * w.H + w.H * w.M))
-        return f + (2 * (w.S * w.Hp + w.Hp * w.Hp + w.Hp * (w.n_act + 1))
-                    if policy else 0)
+        """The products of one lane's tick: the dry-run's model FLOPs of
+        one lane and one tick."""
+        from repro_torch.launch.dryrun import _ials_model_flops
+        if policy:
+            return _ials_model_flops("policy_rollout", self.acfg, self.pcfg,
+                                     1, 1, 1)
+        return _ials_model_flops("aip_rollout_multi", self.acfg, None, 1, 1,
+                                 1)
 
 
 # ---------------------------------------------------------------------------
@@ -1833,6 +1850,252 @@ def phase_scalar(dev):
 
 
 # ---------------------------------------------------------------------------
+# the dry-run's IALS cells on the card (phase 4c)
+# ---------------------------------------------------------------------------
+
+# counted only, on the pods' layouts: a row the ranks run (256 ranks, one
+# lane each) and one they refuse (the lanes replicated over "model")
+ANALYSIS_POD_ROWS = (
+    ("train_iteration", "traffic", "fnn", 1, 256, 128, "pod1"),
+    ("policy_rollout", "traffic", "fnn", 25, 64, 128, "pod2"))
+
+
+def queued_device_ms(fn, reps=3):
+    """Device milliseconds per call of ``fn``, the host's enqueue left
+    out, for a callable whose profiles lose a launch: ``reps`` calls
+    enqueued behind a spin kernel that outlasts their enqueue, timed by
+    CUDA events around the calls alone. The device reaches the first
+    event only after the host has enqueued the last call (checked: the
+    event is still pending then, else this raises), so it runs the calls
+    back to back and never waits for the host."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    torch.cuda._sleep(1 << 20)
+    b.record()
+    torch.cuda.synchronize()
+    cycles_per_ms = (1 << 20) / a.elapsed_time(b)
+    # twice the calls' enqueue, and 20 ms
+    torch.cuda._sleep(int(cycles_per_ms * (2e3 * enqueue_s * reps + 20)))
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    if a.query():
+        raise AssertionError("the device reached the timed calls before "
+                             "the host had enqueued them: not device time")
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def _lane_leaves(tree, T, B, A, stream):
+    """A dry-run program's output leaves in lanes, batch-major (lane
+    b * A + a: env b, agent a): (T, L, -1) for a stream, (L, -1) for a
+    final leaf; a leaf with no agent axis (one per env) repeated over its
+    env's agents."""
+    from repro_torch.tree import tree_leaves
+    lead = (T, B) if stream else (B,)
+    out = []
+    for l in tree_leaves(tree):
+        agents = A > 1 and l.dim() > len(lead) and l.shape[len(lead)] == A
+        x = l.reshape(lead + ((A,) if agents else (1,)) + (-1,))
+        x = x.expand(lead + (A, x.shape[-1]))
+        out.append(x.reshape(lead[:-1] + (B * A, -1)))
+    return out
+
+
+def _program_lanes(program, out, rollouts, T, B, A):
+    """(streams, finals) of a dry-run program's run: an engine rollout's
+    (state, rewards); PPO's rollout (state, batch, v_last), which
+    ``train_iteration`` makes inside (``rollouts``, its recorded
+    outputs)."""
+    if program in ("aip_rollout_multi", "fnn_rollout"):
+        return (_lane_leaves(out[1], T, B, A, True),
+                _lane_leaves(out[0], T, B, A, False))
+    rs, batch, v_last = rollouts[-1]
+    return (_lane_leaves(batch, T, B, A, True),
+            _lane_leaves((rs, v_last), T, B, A, False))
+
+
+class _RecordRollouts:
+    """``ppo.rollout`` recorded while active: what ``train_iteration``'s
+    rollout returned, whatever its route (nothing added to a count)."""
+
+    def __init__(self):
+        self.outs = []
+
+    def __enter__(self):
+        from repro_torch.rl import ppo
+        self._orig = ppo.rollout
+
+        def rollout(*args, **kw):
+            out = self._orig(*args, **kw)
+            self.outs.append(out)
+            return out
+        ppo.rollout = rollout
+        return self.outs
+
+    def __exit__(self, *exc):
+        from repro_torch.rl import ppo
+        ppo.rollout = self._orig
+
+
+def _plain_margins(prog, program, T, B, A):
+    """The CPU plain run of ``prog`` again, its horizon traced: the (T,
+    L) distance of each lane's closest decision (AIP draw, and the
+    policy's top-two gap) from its threshold, lanes batch-major."""
+    import torch
+    from repro_torch.core import engine
+    from repro_torch.kernels import ref
+    trace = {}
+    names = ("ials_rollout_multi_ref", "fnn_rollout_ref",
+             "policy_rollout_ref")
+    orig = {n: getattr(ref, n) for n in names}
+    for n in names:
+        setattr(ref, n, (lambda f: lambda *a, **kw: f(*a, trace=trace,
+                                                       **kw))(orig[n]))
+    try:
+        prog.fn(*prog.args)
+    finally:
+        for n in names:
+            setattr(ref, n, orig[n])
+    m = torch.stack(trace["aip"])
+    if "policy" in trace:
+        m = torch.minimum(m, torch.stack(trace["policy"]))
+    return engine.stream_unfold(m, A, B).reshape(T, B * A)
+
+
+def hold_program(what, program, prog, plain_out, plain_rolls, out, rolls,
+                 T, B, A, dev):
+    """The card's run of a dry-run program against the CPU plain run on
+    the same inputs: the horizon's outputs by the lane and flip rule
+    (margins traced in a second plain run only when a lane differs), then
+    ``train_iteration``'s learner (weights, optimizer state, metrics)
+    within ATOL when no lane flipped, since a flipped lane changes the
+    learner's batch -> (flips, max float error, learner held)."""
+    import torch
+    from repro_torch.tree import tree_leaves, tree_map
+    plain_out, plain_rolls = tree_map(lambda l: l.to(dev),
+                                      (plain_out, plain_rolls))
+    ks, kf = _program_lanes(program, out, rolls, T, B, A)
+    ps, pf = _program_lanes(program, plain_out, plain_rolls, T, B, A)
+    streams = [(k, p, not k.dtype.is_floating_point)
+               for k, p in zip(ks, ps)]
+    finals = [(k, p, not k.dtype.is_floating_point)
+              for k, p in zip(kf, pf)]
+    L = B * A
+    try:         # no lane may differ until one does
+        flips, err = compare_lanes(
+            what, streams, finals,
+            torch.full((T, L), math.inf, device=dev), T, L)
+    except AssertionError:
+        flips, err = compare_lanes(
+            what, streams, finals,
+            _plain_margins(prog, program, T, B, A).to(dev), T, L)
+    if program != "train_iteration" or flips:
+        return flips, err, False
+    learner = (out[0], out[1], out[3])
+    for k, p in zip(tree_leaves(learner),
+                    tree_leaves((plain_out[0], plain_out[1],
+                                 plain_out[3]))):
+        p = p.to(k.device)      # a leaf the optimizer keeps on the host
+        if k.dtype.is_floating_point:
+            e = float((k.float() - p.float()).abs().max()) if k.numel() \
+                else 0.0
+            ok, err = e <= ATOL, max(err, e)
+        else:
+            ok = torch.equal(k, p)
+        if not ok:
+            raise AssertionError(f"{what}: the learner's outputs differ "
+                                 f"from the plain run's on the same batch")
+    return flips, err, True
+
+
+@phase("analysis: the dry-run's IALS cells on the card")
+def phase_analysis(dev):
+    """Every sweep row on the host mesh: counted on the CPU's plain
+    route, then run once on the card from the counted program's inputs
+    (counters zeroed before, read after) and held against the plain run;
+    timed in device ms; a device time under the model-FLOP bound fails (a
+    share above 100 % is impossible). Then the pod rows, counted only."""
+    from repro_torch.kernels import aip_step as cuda
+    from repro_torch.launch import dryrun
+    host = dryrun._ials_mesh("host")
+    for program, domain, backbone, A, B, T, _ in dryrun.IALS_SWEEP:
+        what = f"{program} {domain} {backbone} A={A} B={B} T={T} host"
+        row = (program, domain, backbone, A, B, T)
+        prog_cpu = dryrun.ials_program(*row, host, "cpu")
+        with _RecordRollouts() as plain_rolls:
+            cell, plain_out = dryrun.count_ials_program(prog_cpu, *row,
+                                                        "host")
+        prog = dryrun.ials_program(*row, host, dev)
+        cuda.reset_launches()
+        with _RecordRollouts() as rolls:
+            out = dryrun.measure_ials_program(prog, cell)
+        # its horizon kernel once, under its own and its domain's counter
+        kernel = (f"policy_rollout_{cell['backbone']}"
+                  if program in ("policy_rollout", "train_iteration")
+                  else program)
+        want = {kernel: 1, f"{kernel}[{domain}]": 1}
+        if cell["status"] != "ok" or cell["launches"] != want:
+            raise AssertionError(f"dry-run {what}: status {cell['status']}"
+                                 f", launches {cell['launches']} (want "
+                                 f"{want})")
+        flips, err, learner = hold_program(what, program, prog_cpu,
+                                           plain_out, plain_rolls, out,
+                                           rolls, T, B, A, dev)
+
+        def call():
+            return prog.fn(*prog.args)
+        ms, timed = device_ms(call, reps=3, warmup=1), "device"
+        if not isinstance(ms, float):
+            # no profile held every launch: device time by CUDA events
+            # with the calls queued behind a spin kernel
+            ms, timed = queued_device_ms(call), "queued device"
+        rf = cell["roofline"]
+        bound_ms = (rf["model_flops_total"] / cell["n_chips"]
+                    / rf["peak_flops"] * 1e3)
+        share = bound_ms / ms
+        if share > 1.0:
+            raise AssertionError(f"dry-run {what}: {timed} {ms:.4f} ms is "
+                                 f"below its model-FLOP bound "
+                                 f"{bound_ms:.4f} ms: the count or the "
+                                 f"time is wrong")
+        log(f"[analysis] {what}: {timed} ms {ms}, model-FLOP bound "
+            f"{bound_ms:.6f} ms (share {share:.4%}), counted hbm_bytes "
+            f"{cell['ops']['hbm_bytes']:.0f} (the unfused plain route's "
+            f"t_memory {rf['t_memory_s'] * 1e3:.6f} ms), "
+            f"{cell['ops']['n_ops']} aten ops counted in "
+            f"{cell['count_s']:.2f} s, peak bytes on the card "
+            f"{cell['memory']['peak_bytes_per_device']}, launches "
+            f"{cell['launches']}; against the plain run: flips {flips} of "
+            f"{A * B} lanes, max err {err:.3g}"
+            + ("" if program != "train_iteration"
+               else ", learner within ATOL" if learner
+               else ", learner not held (a lane flipped: its batch "
+                    "differs)"))
+    for row in ANALYSIS_POD_ROWS:
+        cell = dryrun.count_ials_cell(*row)
+        if cell["status"] != "ok":
+            raise AssertionError(f"dry-run {row}: {cell['status']}")
+        rf = cell["roofline"]
+        log(f"[analysis] {' '.join(map(str, row))}: {cell['n_chips']} "
+            f"ranks, counted only: {cell['ops']['n_ops']} aten ops, "
+            f"all-gathers {cell['ops']['collective_counts']} of "
+            f"{cell['ops']['collective_bytes_total']:.0f} bytes, t_compute "
+            f"{rf['t_compute_s'] * 1e3:.6f} ms, t_memory (unfused plain "
+            f"route) {rf['t_memory_s'] * 1e3:.6f} ms, t_collective "
+            f"{rf['t_collective_s'] * 1e3:.6f} ms; ranks refuse: "
+            f"{cell.get('ranks_refuse', 'no')}")
+
+
+# ---------------------------------------------------------------------------
 # the serving kernels (phase 5) and the serving path (phase 6)
 # ---------------------------------------------------------------------------
 
@@ -2571,6 +2834,7 @@ def main():
         phase_ranks(main_runs, ckpt_at_1)
     launches.update(phase_engine(dev))
     launches.update(phase_scalar(dev))
+    phase_analysis(dev)
     recs.update(phase_serve_kernels(dev))
     launches.update(phase_serving_path(dev))
     recs.update(phase_layer_kernels(dev))

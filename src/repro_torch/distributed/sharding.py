@@ -31,14 +31,24 @@ process group (one rank a mesh position):
   ``all_gather`` over the world that rebuilds the global tree;
 - ``constrain_ials_state`` checks that local blocks match the rule (eager
   PyTorch has no layout to constrain); a no-op on a size-1 mesh.
+
+A ``LayoutRank`` is one rank of a layout with no process group (the
+pods' ``launch/mesh.py::MeshLayout``): every function here runs on it as
+on a ``DeviceMesh``, its all-gather handing back the rank's own block for
+every rank's. ``launch/dryrun.py`` counts a rank's program on it. Each
+all-gather is noted into an active op count
+(``op_analysis.note_collective``).
 """
 from __future__ import annotations
 
+import itertools
 from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
+from torch.utils._python_dispatch import _disable_current_modes
 
+from repro_torch.distributed import op_analysis
 from repro_torch.tree import tree_map
 
 IALS_LANE_AXES = ("pod", "data")
@@ -191,20 +201,72 @@ def _axes(entry) -> tuple:
     return entry if isinstance(entry, tuple) else (entry,)
 
 
-def _coordinate(mesh, rank=None) -> dict:
-    """{axis name: index} of ``rank`` (default: this process) in a
-    ``DeviceMesh`` (or a duck mesh with ``get_coordinate()``)."""
-    names = _view(mesh).axis_names
-    if rank is None:
-        coord = mesh.get_coordinate()
-        if coord is None:
-            raise ValueError("this rank is not in the mesh")
-    else:
-        hit = (mesh.mesh == rank).nonzero()
-        if hit.shape[0] != 1:
-            raise ValueError(f"rank {rank} is not in the mesh once")
-        coord = hit[0].tolist()
-    return dict(zip(names, coord))
+class LayoutRank:
+    """Rank ``rank`` of a layout of ``.axis_names`` and ``.shape``, with
+    no process group: what this module reads of a ``DeviceMesh`` (its
+    ``mesh``, the ranks laid out row-major, and ``get_coordinate()``), and
+    an ``all_gather`` of its own that hands back this rank's block for
+    every rank's (every block has its shape and dtype: what a count of the
+    rank's program reads)."""
+
+    def __init__(self, layout, rank: int = 0):
+        view = _view(layout)
+        self.axis_names = view.axis_names
+        self.shape = tuple(view.shape[a] for a in view.axis_names)
+        self.mesh = torch.arange(mesh_size(layout)).reshape(self.shape)
+        coord = _rank_coordinates(self)[rank]
+        self._coordinate = [coord[a] for a in self.axis_names]
+
+    def get_coordinate(self) -> list:
+        return self._coordinate
+
+    def all_gather(self, blocks: list, tensor: torch.Tensor):
+        blocks[:] = [tensor] * len(blocks)
+
+
+def _all_gather(mesh):
+    """``mesh``'s all-gather, ``fn(blocks, tensor)``: its own where it has
+    one (a ``LayoutRank``), else ``dist.all_gather`` over the process
+    group, which must hold the mesh's ranks."""
+    own = getattr(mesh, "all_gather", None)
+    if own is not None:
+        return own
+    if not dist.is_initialized():
+        raise RuntimeError("gathering a sharded tree needs an initialised "
+                           "process group")
+    if dist.get_world_size() != mesh_size(mesh):
+        raise ValueError(f"the mesh holds {mesh_size(mesh)} ranks, the "
+                         f"process group {dist.get_world_size()}")
+    return dist.all_gather
+
+
+def _rank_coordinates(mesh) -> dict:
+    """{rank: {axis name: index}} of a ``DeviceMesh`` (or a duck mesh with
+    a ``mesh`` tensor of ranks). Read outside any dispatch mode: a
+    ``DeviceMesh`` builds its tensor of ranks with aten ops on every read,
+    bookkeeping that is not the program's work."""
+    view = _view(mesh)
+    with _disable_current_modes():
+        grid = mesh.mesh.tolist()
+    out = {}
+    for idx in itertools.product(*(range(view.shape[a])
+                                    for a in view.axis_names)):
+        r = grid
+        for i in idx:
+            r = r[i]
+        if r in out:
+            raise ValueError(f"rank {r} is in the mesh twice")
+        out[r] = dict(zip(view.axis_names, idx))
+    return out
+
+
+def _coordinate(mesh) -> dict:
+    """{axis name: index} of this process in a ``DeviceMesh`` (or a duck
+    mesh with ``get_coordinate()``)."""
+    coord = mesh.get_coordinate()
+    if coord is None:
+        raise ValueError("this rank is not in the mesh")
+    return dict(zip(_view(mesh).axis_names, coord))
 
 
 def _block_index(entry, sizes, coord):
@@ -240,24 +302,20 @@ def gather_block(local: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
     included), each block written to its place."""
     if not any(_axes(e) for e in spec):
         return local
-    if not dist.is_initialized():
-        raise RuntimeError("gathering a sharded tree needs an initialised "
-                           "process group")
+    gather = _all_gather(mesh)
     sizes = _view(mesh).shape
-    world = dist.get_world_size()
-    if mesh_size(mesh) != world:
-        raise ValueError(f"the mesh holds {mesh_size(mesh)} ranks, the "
-                         f"process group {world}")
     src = local.contiguous()
     wire = src.view(torch.uint8) if src.dtype == torch.bool else src
-    blocks = [torch.empty_like(wire) for _ in range(world)]
-    dist.all_gather(blocks, wire)
+    blocks = [torch.empty_like(wire) for _ in range(mesh_size(mesh))]
+    op_analysis.note_collective("all-gather", wire)
+    gather(blocks, wire)
     gshape = list(local.shape)
     for dim, entry in enumerate(spec):
         gshape[dim] *= _block_index(entry, sizes, {a: 0 for a in sizes})[1]
     out = torch.empty(gshape, dtype=wire.dtype, device=local.device)
+    coords = _rank_coordinates(mesh)
     for r, blk in enumerate(blocks):
-        coord = _coordinate(mesh, r)
+        coord = coords[r]
         idx = []
         for dim, entry in enumerate(spec):
             i, n = _block_index(entry, sizes, coord)

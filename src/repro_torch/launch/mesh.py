@@ -1,20 +1,27 @@
-"""Host mesh construction (counterpart of ``repro/launch/mesh.py``).
+"""Mesh construction (counterpart of ``repro/launch/mesh.py``).
 
-A function, not a module-level constant, so importing this module touches
+Functions, not module-level constants, so importing this module touches
 no process group. ``make_host_mesh`` lays the ranks of the initialised
 ``torch.distributed`` process group out as a ("data", "model")
 ``DeviceMesh``, the counterpart of the JAX ``Mesh`` over local devices:
 one process a rank, each rank one position of the mesh. Several ranks may
 share one card (gloo); NCCL wants a card a rank.
 
-``make_production_mesh`` (the TPU pods' (pod, data, model) layout) serves
-only the LM stack and the dry-run, and is ported with them.
+``make_production_mesh`` is the pods' layout the reference's dry-run
+lowers its cells on: (16, 16) ("data", "model"), 256 cards, and with
+``multi_pod`` (2, 16, 16) ("pod", "data", "model"), 512. Without a process
+group it is a ``MeshLayout``, axis names and sizes only: the rules of
+``distributed/sharding.py`` read nothing else, and ``launch/dryrun.py``
+counts a rank's program on it. A process group of that size gets the
+``DeviceMesh`` of the same layout.
 """
 from __future__ import annotations
 
 import contextlib
 import datetime
+import math
 import os
+from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
@@ -23,6 +30,35 @@ DIST_TIMEOUT_S = 60   # default: a collective that waits longer fails,
 #                       not hangs
 RANK0_ALONE_S = 86400  # the others' wait for rank 0's work alone: its
 #                        length grows with the run's settings
+
+
+class MeshLayout(NamedTuple):
+    """A mesh's axis names and their sizes, with no process group."""
+    axis_names: tuple
+    shape: tuple
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape)
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The pods' layout (16 x 16 cards a pod, a "pod" axis in front of
+    two) as a ``DeviceMesh`` over the initialised process group, which
+    must hold exactly its cards; without a process group, the
+    ``MeshLayout`` itself (module docstring)."""
+    layout = (MeshLayout(("pod", "data", "model"), (2, 16, 16)) if multi_pod
+              else MeshLayout(("data", "model"), (16, 16)))
+    if not dist.is_initialized():
+        return layout
+    n = dist.get_world_size()
+    if n != layout.size:
+        raise ValueError(f"the production mesh {layout.shape} needs "
+                         f"{layout.size} ranks, the process group has {n}")
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh(device_type, layout.shape,
+                            mesh_dim_names=layout.axis_names)
 
 
 def make_host_mesh(model: int = 1):

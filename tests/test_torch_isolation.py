@@ -1,7 +1,8 @@
 """The port stands alone: importing every ``repro_torch`` module leaves
 ``jax`` and ``repro`` out of ``sys.modules``; no module of
-``src/repro_torch``, not ``chip_smoke.py`` and not the five ablation tools,
-the profiler check, the fault smoke, the shard smoke and the iteration
+``src/repro_torch`` (the dry-run, ``launch/dryrun.py``, and its op
+count, ``distributed/op_analysis.py``, included), not ``chip_smoke.py``
+and not the five ablation tools, the profiler check, the fault smoke, the shard smoke and the iteration
 profile that run beside it on the card, not the port's examples (the
 quickstart, the two training sweeps) and not the chaos smoke and docs
 check import them; and without CUDA the entry points
@@ -40,6 +41,16 @@ def test_importing_the_port_pulls_in_neither_jax_nor_repro():
                               "PATH": "/usr/bin:/bin"})
     assert res.returncode == 0, res.stdout + res.stderr
     assert len(mods) >= 15
+
+
+def test_the_analysis_modules_are_checked():
+    """The dry-run, the op count and the pods' layouts are among the
+    modules both tests above and below read."""
+    mods = _modules()
+    for m in ("repro_torch.launch.dryrun",
+              "repro_torch.distributed.op_analysis",
+              "repro_torch.launch.mesh"):
+        assert m in mods, m
 
 
 @pytest.mark.parametrize("path", sorted(

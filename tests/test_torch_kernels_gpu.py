@@ -21,7 +21,9 @@ on both domains at B = 1, 17, 512 with one launch a call; ``engine.step`` equals
 ``engine.rollout`` bitwise; the horizon kernels with the warehouse
 functor (spawn noise, 8 stacked frames, the action read by the d-set, on
 a cluster of two and on one CTA, ``vanish_after``), bitwise on a repeat,
-with their per-domain launch counters and refused launches.
+with their per-domain launch counters and refused launches; and a host
+cell of the dry-run (``launch/dryrun.py``) per program, run once on the
+card with one launch of its horizon kernel.
 These tests need a CUDA card and ``nvcc``: they carry the ``gpu`` marker
 and skip without a card.
 They import no JAX, so on a machine without it they run without the
@@ -597,3 +599,29 @@ def test_flash_f32_every_plan_matches_plain(label, plan, dev):
                                                       causal=causal),
                      chip_smoke.LAYER_TOL["flash_attention"],
                      f"{label} {plan}")
+
+
+_DRYRUN_CELLS = [("aip_rollout_multi", "warehouse", "gru", 4, 8),
+                 ("fnn_rollout", "traffic", "fnn", 1, 8),
+                 ("policy_rollout", "traffic", "fnn", 3, 8),
+                 ("train_iteration", "warehouse", "gru", 1, 8)]
+
+
+@pytest.mark.parametrize("program,domain,backbone,A,B", _DRYRUN_CELLS)
+def test_a_dry_run_host_cell_runs_on_the_card(program, domain, backbone, A,
+                                              B, dev):
+    """``launch/dryrun.py``'s host cell at a small shape (T = 8): counted on
+    the CPU, its program run once on the card: one launch of its horizon
+    kernel (``custom_call_count``), the peak at least what it holds."""
+    from repro_torch.launch import dryrun
+    cell = dryrun.run_ials_cell(program, domain, backbone, A, B, 8, "host",
+                                device="cuda")
+    kernel = (f"policy_rollout_{backbone}"
+              if program in ("policy_rollout", "train_iteration")
+              else program)
+    assert cell["status"] == "ok" and "ranks_refuse" not in cell
+    assert cell["launches"] == {kernel: 1, f"{kernel}[{domain}]": 1}
+    assert cell["ops"]["custom_call_count"] == 1
+    mem = cell["memory"]
+    assert mem["peak_bytes_per_device"] >= mem["argument_bytes_per_device"]
+    assert cell["measured_on"] == torch.cuda.get_device_name(0)

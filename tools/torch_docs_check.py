@@ -68,6 +68,13 @@ REQUIRED_SNIPPETS = (
     "kernels/aip_step.py::shard_plan",
     "launch/mesh.py::make_host_mesh",
     "tools/torch_shard_smoke.py",
+    # the roofline contract
+    "distributed/op_analysis.py::analyze",
+    "distributed/op_analysis.py::roofline",
+    "distributed/sharding.py::LayoutRank",
+    "launch/mesh.py::make_production_mesh",
+    "launch/dryrun.py::_ials_model_flops",
+    "python -m repro_torch.launch.dryrun",
     # entry points
     "python -m repro_torch.launch.rl_train",
     "python -m repro_torch.launch.policy_serve",

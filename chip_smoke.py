@@ -180,7 +180,24 @@ Phases, each printing its result and time on its own line:
      never calls); then the ``kernels.ops`` path itself at those widths,
      launch counters zeroed before and read after (the bf16 ``qwen3_4b``
      call must take the tensor-core route), its outputs held against the
-     port's ``nn`` functions.
+     port's ``nn`` functions;
+  8. LM serving (``launch/serve``, ``models/lm.py``), the launch counters
+     read before and after (the LM calls the ``nn`` functions, as the
+     reference's LM calls its XLA path: no kernel may launch): (a)
+     ``serve --arch qwen3-4b --batch 4 --prompt-len 128 --gen 32`` at
+     full width in bf16, twice in one process (the first call's lazy
+     loads apart), its prefill seconds, decode tokens/s and
+     ``max_memory_allocated``, the two runs' tokens equal; (b) qwen3-4b at full width in float32:
+     prefill of 32 tokens and one decode step against forward over 33
+     within 2e-3 (``tests/test_models.py``'s bound); (c) deepseek-moe-16b
+     at full width in bf16, dropless (64 experts, top 6): B = 2, a
+     32-token prompt, 8 greedy steps, the logits finite and within
+     ``LM_MOE_BF16_REL`` of the largest logit of forward's over the same
+     tokens, the routing flips between the two runs counted; the same in
+     float32 with the depth cut to 8 layers, within 2e-3; (d) every
+     arch at ``reduced()``, float32: forward, prefill and one decode step
+     on the card against the port's CPU run of the same weights, every
+     cache leaf within ``LM_REDUCED_TOL``.
 The build phase also prints ptxas's register and spill lines per kernel
 and the HGMMA count of the tensor-core kernel's SASS (``cuobjdump``).
 Then one JSON line lists every kernel (route, source, the TPU kernel it
@@ -2796,6 +2813,326 @@ def phase_layer_path(dev):
     return dict(counts, flash_attention=counts["flash_attention[wgmma]"])
 
 
+# ---------------------------------------------------------------------------
+# phase 8: LM serving
+# ---------------------------------------------------------------------------
+
+LM_SERVE_ARGV = ["--arch", "qwen3-4b", "--batch", "4", "--prompt-len", "128",
+                 "--gen", "32"]
+LM_INVARIANT_TOL = 2e-3       # tests/test_models.py's, float32
+LM_REDUCED_TOL = (1e-4, 1e-4)  # card vs CPU, float32 reduced: (atol, rtol)
+# deepseek-moe-16b bf16, prefill + decode against forward: max |diff| of
+# the logits over max |logit|. bf16 rounds at other points on the two
+# routes (other GEMM shapes, decode attention against flash), and that
+# noise flips near-tied routing (top 6 of 64): measured 0.126 with 98 of
+# 2,160 token-layer decisions flipped (NVIDIA H100 80GB HBM3, 700.00 W);
+# one flipped expert moves a token's MoE output by about a sixth. The
+# bound is 2.4x that spread. The same run in float32 (depth cut to
+# LM_MOE_F32_LAYERS) must meet LM_INVARIANT_TOL: the dispatch itself is
+# exact.
+LM_MOE_BF16_REL = 0.3
+LM_MOE_F32_LAYERS = 8
+LM_MOE = dict(batch=2, prompt=32, gen=8)
+
+
+class _RouterLog:
+    """Records every ``moe_apply`` call's top-k expert sets, (N, k)
+    sorted, in call order (the port's own ``lax.top_k`` order)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        import torch
+        from repro_torch.nn import moe
+        self._moe, self._real = moe, moe.moe_apply
+
+        def recording(p, x, *, top_k, **kw):
+            probs = torch.softmax(x.reshape(-1, x.shape[-1]).float()
+                                  @ p["router"], -1)
+            idx = torch.sort(probs, dim=-1, descending=True,
+                             stable=True).indices[:, :top_k]
+            self.calls.append(torch.sort(idx, -1).values.cpu())
+            return self._real(p, x, top_k=top_k, **kw)
+        moe.moe_apply = recording
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.moe_apply = self._real
+
+
+def _perturb_constants(tree, g):
+    """Every all-zero or all-one leaf (biases, gates, norms) plus noise, so
+    each path carries signal (a zero cross-attention gate hides the
+    vision layers)."""
+    import torch
+    from repro_torch.tree import tree_map
+
+    def go(x):
+        flat = x.reshape(-1)
+        if flat.numel() and bool((flat == flat[0]).all()) and \
+                float(flat[0]) in (0.0, 1.0):
+            return x + (0.2 * torch.randn(x.shape, generator=g)).to(x.dtype)
+        return x
+    return tree_map(go, tree)
+
+
+def _lm_inputs(cfg, B, T, g, dev):
+    import torch
+    toks = torch.randint(0, cfg.vocab_size, (B, T), generator=g)
+    extra = {}
+    if cfg.family == "vlm":
+        extra["vision"] = torch.randn((B, cfg.n_vision_tokens, cfg.d_model),
+                                      generator=g).to(cfg.dtype())
+    if cfg.family == "encdec":
+        extra["frames"] = torch.randn((B, cfg.n_audio_frames, cfg.d_model),
+                                      generator=g).to(cfg.dtype())
+    return toks.to(dev), {k: v.to(dev) for k, v in extra.items()}
+
+
+def _lm_serve_qwen(dev, card):
+    """Part 1: ``launch/serve`` itself at qwen3-4b's full width, bf16."""
+    import torch
+    from repro_torch.launch import serve
+    runs = []
+    for run in ("first", "again"):   # the first call's lazy loads apart
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        gen, stats = serve.main(LM_SERVE_ARGV)
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        if tuple(gen.shape) != (4, 33) or int(gen.min()) < 0 or \
+                int(gen.max()) >= 151936:
+            raise AssertionError(
+                f"serve qwen3-4b: generated {tuple(gen.shape)} ids in "
+                f"[{int(gen.min())}, {int(gen.max())}]")
+        log(f"[lm] serve {' '.join(LM_SERVE_ARGV)} (bf16, eager; {run} "
+            f"call in this process): prefill_s {stats['prefill_s']} "
+            f"[{card}]; decode_tokens_per_s {stats['decode_tokens_per_s']} "
+            f"[{card}]; max_memory_allocated {peak} B [{card}]; wall "
+            f"{wall:.2f} s (init included)")
+        runs.append(gen)
+    if not torch.equal(runs[0], runs[1]):
+        raise AssertionError("serve qwen3-4b: two greedy runs of one seed "
+                             "generated different tokens")
+
+
+def _lm_invariant_qwen_f32(dev):
+    """Part 2: qwen3-4b at full width in float32: prefill of T tokens and
+    one decode step against forward over T + 1, at 2e-3 (the JAX test's
+    bound, ``tests/test_models.py``)."""
+    import torch
+    from repro_torch import stream
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import lm
+    cfg = get_config("qwen3-4b").with_overrides(param_dtype="float32")
+    B, T = 2, 32
+    with torch.inference_mode():
+        params = lm.init_params(cfg, stream(dev, 1, 0))
+        g = torch.Generator()
+        g.manual_seed(11)
+        toks, _ = _lm_inputs(cfg, B, T + 1, g, dev)
+        lg0, cache = lm.prefill(params, cfg, {"tokens": toks[:, :T]}, T + 8)
+        lg1, _ = lm.decode_step(params, cfg, cache, toks[:, T], T)
+        h, _, _ = lm.forward(params, cfg, {"tokens": toks})
+        ref0 = lm.logits(params, cfg, h[:, T - 1])
+        ref1 = lm.logits(params, cfg, h[:, T])
+        e0 = float((lg0 - ref0).abs().max())
+        e1 = float((lg1 - ref1).abs().max())
+        scale = float(ref1.abs().max())
+    del params, cache
+    torch.cuda.empty_cache()
+    log(f"[lm] qwen3-4b float32 full width, B = {B}, T = {T}: prefill vs "
+        f"forward max |diff| {e0:.3g}, decode vs forward {e1:.3g} (max "
+        f"|logit| {scale:.3g}; bound {LM_INVARIANT_TOL})")
+    if not (math.isfinite(e0) and math.isfinite(e1)) or \
+            max(e0, e1) >= LM_INVARIANT_TOL:
+        raise AssertionError(f"qwen3-4b f32: prefill+decode vs forward "
+                             f"{e0:.3g} / {e1:.3g} >= {LM_INVARIANT_TOL}")
+
+
+def _lm_moe(dev, card, dtype):
+    """Part 3: deepseek-moe-16b at full width (64 experts, top 6),
+    dropless: prefill, greedy decode, and forward over the prompt plus the
+    fed tokens; the logits of every decoded position against forward's,
+    and the routing of every token of every MoE layer compared. bf16 at
+    full depth (served and timed); float32 with the depth cut to
+    ``LM_MOE_F32_LAYERS`` (the weights of all 28 would take 65.5 GB)."""
+    import torch
+    from repro_torch import stream
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import lm
+    cfg = get_config("deepseek-moe-16b")
+    cfg = cfg.with_overrides(
+        capacity_factor=cfg.n_routed_experts / cfg.moe_top_k,
+        param_dtype=dtype)
+    if dtype == "float32":
+        cfg = cfg.with_overrides(n_layers=LM_MOE_F32_LAYERS)
+    B, T, n = LM_MOE["batch"], LM_MOE["prompt"], LM_MOE["gen"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        params = lm.init_params(cfg, stream(dev, 2, 0))
+        torch.cuda.synchronize(dev)
+        t_init = time.perf_counter() - t0
+        g = torch.Generator()
+        g.manual_seed(12)
+        prompt, _ = _lm_inputs(cfg, B, T, g, dev)
+        with _RouterLog() as serve_log:
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            lg, cache = lm.prefill(params, cfg, {"tokens": prompt}, T + n)
+            torch.cuda.synchronize(dev)
+            t_prefill = time.perf_counter() - t0
+            lgs, fed = [lg], []
+            t0 = time.perf_counter()
+            for i in range(n):
+                tok = torch.argmax(lg, -1)
+                fed.append(tok)
+                lg, cache = lm.decode_step(params, cfg, cache, tok, T + i)
+                lgs.append(lg)
+            torch.cuda.synchronize(dev)
+            t_decode = time.perf_counter() - t0
+        toks = torch.cat([prompt, torch.stack(fed, 1)], 1)     # (B, T + n)
+        with _RouterLog() as fwd_log:
+            h, aux, _ = lm.forward(params, cfg, {"tokens": toks})
+            ref = lm.logits(params, cfg, h[:, T - 1:T + n])    # (B, n+1, V)
+        got = torch.stack(lgs, 1)
+        peak = torch.cuda.max_memory_allocated(dev)
+        finite = bool(torch.isfinite(got).all()) and \
+            bool(torch.isfinite(ref).all())
+        diff = (got.float() - ref.float()).abs()
+        err, scale = float(diff.max()), float(ref.float().abs().max())
+        per_pos = [round(float(x), 6) for x in diff.amax((0, 2))]
+        agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
+        drop = float(aux["drop_frac"])
+    del params, cache, h
+    torch.cuda.empty_cache()
+    # routing: forward's sets (B, T+n) per MoE layer against the prefill's
+    # and each decode step's, token by token
+    L = cfg.n_layers - cfg.first_k_dense
+    fwd = [c.reshape(B, T + n, -1) for c in fwd_log.calls]
+    srv = serve_log.calls
+    flips = 0
+    for layer in range(L):
+        flips += int((srv[layer].reshape(B, T, -1)
+                      != fwd[layer][:, :T]).any(-1).sum())
+        for i in range(n):
+            step = srv[L + i * L + layer].reshape(B, -1)
+            flips += int((step != fwd[layer][:, T + i]).any(-1).sum())
+    decisions = L * B * (T + n)
+    bound = LM_MOE_BF16_REL * scale if dtype == "bfloat16" \
+        else LM_INVARIANT_TOL
+    log(f"[lm] deepseek-moe-16b {dtype} full width, {cfg.n_layers} layers, "
+        f"dropless, B = {B}, prompt {T}, gen {n}: init {t_init:.2f} s, "
+        f"prefill {t_prefill:.4f} s [{card}], decode "
+        f"{B * n / t_decode:.1f} tokens/s [{card}], max_memory_allocated "
+        f"{peak} B [{card}]; logits finite {finite}; prefill+decode vs "
+        f"forward max |diff| {err:.4g} over max |logit| {scale:.4g} "
+        f"(share {err / scale:.4g}; bound {bound:.4g}); per position "
+        f"{per_pos}; argmax agreement {agree:.4f}; routing flips {flips} "
+        f"of {decisions} token-layer decisions; forward drop_frac {drop}")
+    if not finite:
+        raise AssertionError(f"deepseek-moe-16b {dtype}: non-finite logits")
+    if drop != 0.0:
+        raise AssertionError(f"deepseek-moe-16b dropless: drop_frac {drop}")
+    if not err < bound:
+        raise AssertionError(f"deepseek-moe-16b {dtype}: prefill+decode vs "
+                             f"forward {err:.4g} >= {bound:.4g}")
+
+
+def _lm_reduced_all(dev):
+    """Part 4: every arch at ``reduced()``, float32: forward, prefill and
+    one decode step on the card against the port's CPU run of the same
+    weights and inputs, every decoded cache leaf included."""
+    import torch
+    from repro_torch.configs.base import get_config, list_configs, reduced
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_leaves_with_path, tree_map
+    B, T = 2, 12
+    worst = {}
+    for i, arch in enumerate(list_configs()):
+        cfg = reduced(get_config(arch))
+        g = torch.Generator()
+        g.manual_seed(100 + i)
+        cpu = _perturb_constants(lm.init_params(cfg, g, device="cpu"), g)
+        toks, extra = _lm_inputs(cfg, B, T + 1, g, "cpu")
+        outs = {}
+        for where in ("cpu", dev):
+            p = tree_map(lambda x: x.to(where), cpu)
+            tk = toks.to(where)
+            ex = {k: v.to(where) for k, v in extra.items()}
+            with torch.inference_mode():
+                h, aux, _ = lm.forward(p, cfg, {"tokens": tk[:, :T], **ex})
+                lg0, cache = lm.prefill(p, cfg, {"tokens": tk[:, :T], **ex},
+                                        T + 4)
+                lg1, cache = lm.decode_step(p, cfg, cache, tk[:, T], T)
+            outs[str(where)] = dict(h=h, lg0=lg0, lg1=lg1, aux=aux,
+                                    cache=cache)
+        a, b = outs[str(dev)], outs["cpu"]
+        errs = [_lm_near(a[k], b[k], k) for k in ("h", "lg0", "lg1")]
+        errs += [_lm_near(a["aux"][k], b["aux"][k], k) for k in b["aux"]]
+        ref = dict(tree_leaves_with_path(b["cache"]))
+        for path, leaf in tree_leaves_with_path(a["cache"]):
+            errs.append(_lm_near(leaf, ref[path], f"cache{path}"))
+        worst[arch] = max(errs)
+    log(f"[lm] reduced archs, card vs CPU (float32, bound atol + rtol x "
+        f"|CPU value|, {LM_REDUCED_TOL}): worst share of the bound "
+        f"{worst}")
+    return worst
+
+
+def _lm_near(a, b, what):
+    """``a`` (the card's) finite, of ``b``'s shape and dtype, within
+    ``LM_REDUCED_TOL`` of it -> the largest share of the bound used."""
+    import torch
+    af, bf = a.detach().float().cpu(), b.detach().float().cpu()
+    if af.shape != bf.shape or a.dtype != b.dtype:
+        raise AssertionError(f"{what}: {tuple(af.shape)} {a.dtype} vs "
+                             f"{tuple(bf.shape)} {b.dtype}")
+    if not bool(torch.isfinite(af).all()):
+        raise AssertionError(f"{what}: non-finite on the card")
+    atol, rtol = LM_REDUCED_TOL
+    share = (af - bf).abs() / (atol + rtol * bf.abs())
+    if bool((share > 1).any()):
+        raise AssertionError(f"{what}: card vs CPU max |diff| "
+                             f"{float((af - bf).abs().max()):.3g}")
+    return float(share.max()) if share.numel() else 0.0
+
+
+@phase("LM serving: launch/serve at full width")
+def phase_lm(dev, card):
+    """The LM serving path (``launch/serve``, ``models/lm.py``): qwen3-4b
+    and deepseek-moe-16b at full width, the float32 invariant, every
+    reduced arch against the CPU. The LM calls the ``nn`` functions, not
+    the layer kernels (as the reference's LM calls its XLA path), so the
+    kernel launch counters must not move."""
+    import torch
+    from repro_torch.kernels import aip_step as cuda
+    torch.empty(1, device=dev)   # the allocator's stats need a context
+    before = dict(cuda.LAUNCHES)
+    parts = {}
+    for name, fn in (("serve qwen3-4b", lambda: _lm_serve_qwen(dev, card)),
+                     ("qwen3-4b f32 invariant",
+                      lambda: _lm_invariant_qwen_f32(dev)),
+                     ("deepseek-moe-16b bf16",
+                      lambda: _lm_moe(dev, card, "bfloat16")),
+                     ("deepseek-moe-16b f32, 8 layers",
+                      lambda: _lm_moe(dev, card, "float32")),
+                     ("reduced archs", lambda: _lm_reduced_all(dev))):
+        t0 = time.perf_counter()
+        fn()
+        parts[name] = round(time.perf_counter() - t0, 2)
+    moved = {k: v - before[k] for k, v in cuda.LAUNCHES.items()
+             if v != before[k]}
+    log(f"[lm] part times (s): {parts}; kernel launches during the phase: "
+        f"{moved or 'none'}")
+    if moved:
+        raise AssertionError(f"the LM path launched kernels: {moved}")
+
+
 def _near(a, b, tols, what):
     """``a`` finite, of ``b``'s shape and dtype, and within the dtype's
     tolerance of it (``tols`` = (f32, bf16); bf16 also one bf16 ulp of
@@ -2839,6 +3176,7 @@ def main():
     launches.update(phase_serving_path(dev))
     recs.update(phase_layer_kernels(dev))
     launches.update(phase_layer_path(dev))
+    phase_lm(dev, card)
     kernels = []
     for name, rec in recs.items():
         b_ms, b_by = bound(rec["flops"], rec["bytes"],

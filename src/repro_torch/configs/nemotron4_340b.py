@@ -1,0 +1,10 @@
+"""Nemotron-4-340B [dense]: 96L d_model=18432 96H (GQA kv=8) d_ff=73728
+vocab=256000 — squared-ReLU two-matrix MLP. [arXiv:2402.16819; unverified]"""
+from .base import ArchConfig, register
+
+CONFIG = register(ArchConfig(
+    name="nemotron-4-340b", family="dense",
+    n_layers=96, d_model=18432, n_heads=96, n_kv_heads=8, head_dim=192,
+    d_ff=73728, vocab_size=256000,
+    act="relu2", mlp_kind="mlp", rope_theta=10_000.0,
+))

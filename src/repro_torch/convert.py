@@ -16,7 +16,9 @@ the policy, and the LS, GS, IALS and rollout states: NamedTuple states
 ``WarehouseState``, ``IALSState``, ``MultiIALSState``, ``RolloutState``)
 are rebuilt as the port's classes of the same name, batched or scalar
 (a scalar state's 0-d leaves stay 0-d), so the JAX scalar envs' states
-carry across into the port's scalar envs.
+carry across into the port's scalar envs. The LM's parameters and caches
+carry across too: its recurrent states (``MambaState``, ``MLSTMState``,
+``SLSTMState``) become the port's ``repro_torch/nn/ssm.py`` classes.
 This module never imports the JAX package.
 """
 from __future__ import annotations
@@ -29,11 +31,13 @@ from repro_torch.core.engine import IALSState
 from repro_torch.core.ials import MultiIALSState
 from repro_torch.envs.traffic import LocalTrafficState, TrafficState
 from repro_torch.envs.warehouse import LocalWarehouseState, WarehouseState
+from repro_torch.nn.ssm import MambaState, MLSTMState, SLSTMState
 from repro_torch.rl.ppo import RolloutState
 
 _STATES = {cls.__name__: cls for cls in
            (LocalTrafficState, TrafficState, LocalWarehouseState,
-            WarehouseState, IALSState, MultiIALSState, RolloutState)}
+            WarehouseState, IALSState, MultiIALSState, RolloutState,
+            MambaState, MLSTMState, SLSTMState)}
 
 
 def array_to_torch(x, device="cuda") -> torch.Tensor:

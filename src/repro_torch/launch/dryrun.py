@@ -415,7 +415,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.arch or args.shape or args.all:
         ap.error("the LM half of the dry-run (--arch / --shape / --all, "
-                 "run_cell) is not ported: it comes with the LM slice")
+                 "run_cell) is not ported: it comes with the LM training "
+                 "and sharding slice")
     if not args.ials:
         ap.error("--ials PROGRAM|all is required")
     resolve_device(args.device)

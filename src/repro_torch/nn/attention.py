@@ -1,18 +1,57 @@
-"""Chunked flash-style softmax attention with GQA (counterpart of
-``repro/nn/attention.py``'s ``_pick_chunk`` / ``flash_attention``).
+"""Attention: RoPE, chunked flash-style softmax attention (GQA) and the
+decode paths (counterpart of ``repro/nn/attention.py``).
 
-The XLA path of the reference, written out: an online softmax over
-(q_chunk, k_chunk) tiles, float32 statistics and accumulator, KV heads
-grouped, never the whole (T, S) score matrix. ``repro_torch.kernels.ops.
-flash_attention_mha`` is the fused CUDA kernel of the same math. RoPE,
-``decode_attention`` and ``mla_decode_attention`` belong to the LM stack
-and are not ported yet.
+``flash_attention`` is the XLA path of the reference, written out: an
+online softmax over (q_chunk, k_chunk) tiles, float32 statistics and
+accumulator, KV heads grouped, never the whole (T, S) score matrix.
+``repro_torch.kernels.ops.flash_attention_mha`` is the fused CUDA kernel
+of the same math; the LM (``repro_torch/models/lm.py``) calls this
+function, as the reference's calls its XLA path, not the kernel.
+
+``decode_attention`` and ``mla_decode_attention`` attend one new token
+against a cache. Their scores and P.V sums come out in float32, as the
+reference's ``preferred_element_type`` makes them: a product of two
+bfloat16 values is exact in float32, so the port upcasts the operands
+(the valid prefix of the cache, slots 0..pos) and multiplies in float32,
+which differs from the reference only in the order of the sum. That
+upcast is a float32 copy of the prefix, per layer and step; the
+reference makes none.
 """
 from __future__ import annotations
 
 import torch
 
 BIG_NEG = -1e30
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_angles(positions: torch.Tensor, dim: int, theta: float) -> tuple:
+    """positions: (...,) int -> cos/sin of shape (..., dim//2)."""
+    inv = 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                        device=positions.device) / dim))
+    ang = positions.float()[..., None] * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0,
+               rot_dim: int | None = None) -> torch.Tensor:
+    """x: (B, T, H, D); positions: (T,) or (B, T). Rotates the first
+    rot_dim dims in float32, then casts back to x's dtype."""
+    D = x.shape[-1]
+    rot_dim = D if rot_dim is None else rot_dim
+    xr, xp = x[..., :rot_dim], x[..., rot_dim:]
+    cos, sin = rope_angles(positions, rot_dim, theta)  # (..., rot_dim//2)
+    if cos.dim() == 2:      # (T, rd//2) -> (1, T, 1, rd//2)
+        cos, sin = cos[None, :, None, :], sin[None, :, None, :]
+    elif cos.dim() == 3:    # (B, T, rd//2) -> (B, T, 1, rd//2)
+        cos, sin = cos[:, :, None, :], sin[:, :, None, :]
+    x1, x2 = xr.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return torch.cat([out.to(x.dtype), xp], dim=-1)
 
 
 def _pick_chunk(n: int, want: int) -> int:
@@ -81,3 +120,60 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         out = acc / torch.clamp(l, min=1e-20)[..., None]   # (B,KH,G,qc,Dv)
         outs.append(out.permute(0, 3, 1, 2, 4))            # (B,qc,KH,G,Dv)
     return torch.cat(outs, dim=1).reshape(B, T, H, Dv).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Decode attention (one new token vs a KV cache)
+# ---------------------------------------------------------------------------
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, pos: int, *,
+                     scale: float | None = None) -> torch.Tensor:
+    """q: (B, H, D); caches: (B, S, KH, D[v]); pos: the new token's slot.
+
+    Attends over cache slots <= pos (the new token's K/V must already be
+    written at ``pos``). The reference masks slots past ``pos`` to
+    ``BIG_NEG``, whose softmax weight is exactly 0; the port leaves them
+    out, the same sums but for the order.
+    """
+    B, H, D = q.shape
+    KH = k_cache.shape[2]
+    G = H // KH
+    scale = (D ** -0.5) if scale is None else scale
+    n = int(pos) + 1
+    # the scale is rounded to q's dtype first, as the reference does
+    qg = (q * torch.tensor(scale, dtype=q.dtype, device=q.device)
+          ).reshape(B, KH, G, D)
+    s = torch.einsum("bhgd,bkhd->bhgk", qg.float(), k_cache[:, :n].float())
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgk,bkhd->bhgd", p.to(v_cache.dtype).float(),
+                       v_cache[:, :n].float())
+    return out.reshape(B, H, v_cache.shape[-1]).to(q.dtype)
+
+
+def mla_decode_attention(q_nope: torch.Tensor, q_rope: torch.Tensor,
+                         ckv_cache: torch.Tensor, krope_cache: torch.Tensor,
+                         w_kb_k: torch.Tensor, w_kb_v: torch.Tensor,
+                         pos: int, *, scale: float) -> torch.Tensor:
+    """Absorbed MLA decode (DeepSeek-V2/V3).
+
+    q_nope: (B, H, Dn); q_rope: (B, H, Dr); ckv_cache: (B, S, R);
+    krope_cache: (B, S, Dr); w_kb_k: (H, R, Dn) latent->k_nope per head;
+    w_kb_v: (H, R, Dv) latent->v per head. Attention runs in the
+    compressed latent space: scores and values touch only the (B, S, R)
+    cache. Each product's operands are rounded to the dtype the
+    reference hands its einsum, and the sum is float32.
+    """
+    n = int(pos) + 1
+    cdt = ckv_cache.dtype
+    ckv = ckv_cache[:, :n].float()
+    q_lat = torch.einsum("bhd,hrd->bhr", q_nope.float(), w_kb_k.float())
+    s = torch.einsum("bhr,bsr->bhs", q_lat.to(cdt).float(), ckv)
+    s = s + torch.einsum("bhd,bsd->bhs", q_rope.float(),
+                         krope_cache[:, :n].float())
+    s = s * scale
+    p = torch.softmax(s, dim=-1)
+    o_lat = torch.einsum("bhs,bsr->bhr", p.to(cdt).float(), ckv)
+    out = torch.einsum("bhr,hrd->bhd", o_lat.to(w_kb_v.dtype).float(),
+                       w_kb_v.float())
+    return out.to(q_nope.dtype)

@@ -1,0 +1,476 @@
+"""State-space / recurrent blocks: Mamba (S6), xLSTM's mLSTM and sLSTM
+(counterpart of ``repro/nn/ssm.py``).
+
+- Mamba: the reference runs a ``lax.associative_scan`` inside each chunk;
+  the port runs the recurrence ``h = decay * h + u`` step by step inside
+  each chunk (no counterpart of the associative scan), so the state is
+  the same sum in another order: within float32 rounding of it.
+- mLSTM: the chunkwise-parallel form (intra-chunk gate-weighted scores,
+  one rank-L update of the matrix memory per chunk), with the xLSTM
+  max-stabiliser; ``mlstm_step`` is the recurrent cell.
+- sLSTM: the recurrent cell over time, with fused recurrent weights.
+- All recurrent state is float32 whatever the activation dtype.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from .module import init_device, dense_init, normal
+
+Params = Dict[str, Any]
+
+
+def _chunk(n: int, want: int) -> int:
+    """Largest divisor of n that is <= want."""
+    if n <= want:
+        return n
+    k = -(-n // want)
+    while n % k:
+        k += 1
+    return n // k
+
+
+def _gelu(x):
+    """The reference's ``jax.nn.gelu``: its default is the tanh form."""
+    return F.gelu(x, approximate="tanh")
+
+
+def _conv_window(xi: torch.Tensor, K: int) -> torch.Tensor:
+    """The last K pre-conv inputs, zero-padded in front: (B, K, C)."""
+    T = xi.shape[1]
+    return F.pad(xi, (0, 0, max(K - T, 0), 0))[:, -K:]
+
+
+# ---------------------------------------------------------------------------
+# Causal depthwise conv1d (shared by mamba / mLSTM)
+# ---------------------------------------------------------------------------
+
+def causal_conv1d(x: torch.Tensor, w: torch.Tensor,
+                  b: torch.Tensor) -> torch.Tensor:
+    """x: (B, T, C); w: (C, K); b: (C,). Causal depthwise convolution,
+    tap by tap in the reference's order."""
+    K = w.shape[-1]
+    T = x.shape[1]
+    xp = F.pad(x, (0, 0, K - 1, 0))
+    out = torch.zeros_like(x)
+    for k in range(K):
+        out = out + xp[:, k:k + T, :] * w[:, k]
+    return out + b
+
+
+def conv_step(x_window: torch.Tensor, w: torch.Tensor,
+              b: torch.Tensor) -> torch.Tensor:
+    """x_window: (B, K, C) most-recent-last -> (B, C)."""
+    return torch.einsum("bkc,ck->bc", x_window, w) + b
+
+
+# ---------------------------------------------------------------------------
+# Mamba (S6)
+# ---------------------------------------------------------------------------
+
+def mamba_init(generator, d_model: int, *, expand: int = 2,
+               d_state: int = 16, d_conv: int = 4,
+               dt_rank: int | None = None, dtype=torch.float32,
+               device=None) -> Params:
+    dI = expand * d_model
+    dt_rank = dt_rank or max(1, math.ceil(d_model / 16))
+    dev = init_device(generator, device)
+    in_proj = dense_init(generator, d_model, 2 * dI, dtype=dtype,
+                         device=dev)["w"]
+    conv_w = normal(generator, (dI, d_conv), scale=d_conv ** -0.5,
+                    dtype=dtype, device=dev)
+    x_proj = dense_init(generator, dI, dt_rank + 2 * d_state, dtype=dtype,
+                        device=dev)["w"]
+    dt_w = dense_init(generator, dt_rank, dI, dtype=dtype, device=dev)["w"]
+    u = torch.empty((dI,), dtype=torch.float32, device=dev)
+    u.uniform_(math.log(1e-3), math.log(1e-1), generator=generator)
+    return {
+        "in_proj": in_proj,
+        "conv_w": conv_w,
+        "conv_b": torch.zeros((dI,), dtype=dtype, device=dev),
+        "x_proj": x_proj,
+        "dt_w": dt_w,
+        "dt_b": torch.log(torch.expm1(torch.exp(u))),
+        "A_log": torch.log(torch.arange(
+            1, d_state + 1, dtype=torch.float32, device=dev
+        ).expand(dI, d_state).contiguous()),
+        "D": torch.ones((dI,), dtype=torch.float32, device=dev),
+        "out_proj": dense_init(generator, dI, d_model, dtype=dtype,
+                               device=dev)["w"],
+    }
+
+
+class MambaState(NamedTuple):
+    conv: torch.Tensor  # (B, K, dI) rolling window of pre-conv inputs
+    h: torch.Tensor     # (B, dI, dS)
+
+
+def mamba_init_state(batch: int, dI: int, d_conv: int, d_state: int,
+                     dtype=torch.float32, device="cpu") -> MambaState:
+    return MambaState(
+        conv=torch.zeros((batch, d_conv, dI), dtype=dtype, device=device),
+        h=torch.zeros((batch, dI, d_state), dtype=torch.float32,
+                      device=device))
+
+
+def _mamba_inputs(p: Params, xc: torch.Tensor, d_state: int):
+    """-> dt, B, C (float32) from the post-conv activations."""
+    dt_rank = p["dt_w"].shape[0]
+    dbc = xc @ p["x_proj"]
+    dt_in = dbc[..., :dt_rank]
+    B_ = dbc[..., dt_rank:dt_rank + d_state].float()
+    C_ = dbc[..., dt_rank + d_state:].float()
+    dt = F.softplus(dt_in @ p["dt_w"] + p["dt_b"]).float()
+    return dt, B_, C_
+
+
+def mamba_apply(p: Params, x: torch.Tensor, *, d_state: int = 16,
+                chunk: int = 128, return_state: bool = False):
+    """x: (B, T, d_model) -> (B, T, d_model). Full-sequence (prefill)."""
+    B, T, _ = x.shape
+    dI = p["conv_w"].shape[0]
+    xi, z = (x @ p["in_proj"]).chunk(2, dim=-1)
+    xc = F.silu(causal_conv1d(xi, p["conv_w"], p["conv_b"]))
+    dt, B_, C_ = _mamba_inputs(p, xc, d_state)
+    A = -torch.exp(p["A_log"])                         # (dI, dS)
+    xc32 = xc.float()
+
+    ck = _chunk(T, chunk)
+    h = torch.zeros((B, dI, d_state), dtype=torch.float32, device=x.device)
+    ys = []
+    for c0 in range(0, T, ck):
+        sl = slice(c0, c0 + ck)
+        decay = torch.exp(dt[:, sl, :, None] * A)                 # (B,ck,dI,dS)
+        u = (dt[:, sl] * xc32[:, sl])[..., None] * B_[:, sl, None, :]
+        hs = []
+        for t in range(ck):
+            h = decay[:, t] * h + u[:, t]
+            hs.append(h)
+        ys.append(torch.einsum("btds,bts->btd", torch.stack(hs, 1),
+                               C_[:, sl]))
+    y = torch.cat(ys, dim=1)
+    y = y + p["D"] * xc32
+    out = (y.to(x.dtype) * F.silu(z)) @ p["out_proj"]
+    if return_state:
+        return out, MambaState(conv=_conv_window(xi, p["conv_w"].shape[-1]),
+                               h=h)
+    return out
+
+
+def mamba_step(p: Params, state: MambaState, x: torch.Tensor, *,
+               d_state: int = 16) -> tuple:
+    """Single decode step. x: (B, d_model) -> (out (B, d_model), state)."""
+    xi, z = (x @ p["in_proj"]).chunk(2, dim=-1)
+    conv = torch.cat([state.conv[:, 1:], xi[:, None]], dim=1)
+    xc = F.silu(conv_step(conv, p["conv_w"], p["conv_b"]))
+    dt, B_, C_ = _mamba_inputs(p, xc, d_state)
+    A = -torch.exp(p["A_log"])
+    xc32 = xc.float()
+    decay = torch.exp(dt[..., None] * A)                        # (B,dI,dS)
+    u = (dt * xc32)[..., None] * B_[:, None, :]
+    h = decay * state.h + u
+    y = torch.einsum("bds,bs->bd", h, C_) + p["D"] * xc32
+    out = (y.to(x.dtype) * F.silu(z)) @ p["out_proj"]
+    return out, MambaState(conv=conv, h=h)
+
+
+# ---------------------------------------------------------------------------
+# mLSTM (xLSTM matrix-memory cell)
+# ---------------------------------------------------------------------------
+
+def mlstm_init(generator, d_model: int, n_heads: int, *,
+               proj_factor: float = 2.0, d_conv: int = 4,
+               dtype=torch.float32, device=None) -> Params:
+    dI = int(proj_factor * d_model)
+    if dI % n_heads:
+        raise ValueError(f"inner width {dI} not divisible by {n_heads} "
+                         "heads")
+    DH = dI // n_heads
+    dev = init_device(generator, device)
+
+    def bd():  # block-diagonal per-head projection
+        return normal(generator, (n_heads, DH, DH), scale=DH ** -0.5,
+                      dtype=dtype, device=dev)
+
+    up_proj = dense_init(generator, d_model, 2 * dI, dtype=dtype,
+                         device=dev)["w"]
+    conv_w = normal(generator, (dI, d_conv), scale=d_conv ** -0.5,
+                    dtype=dtype, device=dev)
+    wq, wk, wv = bd(), bd(), bd()
+    return {
+        "up_proj": up_proj,
+        "conv_w": conv_w,
+        "conv_b": torch.zeros((dI,), dtype=dtype, device=dev),
+        "wq": wq, "wk": wk, "wv": wv,
+        "w_if": dense_init(generator, dI, 2 * n_heads, dtype=torch.float32,
+                           bias=True, device=dev),
+        "out_norm_g": torch.ones((dI,), dtype=dtype, device=dev),
+        "down_proj": dense_init(generator, dI, d_model, dtype=dtype,
+                                device=dev)["w"],
+    }
+
+
+def _bd_proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x: (..., dI); w: (NH, DH, DH) block-diagonal -> (..., NH, DH)."""
+    nh, dh = w.shape[0], w.shape[1]
+    xr = x.reshape(*x.shape[:-1], nh, dh)
+    return torch.einsum("...hd,hde->...he", xr, w)
+
+
+class MLSTMState(NamedTuple):
+    conv: torch.Tensor  # (B, K, dI)
+    C: torch.Tensor     # (B, NH, DH, DH)
+    n: torch.Tensor     # (B, NH, DH)
+    m: torch.Tensor     # (B, NH)
+
+
+def mlstm_init_state(batch: int, dI: int, n_heads: int, d_conv: int,
+                     dtype=torch.float32, device="cpu") -> MLSTMState:
+    DH = dI // n_heads
+    f32 = torch.float32
+    return MLSTMState(
+        conv=torch.zeros((batch, d_conv, dI), dtype=dtype, device=device),
+        C=torch.zeros((batch, n_heads, DH, DH), dtype=f32, device=device),
+        n=torch.zeros((batch, n_heads, DH), dtype=f32, device=device),
+        m=torch.full((batch, n_heads), -1e30, dtype=f32, device=device))
+
+
+def _mlstm_cell(qkvif, state: MLSTMState):
+    """One recurrent step. q,k,v: (B,NH,DH); i_raw,f_raw: (B,NH)."""
+    q, k, v, i_raw, f_raw = qkvif
+    DH = q.shape[-1]
+    logf = F.logsigmoid(f_raw)
+    m_new = torch.maximum(logf + state.m, i_raw)
+    i_g = torch.exp(i_raw - m_new)
+    f_g = torch.exp(logf + state.m - m_new)
+    k_s = k / math.sqrt(DH)
+    C = f_g[..., None, None] * state.C + i_g[..., None, None] * (
+        v[..., :, None] * k_s[..., None, :])
+    n = f_g[..., None] * state.n + i_g[..., None] * k_s
+    num = torch.einsum("bhij,bhj->bhi", C, q)
+    den = torch.clamp(torch.abs(torch.einsum("bhj,bhj->bh", n, q)),
+                      min=1.0)
+    h = num / den[..., None]
+    return h, MLSTMState(conv=state.conv, C=C, n=n, m=m_new)
+
+
+def _mlstm_chunk_parallel(q, k, v, i_raw, f_raw, state: MLSTMState):
+    """Chunkwise-parallel mLSTM over ONE chunk: q,k,v (L, B, NH, DH);
+    i_raw,f_raw (L, B, NH). Intra-chunk: (L, L) gate-weighted scores;
+    inter-chunk: one rank-L update C' = decay*C + (gated k)^T v, with the
+    max-stabiliser exact (the recurrence unrolled L steps)."""
+    L, B, NH, DH = q.shape
+    logf = F.logsigmoid(f_raw)                              # (L, B, NH)
+    b = torch.cumsum(logf, dim=0)                           # b_t = sum logf
+    b_total = b[-1]                                         # (B, NH)
+
+    # log-weights: intra w(t,tau) = b_t - b_tau + i_tau (tau <= t)
+    #              inter w(t)     = b_t + m_prev
+    tril = torch.tril(torch.ones((L, L), dtype=torch.bool,
+                                 device=q.device))[:, :, None, None]
+    # masked to -inf BEFORE any subtraction of another -inf (NaN)
+    log_intra = (b[:, None] - b[None, :] + i_raw[None, :]).masked_fill(
+        ~tril, float("-inf"))                               # (t, tau, B, NH)
+    m_intra = log_intra.amax(dim=1)                         # (t, B, NH)
+    log_inter = b + state.m[None]                           # (t, B, NH)
+    m_t = torch.maximum(m_intra, log_inter)                 # running max
+
+    k_s = k / math.sqrt(DH)
+    s_qk = torch.einsum("tbhd,ubhd->tubh", q, k_s)          # (t, tau, B, NH)
+    w_intra = torch.where(tril, torch.exp(log_intra - m_t[:, None]), 0.0)
+    h_intra = torch.einsum("tubh,ubhd->tbhd", w_intra * s_qk, v)
+    n_intra = torch.einsum("tubh,ubhd->tbhd", w_intra, k_s)
+
+    w_inter = torch.exp(log_inter - m_t)                    # (t, B, NH)
+    h_inter = torch.einsum("tbhj,bhij->tbhi", q, state.C) * w_inter[..., None]
+    n_inter = state.n[None] * w_inter[..., None]
+    qn = torch.einsum("tbhd,tbhd->tbh", q, n_intra + n_inter)
+    den = torch.clamp(torch.abs(qn), min=1.0)
+    h = (h_intra + h_inter) / den[..., None]                # (t, B, NH, DH)
+
+    # chunk-end state
+    m_state = torch.maximum(b_total + state.m,
+                            (b_total[None] - b + i_raw).amax(dim=0))
+    w_c = torch.exp(b_total[None] - b + i_raw - m_state[None])  # (tau,B,NH)
+    decay = torch.exp(b_total + state.m - m_state)
+    C_new = decay[..., None, None] * state.C + \
+        torch.einsum("tbh,tbhi,tbhj->bhij", w_c, v, k_s)
+    n_new = decay[..., None] * state.n + \
+        torch.einsum("tbh,tbhd->bhd", w_c, k_s)
+    return h, MLSTMState(conv=state.conv, C=C_new, n=n_new, m=m_state)
+
+
+def _mlstm_qkvif(p: Params, xi, xc, n_heads: int):
+    """-> q, k, v (float32, (..., NH, DH)) and i_raw, f_raw (..., NH)."""
+    q = _bd_proj(xc, p["wq"]).float()
+    k = _bd_proj(xc, p["wk"]).float()
+    v = _bd_proj(xi, p["wv"]).float()
+    if_raw = xc.float() @ p["w_if"]["w"] + p["w_if"]["b"]
+    if_raw = if_raw.reshape(*if_raw.shape[:-1], 2, n_heads)
+    return q, k, v, if_raw[..., 0, :], if_raw[..., 1, :]
+
+
+def mlstm_apply(p: Params, x: torch.Tensor, n_heads: int, *,
+                chunk: int = 64, return_state: bool = False):
+    """x: (B, T, d_model), chunkwise-parallel over chunks of ``chunk``."""
+    B, T, _ = x.shape
+    dI = p["conv_w"].shape[0]
+    xi, z = (x @ p["up_proj"]).chunk(2, dim=-1)
+    xc = F.silu(causal_conv1d(xi, p["conv_w"], p["conv_b"]))
+    q, k, v, i_raw, f_raw = _mlstm_qkvif(p, xi, xc, n_heads)
+
+    ck = _chunk(T, chunk)
+    st = mlstm_init_state(B, dI, n_heads, 1, dtype=x.dtype, device=x.device)
+    hs = []
+    for c0 in range(0, T, ck):
+        sl = lambda a: a[:, c0:c0 + ck].transpose(0, 1)
+        h_c, st = _mlstm_chunk_parallel(sl(q), sl(k), sl(v), sl(i_raw),
+                                        sl(f_raw), st)
+        hs.append(h_c)                                  # (ck, B, NH, DH)
+    h = torch.cat(hs, dim=0).reshape(T, B, dI).transpose(0, 1).to(x.dtype)
+    h = _groupnorm_heads(h, p["out_norm_g"], n_heads)
+    out = (h * F.silu(z)) @ p["down_proj"]
+    if return_state:
+        win = _conv_window(xi, p["conv_w"].shape[-1])
+        return out, MLSTMState(conv=win, C=st.C, n=st.n, m=st.m)
+    return out
+
+
+def _groupnorm_heads(h: torch.Tensor, g: torch.Tensor,
+                     n_heads: int) -> torch.Tensor:
+    """Per-head RMS norm over the head dim (xLSTM uses GroupNorm)."""
+    shp = h.shape
+    hh = h.reshape(*shp[:-1], n_heads, shp[-1] // n_heads).float()
+    var = (hh * hh).mean(dim=-1, keepdim=True)
+    hh = hh * torch.rsqrt(var + 1e-6)
+    return (hh.reshape(shp) * g).to(h.dtype)
+
+
+def mlstm_step(p: Params, state: MLSTMState, x: torch.Tensor,
+               n_heads: int) -> tuple:
+    """Single decode step. x: (B, d_model)."""
+    B = x.shape[0]
+    dI = p["conv_w"].shape[0]
+    xi, z = (x @ p["up_proj"]).chunk(2, dim=-1)
+    conv = torch.cat([state.conv[:, 1:], xi[:, None]], dim=1)
+    xc = F.silu(conv_step(conv, p["conv_w"], p["conv_b"]))
+    q, k, v, i_raw, f_raw = _mlstm_qkvif(p, xi, xc, n_heads)
+    h, st = _mlstm_cell((q, k, v, i_raw, f_raw),
+                        MLSTMState(conv=conv, C=state.C, n=state.n,
+                                   m=state.m))
+    hf = _groupnorm_heads(h.reshape(B, dI).to(x.dtype), p["out_norm_g"],
+                          n_heads)
+    return (hf * F.silu(z)) @ p["down_proj"], st
+
+
+# ---------------------------------------------------------------------------
+# sLSTM (xLSTM scalar-memory cell with recurrent head-block-diagonal weights)
+# ---------------------------------------------------------------------------
+
+def slstm_init(generator, d_model: int, n_heads: int, *,
+               ff_factor: float = 4 / 3, dtype=torch.float32,
+               device=None) -> Params:
+    if d_model % n_heads:
+        raise ValueError(f"d_model {d_model} not divisible by {n_heads} "
+                         "heads")
+    DH = d_model // n_heads
+    d_ff = int(ff_factor * d_model)
+    dev = init_device(generator, device)
+
+    def rmat():
+        return normal(generator, (n_heads, DH, DH), scale=DH ** -0.5,
+                      device=dev)
+
+    w_in = dense_init(generator, d_model, 4 * d_model, dtype=dtype,
+                      bias=True, device=dev)
+    r_z, r_i, r_f, r_o = rmat(), rmat(), rmat(), rmat()
+    return {
+        "w_in": w_in,
+        "r_z": r_z, "r_i": r_i, "r_f": r_f, "r_o": r_o,
+        "out_norm_g": torch.ones((d_model,), dtype=dtype, device=dev),
+        "ff_up": dense_init(generator, d_model, 2 * d_ff, dtype=dtype,
+                            device=dev)["w"],
+        "ff_down": dense_init(generator, d_ff, d_model, dtype=dtype,
+                              device=dev)["w"],
+    }
+
+
+class SLSTMState(NamedTuple):
+    c: torch.Tensor  # (B, NH, DH)
+    n: torch.Tensor
+    h: torch.Tensor
+    m: torch.Tensor  # (B, NH, DH)
+
+
+def slstm_init_state(batch: int, n_heads: int, DH: int,
+                     device="cpu") -> SLSTMState:
+    z = torch.zeros((batch, n_heads, DH), dtype=torch.float32,
+                    device=device)
+    # distinct tensors: decode writes each leaf in place
+    return SLSTMState(c=z, n=z.clone(), h=z.clone(),
+                      m=torch.full_like(z, -1e30))
+
+
+def _fused_r(p: Params) -> torch.Tensor:
+    """Fused recurrent weights (NH, 4*DH, DH), built once per call."""
+    return torch.cat([p["r_z"], p["r_i"], p["r_f"], p["r_o"]], dim=1)
+
+
+def _slstm_cell(r_all: torch.Tensor, state: SLSTMState,
+                wx: torch.Tensor) -> tuple:
+    """wx: (B, 4, NH, DH) input projections [z, i, f, o]."""
+    rg = torch.einsum("bhj,hij->bhi", state.h, r_all)
+    rz, ri, rf, ro = rg.chunk(4, dim=-1)
+    z_t = torch.tanh(wx[:, 0] + rz)
+    i_raw = wx[:, 1] + ri
+    f_raw = wx[:, 2] + rf
+    o_t = torch.sigmoid(wx[:, 3] + ro)
+    logf = F.logsigmoid(f_raw)
+    m_new = torch.maximum(logf + state.m, i_raw)
+    i_g = torch.exp(i_raw - m_new)
+    f_g = torch.exp(logf + state.m - m_new)
+    c = f_g * state.c + i_g * z_t
+    n = f_g * state.n + i_g
+    h = o_t * c / torch.clamp(n, min=1e-6)
+    return h, SLSTMState(c=c, n=n, h=h, m=m_new)
+
+
+def _slstm_out(p: Params, h: torch.Tensor, n_heads: int) -> torch.Tensor:
+    h = _groupnorm_heads(h, p["out_norm_g"], n_heads)
+    u1, u2 = (h @ p["ff_up"]).chunk(2, dim=-1)
+    return (_gelu(u1) * u2) @ p["ff_down"]
+
+
+def slstm_apply(p: Params, x: torch.Tensor, n_heads: int, *,
+                chunk: int = 64, return_state: bool = False):
+    """x: (B, T, d_model). The recurrence runs step by step; ``chunk``
+    (the reference's recompute granularity for the backward) does not
+    change the result."""
+    B, T, d = x.shape
+    DH = d // n_heads
+    wx = (x @ p["w_in"]["w"] + p["w_in"]["b"]).float()
+    wx = wx.reshape(B, T, 4, n_heads, DH)
+    r_all = _fused_r(p)
+    st = slstm_init_state(B, n_heads, DH, device=x.device)
+    hs = []
+    for t in range(T):
+        h, st = _slstm_cell(r_all, st, wx[:, t])
+        hs.append(h)
+    h = torch.stack(hs, dim=1).reshape(B, T, d).to(x.dtype)
+    out = _slstm_out(p, h, n_heads)
+    if return_state:
+        return out, st
+    return out
+
+
+def slstm_step(p: Params, state: SLSTMState, x: torch.Tensor,
+               n_heads: int) -> tuple:
+    B, d = x.shape
+    DH = d // n_heads
+    wx = (x @ p["w_in"]["w"] + p["w_in"]["b"]).float()
+    h, st = _slstm_cell(_fused_r(p), state, wx.reshape(B, 4, n_heads, DH))
+    return _slstm_out(p, h.reshape(B, d).to(x.dtype), n_heads), st

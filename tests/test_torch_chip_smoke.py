@@ -64,3 +64,27 @@ def test_two_launches_of_one_name_a_call():
     events = _events(REPS, names=("cat", "cat", "horizon"))
     timed = chip_smoke.timed_events(events, REPS)
     assert sum(e.name == "cat" for e in timed) == 2 * REPS
+
+
+def test_the_lm_phase_parts_run_on_the_cpu():
+    """Phase 8's reduced-arch comparison and its router log run on the CPU
+    (here the "card" is the CPU, so every difference is 0), so a fault in
+    the phase's own code shows before a chip call."""
+    import torch
+    from repro_torch.configs.base import get_config, list_configs, reduced
+    from repro_torch.models import lm
+    from repro_torch.nn import moe
+    worst = chip_smoke._lm_reduced_all(torch.device("cpu"))
+    assert sorted(worst) == list_configs()
+    assert all(v == 0.0 for v in worst.values())
+    cfg = reduced(get_config("deepseek-moe-16b"))
+    g = torch.Generator()
+    g.manual_seed(0)
+    params = lm.init_params(cfg, g, device="cpu")
+    toks, _ = chip_smoke._lm_inputs(cfg, 2, 5, g, "cpu")
+    with chip_smoke._RouterLog() as log:
+        lm.forward(params, cfg, {"tokens": toks})
+    n_moe = cfg.n_layers - cfg.first_k_dense
+    assert len(log.calls) == n_moe
+    assert tuple(log.calls[0].shape) == (10, cfg.moe_top_k)
+    assert moe.moe_apply is log._real          # restored on exit

@@ -1,8 +1,9 @@
 """The done slices' drivers on the port: ``examples/torch_train_traffic.py``
 and ``examples/torch_train_warehouse.py`` pass the reference examples'
 simulators and flags to ``repro_torch.launch.rl_train`` (extra flags pass
-through), and ``tools/torch_serve_chaos.py`` (the counterpart of
-``tools/ci_serve_chaos.py``) passes on ``--device cpu``."""
+through), ``tools/torch_serve_chaos.py`` (the counterpart of
+``tools/ci_serve_chaos.py``) passes on ``--device cpu``, and
+``examples/torch_serve_lm.py`` serves on the CPU."""
 import importlib.util
 from pathlib import Path
 
@@ -52,3 +53,13 @@ def test_serve_chaos_smoke_passes_on_the_cpu(capsys):
     assert mod.main(["--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert "serve-chaos: OK" in out and "corrupt reload rejected" in out
+
+
+def test_serve_lm_example_runs_on_the_cpu(capsys):
+    """``examples/torch_serve_lm.py`` (the counterpart of
+    ``examples/serve_lm.py``): reduced deepseek-moe, 24-token prompts,
+    16 greedy steps."""
+    gen = _load("examples/torch_serve_lm.py").main(["--device", "cpu"])
+    assert tuple(gen.shape) == (4, 17)
+    assert 0 <= int(gen.min()) and int(gen.max()) < 256
+    assert "generated (4, 17)" in capsys.readouterr().out

@@ -284,7 +284,7 @@ def test_the_cli_refuses_the_lm_flags_and_a_missing_program(tmp_path,
                  ["--all"], ["--shape", "train_4k"], []):
         with pytest.raises(SystemExit):
             dryrun.main(argv + ["--device", "cpu", "--out", str(tmp_path)])
-    assert "LM slice" in capsys.readouterr().err
+    assert "LM training and sharding slice" in capsys.readouterr().err
 
 
 def test_without_cuda_the_default_device_refuses(tmp_path):

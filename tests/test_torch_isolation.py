@@ -4,7 +4,7 @@
 count, ``distributed/op_analysis.py``, included), not ``chip_smoke.py``
 and not the five ablation tools, the profiler check, the fault smoke, the shard smoke and the iteration
 profile that run beside it on the card, not the port's examples (the
-quickstart, the two training sweeps) and not the chaos smoke and docs
+quickstart, the two training sweeps, the LM serving demo) and not the chaos smoke and docs
 check import them; and without CUDA the entry points
 refuse the default device instead of carrying on on the CPU."""
 import ast
@@ -49,7 +49,9 @@ def test_the_analysis_modules_are_checked():
     mods = _modules()
     for m in ("repro_torch.launch.dryrun",
               "repro_torch.distributed.op_analysis",
-              "repro_torch.launch.mesh"):
+              "repro_torch.launch.mesh", "repro_torch.models.lm",
+              "repro_torch.launch.serve", "repro_torch.nn.ssm",
+              "repro_torch.configs.archs"):
         assert m in mods, m
 
 
@@ -63,7 +65,8 @@ def test_the_analysis_modules_are_checked():
        "tools/torch_docs_check.py", "tools/torch_shard_smoke.py",
        "examples/torch_quickstart.py",
        "examples/torch_train_traffic.py",
-       "examples/torch_train_warehouse.py"]))
+       "examples/torch_train_warehouse.py",
+       "examples/torch_serve_lm.py"]))
 def test_no_source_imports_jax_or_repro(path):
     tree = ast.parse((ROOT / path).read_text())
     for node in ast.walk(tree):

@@ -75,6 +75,10 @@ REQUIRED_SNIPPETS = (
     "launch/mesh.py::make_production_mesh",
     "launch/dryrun.py::_ials_model_flops",
     "python -m repro_torch.launch.dryrun",
+    # LM serving
+    "models/lm.py::decode_step",
+    "nn/attention.py::decode_attention",
+    "python -m repro_torch.launch.serve",
     # entry points
     "python -m repro_torch.launch.rl_train",
     "python -m repro_torch.launch.policy_serve",

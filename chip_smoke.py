@@ -197,7 +197,33 @@ Phases, each printing its result and time on its own line:
      float32 with the depth cut to 8 layers, within 2e-3; (d) every
      arch at ``reduced()``, float32: forward, prefill and one decode step
      on the card against the port's CPU run of the same weights, every
-     cache leaf within ``LM_REDUCED_TOL``.
+     cache leaf within ``LM_REDUCED_TOL``;
+  9. LM training (``launch/train``, ``launch/steps.py``'s train step,
+     ``optim/adamw.py``'s in-place update, ``models/lm.py``'s remat), the
+     launch counters read before and after (no kernel may launch): (a)
+     ``train --arch qwen3-4b --steps 6 --batch 8 --seq 512
+     --microbatches 2`` at full width and depth in bf16 (remat ``full``,
+     the config's), every row's loss and grad_norm finite, each step's
+     ``step_time_s``, tokens/s and model-FLOP share (the reference
+     dry-run's 6 x (active - embed) x tokens over the bf16 peak,
+     ``train_model_flops``), ``max_memory_allocated``, and the share of
+     the parameters changed from their init; (b) qwen3-4b at full width
+     cut to ``TRAIN_REMAT_LAYERS`` layers, one forward and backward in
+     each remat mode: losses equal, gradients within
+     ``TRAIN_REMAT_GRAD_SHARE`` of ``none``'s, the peak bytes of each
+     (``full`` below ``none``); then ``train`` cut to
+     ``TRAIN_RESUME_LAYERS`` layers: 4 steps uninterrupted against 2
+     steps, a real SIGTERM, the flushed checkpoint and 2 resumed steps,
+     every parameter and optimizer leaf bitwise equal; (c) ``train
+     --arch deepseek-moe-16b --layers 4`` (full width: the dense first
+     layer and 3 MoE layers of 64 experts, top 6, capacity 1.25), 3
+     steps: losses finite, ``lb_loss`` > 0, ``drop_frac`` printed, then
+     every MoE layer's router gradient non-zero; (d) every arch at
+     ``reduced()``, float32: one ``make_train_step`` (2 microbatches) on
+     the card against the CPU's: the gradients handed to the optimizer
+     within ``TRAIN_GRAD_TOL``, the metrics within ``LM_REDUCED_TOL``,
+     and the CPU's update on the card's gradients equal to the card's
+     parameters and moments within ``TRAIN_REPLAY_ULPS`` ulps.
 The build phase also prints ptxas's register and spill lines per kernel
 and the HGMMA count of the tensor-core kernel's SASS (``cuobjdump``).
 Then one JSON line lists every kernel (route, source, the TPU kernel it
@@ -3133,6 +3159,631 @@ def phase_lm(dev, card):
         raise AssertionError(f"the LM path launched kernels: {moved}")
 
 
+# ---------------------------------------------------------------------------
+# phase 9: LM training
+# ---------------------------------------------------------------------------
+
+TRAIN_ARGV = ["--arch", "qwen3-4b", "--device", "cuda", "--steps", "6",
+              "--batch", "8", "--seq", "512", "--microbatches", "2",
+              "--warmup", "2", "--log-every", "1"]
+TRAIN_REMAT_LAYERS = 4        # qwen3-4b at full width, one step a mode
+TRAIN_REMAT_BATCH = (4, 512)
+TRAIN_RESUME_LAYERS = 2       # ~6 GB of checkpoint (36 layers: ~40 GB)
+TRAIN_RESUME_ARGV = ["--arch", "qwen3-4b", "--device", "cuda", "--layers",
+                     str(TRAIN_RESUME_LAYERS), "--steps", "4", "--batch",
+                     "8", "--seq", "512", "--microbatches", "2",
+                     "--warmup", "2", "--log-every", "1"]
+TRAIN_MOE_ARGV = ["--arch", "deepseek-moe-16b", "--device", "cuda",
+                  "--layers", "4", "--steps", "3", "--batch", "8", "--seq",
+                  "512", "--microbatches", "2", "--warmup", "2",
+                  "--log-every", "1"]
+# bf16 gradients of one step, each remat mode against "none": the modes
+# recompute the same ops on the same values, so any difference is the
+# card's choice of kernels for a recomputed op; bound: a share of the
+# leaf's largest gradient (one bf16 ulp is 2^-8 of a value)
+TRAIN_REMAT_GRAD_SHARE = 2.0 ** -7
+# float32 reduced archs, one make_train_step (2 microbatches) on the card
+# against the same step on the CPU, in two halves. The gradients the step
+# hands its optimizer: |card - CPU| <= 1e-6 x the CPU's global gradient
+# norm + 1e-4 x max|CPU leaf| + 1e-3 x |CPU| (tests/torch_lm_grad_common.py's
+# GRAD_TOL with its absolute 1e-5 made a share of the norm: a gradient's
+# error scales with the whole backward's, and the xLSTM's norm reaches
+# ~790 at this batch, where its gradients differ by up to 5.09e-4 on an
+# H100); the metrics at LM_REDUCED_TOL. Then the optimizer: the CPU's
+# ``update_`` run on the card's own gradients, clipped by the card's own
+# global norm (adamw's clip_norm 1.0; one ulp of the clip scale moves the
+# state by thousands of ulps where an update cancels), gives the card's
+# moments and parameters within TRAIN_REPLAY_ULPS float32 ulps, a
+# parameter's in ulps of the update's operands (|p| + lr: p - lr u may
+# cancel, and a rounding at the operands' scale is many ulps of a small
+# result). On an H100 the moments agree bitwise and a few parameters a
+# leaf by 1-2 ulps (u's division or square root rounds differently).
+# The parameters are not held to the CPU's directly: AdamW's first step
+# moves each by lr x g / (|g| + eps) whatever g's size, so a gradient
+# near 0 that differs in its last bits moves it by up to 2 lr (jamba's
+# w_gate by 1.13e-4 on an H100); the largest direct difference is logged.
+TRAIN_GRAD_TOL = (1e-6, 1e-4, 1e-3)   # of the norm, of the leaf max, rel
+TRAIN_REPLAY_ULPS = 4
+TRAIN_REDUCED_SCHEDULE = (1e-3, 1, 4)    # peak, warmup, total
+TRAIN_REDUCED_BATCH = (4, 16)
+
+
+def train_model_flops(cfg, tokens: int) -> float:
+    """The reference dry-run's model FLOPs of a train step
+    (``repro/launch/dryrun.py``): 6 x active non-embedding parameters x
+    tokens."""
+    from repro_torch.models import lm
+    counts = lm.count_params(cfg)
+    return 6.0 * (counts["active"] - counts["embed"]) * tokens
+
+
+def check_train_rows(history, steps, label):
+    """``steps`` history rows, each with finite loss, ce and grad_norm
+    -> the rows' step times (s)."""
+    if [r["step"] for r in history] != list(range(steps)):
+        raise AssertionError(f"{label}: rows of steps "
+                             f"{[r['step'] for r in history]}")
+    for r in history:
+        if not all(math.isfinite(r[k]) for k in ("loss", "ce",
+                                                  "grad_norm")):
+            raise AssertionError(f"{label}: non-finite row {r}")
+    return [r["step_time_s"] for r in history]
+
+
+def steady_s(times):
+    """The median step time without the first step (lazy loads, the
+    allocator's first blocks)."""
+    return statistics.median(times[1:] if len(times) > 1 else times)
+
+
+def changed_share(before, after):
+    """-> (share of all elements that changed, [paths of the matrices
+    (``w`` / ``table`` leaves) that did not change at all])."""
+    from repro_torch.tree import tree_leaves_with_path
+    ref = dict(tree_leaves_with_path(before))
+    n = changed = 0
+    still = []
+    for path, x in tree_leaves_with_path(after):
+        d = int((x != ref[path]).sum())
+        n += x.numel()
+        changed += d
+        if d == 0 and (path.endswith("['w']") or path.endswith("['table']")
+                       or "experts" in path):
+            still.append(path)
+    return changed / max(n, 1), still
+
+
+def grad_share(a, b):
+    """max |a - b| over max |b| (0 for an all-zero ``b``)."""
+    scale = float(b.float().abs().max())
+    err = float((a.float() - b.float()).abs().max())
+    return err / scale if scale > 0 else err
+
+
+class _SigtermAfter:
+    """A real SIGTERM to this process once the training guard's call at
+    ``step`` returned: the driver trains the next step, flushes a
+    checkpoint at the call after it and exits cleanly."""
+
+    def __init__(self, step):
+        self.step = step
+
+    def __enter__(self):
+        import os
+        import signal
+        from repro_torch.distributed import fault_tolerance as ft
+        self._cls, self._real = ft.TrainingGuard, ft.TrainingGuard.maybe_save
+        real, at = self._real, self.step
+
+        def save_then_signal(guard, step, state, **kw):
+            saved = real(guard, step, state, **kw)
+            if step == at:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return saved
+        ft.TrainingGuard.maybe_save = save_then_signal
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.maybe_save = self._real
+
+
+def _peak_reset(dev):
+    import torch
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _train_qwen(dev, card):
+    """Part (a): ``launch/train`` at qwen3-4b's full width and depth."""
+    import torch
+    from repro_torch import stream
+    from repro_torch.distributed import op_analysis
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    _peak_reset(dev)
+    t0 = time.perf_counter()
+    res = train.run(train.parse_args(TRAIN_ARGV))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    cfg, args = res["cfg"], train.parse_args(TRAIN_ARGV)
+    times = check_train_rows(res["history"], args.steps, "train qwen3-4b")
+    tokens = args.batch * args.seq
+    flops = train_model_flops(cfg, tokens)
+    peak_flops = op_analysis.peak_flops(torch.bfloat16)
+    for r in res["history"]:
+        log(f"[train] qwen3-4b step {r['step']}: loss {r['loss']:.5f} "
+            f"grad_norm {r['grad_norm']:.4f} step_time_s "
+            f"{r['step_time_s']} [{card}]; tokens/s "
+            f"{tokens / r['step_time_s']:.1f}; model-FLOP share "
+            f"{flops / r['step_time_s'] / peak_flops:.4f}")
+    steady = steady_s(times)
+    log(f"[train] {' '.join(TRAIN_ARGV)} (remat {cfg.remat}, "
+        f"{cfg.n_layers} layers, {cfg.param_dtype}): steady step_time_s "
+        f"{steady:.4f} [{card}]; tokens/s {tokens / steady:.1f}; model "
+        f"FLOPs a step {flops:.4g} (6 x (active - embed) x {tokens} "
+        f"tokens), bound {flops / peak_flops * 1e3:.2f} ms at "
+        f"{peak_flops:.4g} FLOP/s; model-FLOP share "
+        f"{flops / steady / peak_flops:.4f}; max_memory_allocated {peak} "
+        f"B [{card}]; wall {wall:.2f} s (init included)")
+    idle = _train_step_profile(res, args, dev, card, steady)
+    params = res["state"]["params"]
+    del res
+    with torch.no_grad():
+        init = lm.init_params(cfg, stream(dev, args.seed,
+                                          train.TAG_PARAMS))
+        share, still = changed_share(init, params)
+    del init, params
+    log(f"[train] qwen3-4b: {share:.4f} of the parameters' elements "
+        f"changed over {args.steps} steps; matrices unchanged: "
+        f"{still or 'none'}")
+    if still or share <= 0.5:
+        raise AssertionError(f"train qwen3-4b: parameters did not change "
+                             f"({share:.4f}; unchanged {still})")
+    return {"step_time_s": steady, "peak": peak, "idle": idle}
+
+
+KERNEL_KINDS = (("gemm", ("gemm", "xmma", "cutlass", "cublas", "sm90_",
+                          "nvjet")),
+                ("reduce", ("reduce", "softmax", "norm")),
+                ("elementwise", ("elementwise", "vectorized", "unrolled")),
+                ("copy", ("memcpy", "memset", "copy", "cat", "index")))
+
+
+def kernel_kind(name):
+    """A device event's name -> gemm | reduce | elementwise | copy |
+    other (by substrings, in that order)."""
+    low = name.lower()
+    for kind, keys in KERNEL_KINDS:
+        if any(k in low for k in keys):
+            return kind
+    return "other"
+
+
+def busy_us(events):
+    """The union of the events' device intervals, in us."""
+    total, end = 0.0, -math.inf
+    for e in sorted(events, key=lambda e: e.time_range.start):
+        start, stop = e.time_range.start, e.time_range.end
+        if stop > end:
+            total += stop - max(start, end)
+            end = stop
+    return total
+
+
+def _train_step_profile(res, args, dev, card, steady):
+    """More train steps on the run's final state: one under
+    ``torch.profiler`` (``profile_calls``): the device's busy time (the
+    union of its events) over the unprofiled steady step -> the idle
+    share, the device time by kind and the heaviest kernels; then one
+    with CUDA events around the optimizer's in-place update."""
+    import collections
+    import torch
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.optim.adamw import adamw, cosine_schedule
+    cfg, state = res["cfg"], res["state"]
+    step = steps_lib.make_train_step(
+        cfg, adamw(cosine_schedule(args.lr, args.warmup, args.steps)),
+        args.microbatches)
+    b = TokenPipeline(DataConfig(args.seq, args.batch, cfg.vocab_size,
+                                 seed=args.seed)).get_batch(args.steps)
+    batch = {k: torch.from_numpy(v.copy()).to(dev, dtype=torch.long)
+             for k, v in b.items()}
+
+    def one():
+        state["params"], state["opt"], _ = step(state["params"],
+                                                state["opt"], batch)
+    got = profile_calls(one, 1)
+    # the optimizer's own device time: one more step with CUDA events
+    # around its update
+    box = {}
+    step = steps_lib.make_train_step(
+        cfg, _timed_update(adamw(cosine_schedule(
+            args.lr, args.warmup, args.steps)), box), args.microbatches)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    one()
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    opt_s = box["start"].elapsed_time(box["end"]) / 1e3
+    log(f"[train] qwen3-4b AdamW update_ in place (4.02 B parameters, "
+        f"float32 moments): {opt_s:.4f} s of a {wall:.4f} s step "
+        f"(CUDA events) [{card}]")
+    if got is None:
+        log("[train] qwen3-4b step profile: not measured")
+        return None
+    events, wall = got
+    busy = busy_us(events) / 1e6
+    kinds = collections.Counter()
+    names = collections.Counter()
+    for e in events:
+        us = e.time_range.elapsed_us()
+        kinds[kernel_kind(e.name)] += us
+        names[e.name[:60]] += us
+    total = sum(kinds.values())
+    idle = max(0.0, 1.0 - busy / steady)
+    log(f"[train] qwen3-4b step profile (torch.profiler, one step): "
+        f"{len(events)} device events, busy {busy:.4f} s (union) of the "
+        f"steady {steady:.4f} s step: idle share {idle:.4f} [{card}]; "
+        f"profiled step wall {wall:.4f} s; device time by kind "
+        f"{ {k: round(v / total, 4) for k, v in kinds.most_common()} }; "
+        f"heaviest {[(n, round(v / 1e3, 2)) for n, v in names.most_common(6)]}"
+        f" (ms)")
+    return idle
+
+
+def _timed_update(opt, box):
+    """``opt`` whose ``update_`` records CUDA events before and after it
+    in ``box``."""
+    import torch
+
+    def update_(grads, state, params):
+        box["start"] = torch.cuda.Event(enable_timing=True)
+        box["end"] = torch.cuda.Event(enable_timing=True)
+        box["start"].record()
+        out = opt.update_(grads, state, params)
+        box["end"].record()
+        return out
+    return opt._replace(update_=update_)
+
+
+def _remat_modes(dev, card):
+    """Part (b1): one step's loss and gradients of qwen3-4b at full width,
+    ``TRAIN_REMAT_LAYERS`` layers, in each remat mode, and the peak bytes
+    of each."""
+    import torch
+    from repro_torch import stream
+    from repro_torch.configs.base import get_config
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_leaves, tree_unflatten
+    base = get_config("qwen3-4b").with_overrides(
+        n_layers=TRAIN_REMAT_LAYERS)
+    B, T = TRAIN_REMAT_BATCH
+    params = lm.init_params(base, stream(dev, 0, 0))
+    g = torch.Generator()
+    g.manual_seed(21)
+    toks = torch.randint(0, base.vocab_size, (B, T + 1), generator=g).to(dev)
+    batch = {"tokens": toks[:, :T], "labels": toks[:, 1:]}
+    leaves = tree_leaves(params)
+    peaks, shares = {}, {}
+    ref = None
+    for mode in ("none", "full", "dots", "names"):
+        cfg = base.with_overrides(remat=mode)
+        live = [x.detach().requires_grad_() for x in leaves]
+        _peak_reset(dev)
+        start = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        loss, _ = lm.loss_fn(tree_unflatten(params, live), cfg, batch)
+        grads = torch.autograd.grad(loss, live)
+        torch.cuda.synchronize(dev)
+        dt = time.perf_counter() - t0
+        # above what was allocated before (the weights, none's gradients)
+        peaks[mode] = torch.cuda.max_memory_allocated(dev) - start
+        loss = loss.detach()
+        if ref is None:
+            ref = (loss, grads)
+        if not torch.equal(loss, ref[0]):
+            raise AssertionError(f"remat {mode}: loss {float(loss)!r} vs "
+                                 f"none {float(ref[0])!r}")
+        shares[mode] = max(grad_share(a, b) for a, b in zip(grads, ref[1]))
+        bitwise = all(torch.equal(a, b) for a, b in zip(grads, ref[1]))
+        log(f"[train] remat {mode} (qwen3-4b full width, "
+            f"{TRAIN_REMAT_LAYERS} layers, B = {B}, T = {T}, bf16): loss "
+            f"{float(loss):.6f}, gradients vs none: bitwise {bitwise}, max "
+            f"share of the leaf's largest {shares[mode]:.3g} (bound "
+            f"{TRAIN_REMAT_GRAD_SHARE:.3g}); forward + backward {dt:.4f} s "
+            f"[{card}]; peak bytes above the weights "
+            f"(max_memory_allocated - memory_allocated before) "
+            f"{peaks[mode]} B [{card}]")
+        del live, loss, grads
+    del ref, params, leaves
+    if max(shares.values()) > TRAIN_REMAT_GRAD_SHARE:
+        raise AssertionError(f"remat gradients differ from none: {shares}")
+    if not peaks["full"] < peaks["none"]:
+        raise AssertionError(f"remat full peaks at {peaks['full']} B, not "
+                             f"below none's {peaks['none']} B")
+    return peaks
+
+
+def _train_resume(dev, card):
+    """Part (b2): ``launch/train`` at qwen3-4b's width cut to
+    ``TRAIN_RESUME_LAYERS`` layers: 4 steps uninterrupted; 2 steps, a
+    SIGTERM, the flushed checkpoint, resumed for 2 more -> the state of
+    both bitwise equal."""
+    import tempfile
+    import torch
+    from repro_torch.launch import train
+    from repro_torch.tree import tree_leaves
+    full = train.run(train.parse_args(TRAIN_RESUME_ARGV))
+    check_train_rows(full["history"], 4, "resume: uninterrupted")
+    want = [x.cpu() for x in tree_leaves((full["state"]["params"],
+                                          full["state"]["opt"]))]
+    del full
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as ck:
+        argv = TRAIN_RESUME_ARGV + ["--ckpt-dir", ck, "--save-every", "100"]
+        t0 = time.perf_counter()
+        with _SigtermAfter(1):
+            part = train.run(train.parse_args(argv))
+        t_part = time.perf_counter() - t0
+        if not part["preempted"] or len(part["history"]) != 2:
+            raise AssertionError(f"resume: the SIGTERM'd run did not stop "
+                                 f"after 2 steps ({len(part['history'])})")
+        del part
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        res = train.run(train.parse_args(argv))
+        t_res = time.perf_counter() - t0
+        size = sum(f.stat().st_size for f in Path(ck).rglob("*")
+                   if f.is_file())
+    if res["start_step"] != 2 or [r["step"] for r in res["history"]] != \
+            [2, 3]:
+        raise AssertionError(f"resume: started at {res['start_step']}")
+    got = tree_leaves((res["state"]["params"], res["state"]["opt"]))
+    differ = [i for i, (a, b) in enumerate(zip(got, want))
+              if a.dtype != b.dtype or not torch.equal(a.cpu(), b)]
+    log(f"[train] resume (qwen3-4b full width, {TRAIN_RESUME_LAYERS} "
+        f"layers): 2 steps + SIGTERM + flush in {t_part:.2f} s, resumed "
+        f"2 steps in {t_res:.2f} s (restore included) [{card}]; "
+        f"checkpoints on disk {size} B; {len(differ)} of {len(got)} "
+        f"state leaves differ from the uninterrupted run")
+    if differ:
+        raise AssertionError(f"resume: {len(differ)} state leaves differ "
+                             f"from the uninterrupted 4-step run")
+
+
+def _train_moe(dev, card):
+    """Part (c): ``launch/train`` at deepseek-moe-16b's full width (64
+    experts, top 6, the config's capacity factor) cut to 4 layers, then
+    the router's gradient at the trained state."""
+    import torch
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_leaves_with_path, tree_unflatten
+    _peak_reset(dev)
+    args = train.parse_args(TRAIN_MOE_ARGV)
+    res = train.run(args)
+    peak = torch.cuda.max_memory_allocated(dev)
+    cfg = res["cfg"]
+    times = check_train_rows(res["history"], args.steps, "train moe")
+    counts = lm.count_params(cfg)
+    for step, m in enumerate(res["metrics"]):
+        log(f"[train] deepseek-moe-16b step {step}: loss {m['loss']:.5f} "
+            f"lb_loss {m['lb_loss']:.5f} z_loss {m['z_loss']:.4f} "
+            f"drop_frac {m['drop_frac']:.5f} grad_norm "
+            f"{m['grad_norm']:.4f} step_time_s {times[step]} [{card}]")
+        if not (math.isfinite(m["loss"]) and m["lb_loss"] > 0):
+            raise AssertionError(f"train moe step {step}: {m}")
+    # the router's gradient at the trained state, on a microbatch of
+    # step 0's batch
+    params = res["state"]["params"]
+    b = TokenPipeline(DataConfig(args.seq, args.batch, cfg.vocab_size,
+                                 seed=args.seed)).get_batch(0)
+    n = args.batch // args.microbatches
+    mb = {k: torch.from_numpy(v[:n].copy()).to(dev, dtype=torch.long)
+          for k, v in b.items()}
+    with_paths = tree_leaves_with_path(params)
+    live = [x.detach().requires_grad_() if p.endswith("['router']") else x
+            for p, x in with_paths]
+    routers = [x for x in live if x.requires_grad]
+    loss, _ = lm.loss_fn(tree_unflatten(params, live), cfg, mb)
+    norms = [float(layer.float().norm())      # a stacked router by layer
+             for g in torch.autograd.grad(loss, routers)
+             for layer in (g if g.dim() == 3 else g[None])]
+    del res, params, live, routers, loss
+    tokens = args.batch * args.seq
+    log(f"[train] {' '.join(TRAIN_MOE_ARGV)} (reduced: depth 28 -> "
+        f"{cfg.n_layers} layers, the dense first and "
+        f"{cfg.n_layers - cfg.first_k_dense} MoE layers of "
+        f"{cfg.n_routed_experts} experts, top {cfg.moe_top_k}, capacity "
+        f"factor {cfg.capacity_factor}; {counts['total']:.0f} parameters, "
+        f"{counts['active']:.0f} active): steady step_time_s "
+        f"{steady_s(times):.4f} [{card}]; tokens/s "
+        f"{tokens / steady_s(times):.1f}; max_memory_allocated {peak} B "
+        f"[{card}]; router gradient norms per MoE layer {norms}")
+    if len(norms) != cfg.n_layers - cfg.first_k_dense or \
+            not all(math.isfinite(x) and x > 0 for x in norms):
+        raise AssertionError(f"train moe: router gradients {norms}")
+    return {"peak": peak, "step_time_s": steady_s(times)}
+
+
+def _train_reduced_all(dev):
+    """Part (d): every arch at ``reduced()``, float32: one
+    ``make_train_step`` (2 microbatches, cosine AdamW) on the card and on
+    the CPU from the same weights and batch: the gradients handed to the
+    optimizer and the metrics against the CPU's, then the CPU's update
+    on the card's gradients against the card's parameters and moments."""
+    import torch
+    from repro_torch.configs.base import get_config, list_configs, reduced
+    from repro_torch.data.pipeline import DataConfig, TokenPipeline
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.launch.train import modality_inputs
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import adamw, cosine_schedule
+    from repro_torch.tree import tree_leaves, tree_map
+    B, T = TRAIN_REDUCED_BATCH
+    worst = {}
+    for i, arch in enumerate(list_configs()):
+        cfg = reduced(get_config(arch))
+        g = torch.Generator()
+        g.manual_seed(200 + i)
+        cpu = _perturb_constants(lm.init_params(cfg, g, device="cpu"), g)
+        batch = TokenPipeline(DataConfig(T, B, cfg.vocab_size,
+                                         seed=i)).get_batch(0)
+        outs = {}
+        for where in ("cpu", dev):
+            opt = adamw(cosine_schedule(*TRAIN_REDUCED_SCHEDULE))
+            seen = {}
+            step = steps_lib.make_train_step(cfg, _handing(opt, seen), 2)
+            p = tree_map(lambda x: x.to(where).clone(), cpu)
+            b = {k: torch.from_numpy(v.copy()).to(where, dtype=torch.long)
+                 for k, v in batch.items()}
+            b.update(modality_inputs(cfg, B, where))
+            p, st, m = step(p, opt.init(p), b)
+            outs[str(where)] = dict(state=(p, st.mu, st.nu), m=m,
+                                    grads=seen["grads"])
+        card, host = outs[str(dev)], outs["cpu"]
+        norm = float(host["m"]["grad_norm"])
+        shares = {"grads": max(
+            grad_tol_share(x, y, TRAIN_GRAD_TOL, norm, f"{arch} gradient")
+            for x, y in zip(tree_leaves(card["grads"]),
+                            tree_leaves(host["grads"])))}
+        shares["metrics"] = max(
+            _lm_near(card["m"][k], host["m"][k], f"{arch} {k}")
+            for k in host["m"])
+        # the optimizer: the CPU's update on the card's gradients, clipped
+        # by the card's own global norm (its sum runs in another order
+        # on the CPU, and one ulp of the clip scale moves the state by
+        # up to 10^4 ulps where an update cancels)
+        scale = torch.clamp(1.0 / torch.clamp(card["m"]["grad_norm"].cpu(),
+                                              min=1e-9), max=1.0)
+        clipped = tree_map(lambda x: x * scale, card["grads"])
+        opt = adamw(cosine_schedule(*TRAIN_REDUCED_SCHEDULE),
+                    clip_norm=math.inf)
+        p0 = tree_map(lambda x: x.clone(), cpu)
+        p, st, _ = opt.update_(clipped, opt.init(p0), p0)
+        # a parameter in ulps of the update's operands, |p| + lr (>=
+        # |lr u| at the first step: p - lr u may cancel, and a rounding
+        # at the operands' scale is many ulps of a small result); the
+        # moments in ulps of their own
+        lr = float(host["m"]["lr"])
+        shares["replay_ulps"] = max(
+            ulps(x, y, f"{arch} state", scale=z)
+            for x, y, z in zip(tree_leaves(card["state"]),
+                               tree_leaves((p, st.mu, st.nu)),
+                               tree_leaves((tree_map(lambda w: w.abs() + lr,
+                                                     cpu), st.mu, st.nu))))
+        if shares["replay_ulps"] > TRAIN_REPLAY_ULPS:
+            raise AssertionError(f"{arch}: the card's AdamW update is "
+                                 f"{shares['replay_ulps']} ulps off the "
+                                 f"CPU's on the same gradients")
+        shares["params_direct"] = max(
+            float((x.cpu() - y).abs().max()) for x, y in
+            zip(tree_leaves(card["state"][0]),
+                tree_leaves(host["state"][0])))
+        worst[arch] = {k: float(f"{v:.4g}") for k, v in shares.items()}
+    log(f"[train] reduced archs, one train step card vs CPU (float32, 2 "
+        f"microbatches; gradients within {TRAIN_GRAD_TOL} = (share of "
+        f"the global norm, of the leaf max, rtol), metrics within "
+        f"{LM_REDUCED_TOL}, the "
+        f"card's parameters and moments within {TRAIN_REPLAY_ULPS} ulps "
+        f"of the CPU's update on the card's gradients; params_direct: "
+        f"max |card - CPU| of the parameters, not gated): worst share of "
+        f"the bound {worst}")
+    return worst
+
+
+def _handing(opt, seen):
+    """``opt`` whose ``update_`` first keeps a CPU copy of the gradients
+    it is handed (it overwrites them) in ``seen["grads"]``."""
+    from repro_torch.tree import tree_map
+
+    def update_(grads, state, params):
+        seen["grads"] = tree_map(lambda x: x.detach().cpu().clone(), grads)
+        return opt.update_(grads, state, params)
+    return opt._replace(update_=update_)
+
+
+def grad_tol_share(a, b, tol, norm, what):
+    """``a`` (the card's) within ``tol`` = (share of ``norm``, share of
+    max|b|, rtol) of ``b`` -> the largest share of the bound used."""
+    import torch
+    af, bf = a.detach().float().cpu(), b.detach().float().cpu()
+    if af.shape != bf.shape or a.dtype != b.dtype:
+        raise AssertionError(f"{what}: {tuple(af.shape)} {a.dtype} vs "
+                             f"{tuple(bf.shape)} {b.dtype}")
+    if not bool(torch.isfinite(af).all()):
+        raise AssertionError(f"{what}: non-finite on the card")
+    if not af.numel():
+        return 0.0
+    top = float(bf.abs().max())
+    bound = tol[0] * norm + tol[1] * top + tol[2] * bf.abs()
+    share = (af - bf).abs() / bound
+    if bool((share > 1).any()):
+        k = int(share.reshape(-1).argmax())
+        raise AssertionError(
+            f"{what}: card vs CPU |diff| "
+            f"{float((af - bf).abs().reshape(-1)[k]):.3g} at a CPU value "
+            f"{float(bf.reshape(-1)[k]):.3g} (leaf max {top:.3g}, norm "
+            f"{norm:.4g}) above {tol}")
+    return float(share.max())
+
+
+def ulps(a, b, what, scale=None):
+    """The largest |a - b| in float32 ulps of max(|b|, |scale|) (``a``
+    finite, of ``b``'s shape and dtype)."""
+    import numpy as np
+    import torch
+    af, bf = a.detach().cpu(), b.detach().cpu()
+    if af.shape != bf.shape or af.dtype != bf.dtype:
+        raise AssertionError(f"{what}: {tuple(af.shape)} {af.dtype} vs "
+                             f"{tuple(bf.shape)} {bf.dtype}")
+    if not bool(torch.isfinite(af).all()):
+        raise AssertionError(f"{what}: non-finite on the card")
+    if not af.numel():
+        return 0.0
+    mag = bf.abs() if scale is None else torch.maximum(
+        bf.abs(), scale.detach().cpu().abs())
+    spacing = torch.from_numpy(np.spacing(mag.float().numpy()))
+    return float(((af.double() - bf.double()).abs()
+                  / spacing.double()).max())
+
+
+@phase("LM training: launch/train at full width")
+def phase_train(dev, card):
+    """LM training (``launch/train``, ``launch/steps.py``,
+    ``optim/adamw.py``'s in-place update, ``models/lm.py``'s remat): (a)
+    qwen3-4b at full width and depth, (b) the remat modes and a resume at
+    full width, cut in depth, (c) deepseek-moe-16b's 64-expert backward,
+    (d) every reduced arch's train step against the CPU. The LM trains
+    through the ``nn`` functions, as the reference's through its XLA
+    path: no kernel launch counter may move."""
+    import torch
+    from repro_torch.kernels import aip_step as cuda
+    torch.empty(1, device=dev)
+    before = dict(cuda.LAUNCHES)
+    parts = {}
+    for name, fn in (("(a) train qwen3-4b", lambda: _train_qwen(dev, card)),
+                     ("(b) remat modes", lambda: _remat_modes(dev, card)),
+                     ("(b) resume", lambda: _train_resume(dev, card)),
+                     ("(c) train deepseek-moe-16b, 4 layers",
+                      lambda: _train_moe(dev, card)),
+                     ("(d) reduced archs", lambda: _train_reduced_all(dev))):
+        t0 = time.perf_counter()
+        fn()
+        parts[name] = round(time.perf_counter() - t0, 2)
+        torch.cuda.empty_cache()
+    moved = {k: v - before[k] for k, v in cuda.LAUNCHES.items()
+             if v != before[k]}
+    log(f"[train] part times (s): {parts}; kernel launches during the "
+        f"phase: {moved or 'none'}")
+    if moved:
+        raise AssertionError(f"the LM training path launched kernels: "
+                             f"{moved}")
+
+
 def _near(a, b, tols, what):
     """``a`` finite, of ``b``'s shape and dtype, and within the dtype's
     tolerance of it (``tols`` = (f32, bf16); bf16 also one bf16 ulp of
@@ -3177,6 +3828,7 @@ def main():
     recs.update(phase_layer_kernels(dev))
     launches.update(phase_layer_path(dev))
     phase_lm(dev, card)
+    phase_train(dev, card)
     kernels = []
     for name, rec in recs.items():
         b_ms, b_by = bound(rec["flops"], rec["bytes"],

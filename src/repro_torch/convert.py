@@ -18,7 +18,10 @@ are rebuilt as the port's classes of the same name, batched or scalar
 (a scalar state's 0-d leaves stay 0-d), so the JAX scalar envs' states
 carry across into the port's scalar envs. The LM's parameters and caches
 carry across too: its recurrent states (``MambaState``, ``MLSTMState``,
-``SLSTMState``) become the port's ``repro_torch/nn/ssm.py`` classes.
+``SLSTMState``) become the port's ``repro_torch/nn/ssm.py`` classes, and
+an optimizer state (``AdamWState``: step, ``mu``, ``nu``) becomes the
+port's, its 0-d int32 ``step`` on the host as the port keeps it, so a
+JAX LM training state ``{"params", "opt"}`` resumes in the port.
 This module never imports the JAX package.
 """
 from __future__ import annotations
@@ -32,12 +35,13 @@ from repro_torch.core.ials import MultiIALSState
 from repro_torch.envs.traffic import LocalTrafficState, TrafficState
 from repro_torch.envs.warehouse import LocalWarehouseState, WarehouseState
 from repro_torch.nn.ssm import MambaState, MLSTMState, SLSTMState
+from repro_torch.optim.adamw import AdamWState
 from repro_torch.rl.ppo import RolloutState
 
 _STATES = {cls.__name__: cls for cls in
            (LocalTrafficState, TrafficState, LocalWarehouseState,
             WarehouseState, IALSState, MultiIALSState, RolloutState,
-            MambaState, MLSTMState, SLSTMState)}
+            MambaState, MLSTMState, SLSTMState, AdamWState)}
 
 
 def array_to_torch(x, device="cuda") -> torch.Tensor:
@@ -62,7 +66,8 @@ def to_torch(tree, device="cuda"):
         return {k: to_torch(v, device) for k, v in tree.items()}
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         cls = _STATES.get(type(tree).__name__)
-        vals = [to_torch(v, device) for v in tree]
+        vals = [to_torch(v, "cpu" if cls is AdamWState and i == 0
+                         else device) for i, v in enumerate(tree)]
         return cls(*vals) if cls is not None else tuple(vals)
     if isinstance(tree, (list, tuple)):
         return type(tree)(to_torch(v, device) for v in tree)

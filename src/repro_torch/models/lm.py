@@ -5,10 +5,10 @@ Covers every family of ``repro_torch/configs`` — dense / MoE(+MLA) /
 hybrid(attn+mamba+MoE) / SSM(xLSTM) / enc-dec(whisper) / VLM(gated
 cross-attn) — with the reference's entry points:
 
-- ``forward(params, cfg, inputs, want_cache)`` — prefill (and, in the
-  training slice, training); the repeating layer pattern runs as a Python
-  loop over views of the stacked parameters, group by group, where the
-  reference scans.
+- ``forward(params, cfg, inputs, want_cache)`` — training and prefill;
+  the repeating layer pattern runs as a Python loop over the groups of
+  the stacked parameters, where the reference scans, each group body
+  rematerialised as ``cfg.remat`` says (below).
 - ``decode_step(params, cfg, cache, token, pos)`` — one serving step
   against a KV/state cache whose layout mirrors the stacked parameters.
   It writes the new token's K/V and the new recurrent states into
@@ -24,14 +24,39 @@ Parameters are the reference's pytree: nested dicts of tensors, dense
 ``repro_torch/convert.py`` carries JAX weights across as they are.
 Modality frontends (whisper conv / vision encoder) are stubs, as in the
 reference: ``inputs`` carries precomputed frame/patch embeddings. Not in
-this module yet: ``cfg.remat`` (a training knob) and the activation
-sharding constraints (no mesh on one card).
+this module: the activation sharding constraints (no mesh on one card).
+
+The stack is unbound once per forward (``_unstack``): group g's leaves
+are views of it, and autograd's backward of the unbind is one ``stack``
+of the groups' gradients. Indexing the stack group by group would make
+each group's backward write a zero tensor of the whole stack's size.
+
+``cfg.remat`` (training: autograd on, no cache), the reference's
+``jax.checkpoint`` policies as non-reentrant ``torch.utils.checkpoint``
+around each group body:
+
+- ``none``: every activation kept;
+- ``full``: only the group's inputs kept, the body recomputed in the
+  backward;
+- ``dots``: selective checkpointing that keeps the outputs of
+  ``aten.mm`` / ``aten.addmm`` (the products without batch dims, as
+  ``dots_with_no_batch_dims_saveable``) and recomputes the rest,
+  ``bmm`` included;
+- ``names``: keeps only the self-attention outputs, which pass through
+  the identity op ``repro_torch::checkpoint_name`` (the reference's
+  ``checkpoint_name(o, "attn_out")``) that the policy must save.
+
+Recomputation runs the same ops on the same values: every mode gives the
+same loss and gradients, bitwise on the CPU.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, \
+    create_selective_checkpoint_contexts
 
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.nn import attention as att
@@ -39,7 +64,7 @@ from repro_torch.nn import module as nn
 from repro_torch.nn import moe as moe_lib
 from repro_torch.nn import moe_ep as moe_ep_lib
 from repro_torch.nn import ssm as ssm_lib
-from repro_torch.tree import tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 Params = Dict[str, Any]
 CACHE_KEYS = ("k", "v", "ckv", "krope")   # padded to max_len by prefill
@@ -59,8 +84,63 @@ def _group(tree, g: int):
     return tree_map(lambda x: x[g], tree)
 
 
+def _unstack(tree, n: int):
+    """The ``n`` groups of a stacked tree, each leaf unbound once: views
+    of the stack whose backward is one ``stack``."""
+    leaves = [torch.unbind(x) for x in tree_leaves(tree)]
+    return [tree_unflatten(tree, [x[g] for x in leaves]) for g in range(n)]
+
+
 def _stack(trees):
     return tree_map(lambda *xs: torch.stack(xs), trees[0], *trees[1:])
+
+
+# ===========================================================================
+# Remat
+# ===========================================================================
+
+@torch.library.custom_op("repro_torch::checkpoint_name", mutates_args=())
+def checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
+    """Identity (a copy) that the ``names`` policy saves: the reference's
+    ``jax.ad_checkpoint.checkpoint_name``."""
+    return x.clone()
+
+
+@checkpoint_name.register_fake
+def _(x, name):
+    return torch.empty_like(x)
+
+
+checkpoint_name.register_autograd(lambda ctx, grad: (grad, None))
+
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _save_names(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE
+            if op is torch.ops.repro_torch.checkpoint_name.default
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+_POLICIES = {"dots": _save_dots, "names": _save_names}
+
+
+def _rematted(remat: str, body):
+    """``body`` checkpointed as ``remat`` says (``none``: as it is)."""
+    if remat == "none":
+        return body
+    if remat not in ("full",) + tuple(_POLICIES):
+        raise ValueError(f"remat {remat!r}: none | full | dots | names")
+    kw = {}
+    if remat in _POLICIES:
+        kw["context_fn"] = partial(create_selective_checkpoint_contexts,
+                                   _POLICIES[remat])
+    return lambda *args: checkpoint(body, *args, use_reentrant=False, **kw)
 
 
 # ===========================================================================
@@ -220,7 +300,7 @@ def _qkv(p, cfg: ArchConfig, x, memory=None):
 
 
 def _self_attention(p, cfg: ArchConfig, x, positions, *, causal=True,
-                    want_cache=False):
+                    want_cache=False, name_attn=False):
     B, T, _ = x.shape
     q, k, v = _qkv(p, cfg, x)
     if cfg.use_rope:
@@ -228,6 +308,8 @@ def _self_attention(p, cfg: ArchConfig, x, positions, *, causal=True,
         k = att.apply_rope(k, positions, cfg.rope_theta)
     o = att.flash_attention(q, k, v, causal=causal,
                             q_chunk=cfg.attn_q_chunk, k_chunk=cfg.attn_k_chunk)
+    if name_attn:
+        o = checkpoint_name(o, "attn_out")
     out = nn.dense(p["wo"], o.reshape(B, T, -1))
     return out, ({"k": k, "v": v} if want_cache else None)
 
@@ -296,7 +378,8 @@ def _layer_apply(p, cfg: ArchConfig, spec: LayerSpec, h, ctx, *,
     if spec.kind == "attn":
         out, cache["self"] = _self_attention(
             p["mix"], cfg, x, ctx["positions"],
-            causal=ctx.get("causal", True), want_cache=want_cache)
+            causal=ctx.get("causal", True), want_cache=want_cache,
+            name_attn=ctx.get("name_attn", False))
         h = h + out
     elif spec.kind == "mla":
         out, cache["self"] = _mla_attention(p["mix"], cfg, x,
@@ -315,7 +398,7 @@ def _layer_apply(p, cfg: ArchConfig, spec: LayerSpec, h, ctx, *,
     elif spec.kind == "dec_attn":
         out, cache["self"] = _self_attention(
             p["mix"]["self"], cfg, x, ctx["positions"], causal=True,
-            want_cache=want_cache)
+            want_cache=want_cache, name_attn=ctx.get("name_attn", False))
         h = h + out
         xc = norm(p["norm_cross"], h)
         out2, cache["cross"] = _cross_attention(
@@ -359,20 +442,34 @@ def encode(params: Params, cfg: ArchConfig,
     spec = LayerSpec("attn", cfg.mlp_kind)
     ctx = {"positions": torch.arange(F_, device=frames.device),
            "causal": False}
-    for g in range(cfg.n_encoder_layers):
-        h, _, _ = _layer_apply(_group(enc["blocks"], g), cfg, spec, h, ctx)
+    for lp in _unstack(enc["blocks"], cfg.n_encoder_layers):
+        h, _, _ = _layer_apply(lp, cfg, spec, h, ctx)
     return norm(enc["norm"], h)
 
 
 # ===========================================================================
-# Forward (prefill)
+# Forward (train / prefill)
 # ===========================================================================
+
+def _group_body(gp, cfg: ArchConfig, pattern, h, aux, ctx, want_cache):
+    """One group of the repeating pattern -> (h, aux, caches|None)."""
+    caches = {}
+    for i, spec in enumerate(pattern):
+        h, a, c = _layer_apply(gp[str(i)], cfg, spec, h, ctx,
+                               want_cache=want_cache)
+        aux = _add_aux(aux, a)
+        if want_cache:
+            caches[str(i)] = c
+    return h, aux, (caches if want_cache else None)
+
 
 def forward(params: Params, cfg: ArchConfig, inputs: Dict[str, Any], *,
             want_cache: bool = False):
     """inputs: {tokens (B,T)[, vision (B,Nv,d) | frames (B,F,d)]}.
 
     -> (h_final (B,T,d), aux, cache|None). Apply ``logits``/``loss`` on top.
+    Under autograd and without a cache, each group body is
+    rematerialised as ``cfg.remat`` says.
     """
     prologue, pattern, n_groups = _pattern(cfg)
     _, norm = nn.make_norm(cfg.norm)
@@ -388,7 +485,10 @@ def forward(params: Params, cfg: ArchConfig, inputs: Dict[str, Any], *,
         memory = encode(params, cfg, inputs["frames"])
     elif cfg.family == "vlm":
         memory = inputs["vision"]
-    ctx = {"positions": positions, "memory": memory, "causal": True}
+    remat = (cfg.remat if torch.is_grad_enabled() and not want_cache
+             else "none")
+    ctx = {"positions": positions, "memory": memory, "causal": True,
+           "name_attn": remat == "names"}
 
     aux = _zero_aux(h.device)
     pro_caches = {}
@@ -399,16 +499,10 @@ def forward(params: Params, cfg: ArchConfig, inputs: Dict[str, Any], *,
         if want_cache:
             pro_caches[str(i)] = c
 
+    body = _rematted(remat, _group_body)
     blk_caches = []
-    for g in range(n_groups):
-        gp = _group(params["blocks"], g)
-        caches = {}
-        for i, spec in enumerate(pattern):
-            h, a, c = _layer_apply(gp[str(i)], cfg, spec, h, ctx,
-                                   want_cache=want_cache)
-            aux = _add_aux(aux, a)
-            if want_cache:
-                caches[str(i)] = c
+    for gp in _unstack(params["blocks"], n_groups):
+        h, aux, caches = body(gp, cfg, pattern, h, aux, ctx, want_cache)
         blk_caches.append(caches)
     h = norm(params["final_norm"], h)
 

@@ -88,3 +88,94 @@ def test_the_lm_phase_parts_run_on_the_cpu():
     assert len(log.calls) == n_moe
     assert tuple(log.calls[0].shape) == (10, cfg.moe_top_k)
     assert moe.moe_apply is log._real          # restored on exit
+
+
+def test_the_train_phase_helpers():
+    """Phase 9's pure helpers: the dry-run's model FLOPs of a qwen3-4b
+    step (6 x (active - embed) x tokens: 89.3 TFLOP at 8 x 512 tokens),
+    the row checks, the steady step time, the changed share and the
+    gradient share."""
+    import math
+    import torch
+    from repro_torch.configs.base import get_config
+    flops = chip_smoke.train_model_flops(get_config("qwen3-4b"), 8 * 512)
+    assert flops == 6.0 * (4_022_468_096 - 151_936 * 2560) * 4096
+    assert round(flops / 1e12, 1) == 89.3
+    rows = [{"step": i, "loss": 5.0, "ce": 5.0, "grad_norm": 1.0,
+             "step_time_s": t} for i, t in enumerate([3.0, 0.5, 0.7, 0.6])]
+    assert chip_smoke.check_train_rows(rows, 4, "x") == [3.0, 0.5, 0.7, 0.6]
+    assert chip_smoke.steady_s([3.0, 0.5, 0.7, 0.6]) == 0.6
+    with pytest.raises(AssertionError, match="rows of steps"):
+        chip_smoke.check_train_rows(rows[:3], 4, "x")
+    with pytest.raises(AssertionError, match="non-finite"):
+        chip_smoke.check_train_rows(
+            rows[:1] + [dict(rows[1], grad_norm=math.nan)] + rows[2:], 4,
+            "x")
+    a = {"blk": {"w": torch.zeros(4)}, "norm": {"g": torch.ones(4)}}
+    b = {"blk": {"w": torch.tensor([0., 1., 0., 1.])},
+         "norm": {"g": torch.ones(4)}}
+    assert chip_smoke.changed_share(a, b) == (0.25, [])
+    assert chip_smoke.changed_share(a, a) == (0.0, ["['blk']['w']"])
+    assert chip_smoke.grad_share(torch.tensor([1., 2.]),
+                                 torch.tensor([1., 4.])) == 0.5
+
+
+def test_the_train_phase_resume_signal_is_restored():
+    """``_SigtermAfter`` wraps the guard's save for the run and restores
+    it on exit."""
+    from repro_torch.distributed import fault_tolerance as ft
+    real = ft.TrainingGuard.maybe_save
+    with chip_smoke._SigtermAfter(3):
+        assert ft.TrainingGuard.maybe_save is not real
+    assert ft.TrainingGuard.maybe_save is real
+
+
+def test_the_train_phase_reduced_part_runs_on_the_cpu():
+    """Phase 9's reduced-arch train step comparison runs on the CPU (the
+    "card" is the CPU: every share is 0)."""
+    import torch
+    from repro_torch.configs.base import list_configs
+    worst = chip_smoke._train_reduced_all(torch.device("cpu"))
+    assert sorted(worst) == list_configs()
+    for w in worst.values():
+        assert w == {"grads": 0.0, "metrics": 0.0, "replay_ulps": 0.0,
+                     "params_direct": 0.0}
+
+
+def test_the_train_phase_bounds():
+    """The gradient bound (share of the global norm, of the leaf's max,
+    rtol) and the replay's ulps."""
+    import torch
+    b = torch.tensor([10.0, 0.0, -1e-3])
+    tol = chip_smoke.TRAIN_GRAD_TOL
+    # 1e-6 x 10 + 1e-4 x 10 = 1.01e-3 of room at 0
+    share = chip_smoke.grad_tol_share(b + torch.tensor([0.0, 5e-4, 0.0]),
+                                      b, tol, 10.0, "g")
+    assert abs(share - 5e-4 / 1.01e-3) < 1e-6
+    with pytest.raises(AssertionError, match="at a CPU value 0"):
+        chip_smoke.grad_tol_share(b + torch.tensor([0.0, 2e-3, 0.0]), b,
+                                  tol, 10.0, "g")
+    one = torch.tensor([1.0, 2.0])
+    nxt = torch.nextafter(one, torch.tensor([2.0, 3.0]))
+    assert chip_smoke.ulps(nxt, one, "p") == 1.0
+    assert chip_smoke.ulps(one, one, "p") == 0.0
+    # in ulps of the larger of the value and its scale
+    small = torch.tensor([2.0 ** -20])         # an ulp of 2^-43
+    assert chip_smoke.ulps(small + 2.0 ** -33, small, "p") == 2.0 ** 10
+    assert chip_smoke.ulps(small + 2.0 ** -33, small, "p",
+                           scale=torch.tensor([2.0 ** -10])) == 1.0
+
+
+def test_the_step_profile_helpers():
+    from types import SimpleNamespace as NS
+    ev = [NS(time_range=NS(start=0.0, end=10.0)),
+          NS(time_range=NS(start=5.0, end=12.0)),
+          NS(time_range=NS(start=20.0, end=25.0))]
+    assert chip_smoke.busy_us(ev) == 17.0
+    assert chip_smoke.kernel_kind("sm90_xmma_gemm_bf16") == "gemm"
+    assert chip_smoke.kernel_kind("nvjet_tst_256x128_64x4_1x2_h") == "gemm"
+    assert chip_smoke.kernel_kind("reduce_kernel<512>") == "reduce"
+    assert chip_smoke.kernel_kind(
+        "vectorized_elementwise_kernel<4>") == "elementwise"
+    assert chip_smoke.kernel_kind("Memcpy DtoD") == "copy"
+    assert chip_smoke.kernel_kind("foo") == "other"

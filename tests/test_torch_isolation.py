@@ -4,7 +4,8 @@
 count, ``distributed/op_analysis.py``, included), not ``chip_smoke.py``
 and not the five ablation tools, the profiler check, the fault smoke, the shard smoke and the iteration
 profile that run beside it on the card, not the port's examples (the
-quickstart, the two training sweeps, the LM serving demo) and not the chaos smoke and docs
+quickstart, the two training sweeps, the LM serving demo, the LM
+pretraining example) and not the chaos smoke and docs
 check import them; and without CUDA the entry points
 refuse the default device instead of carrying on on the CPU."""
 import ast
@@ -44,14 +45,18 @@ def test_importing_the_port_pulls_in_neither_jax_nor_repro():
 
 
 def test_the_analysis_modules_are_checked():
-    """The dry-run, the op count and the pods' layouts are among the
-    modules both tests above and below read."""
+    """The dry-run, the op count, the pods' layouts and the LM's serving
+    and training modules are among the modules both tests above and below
+    read."""
     mods = _modules()
     for m in ("repro_torch.launch.dryrun",
               "repro_torch.distributed.op_analysis",
               "repro_torch.launch.mesh", "repro_torch.models.lm",
               "repro_torch.launch.serve", "repro_torch.nn.ssm",
-              "repro_torch.configs.archs"):
+              "repro_torch.configs.archs", "repro_torch.launch.train",
+              "repro_torch.launch.steps", "repro_torch.data.pipeline",
+              "repro_torch.optim.grad_compress",
+              "repro_torch.optim.adamw"):
         assert m in mods, m
 
 
@@ -66,7 +71,7 @@ def test_the_analysis_modules_are_checked():
        "examples/torch_quickstart.py",
        "examples/torch_train_traffic.py",
        "examples/torch_train_warehouse.py",
-       "examples/torch_serve_lm.py"]))
+       "examples/torch_serve_lm.py", "examples/torch_lm_pretrain.py"]))
 def test_no_source_imports_jax_or_repro(path):
     tree = ast.parse((ROOT / path).read_text())
     for node in ast.walk(tree):
@@ -83,8 +88,10 @@ def test_no_source_imports_jax_or_repro(path):
 def test_default_device_without_cuda_raises():
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is valid")
-    from repro_torch.launch import rl_train
+    from repro_torch.launch import rl_train, train
     for domain in ("traffic", "warehouse"):
         with pytest.raises(RuntimeError, match="cuda"):
             rl_train.run_training(rl_train.parse_args(
                 ["--iterations", "1", "--domain", domain]))
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.run(train.parse_args(["--arch", "qwen3-4b", "--reduced"]))

@@ -79,6 +79,13 @@ REQUIRED_SNIPPETS = (
     "models/lm.py::decode_step",
     "nn/attention.py::decode_attention",
     "python -m repro_torch.launch.serve",
+    # LM training
+    "launch/steps.py::make_train_step",
+    "optim/adamw.py::cosine_schedule",
+    "data/pipeline.py::TokenPipeline",
+    "models/lm.py::checkpoint_name",
+    "python -m repro_torch.launch.train",
+    "python examples/torch_lm_pretrain.py",
     # entry points
     "python -m repro_torch.launch.rl_train",
     "python -m repro_torch.launch.policy_serve",

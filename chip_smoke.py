@@ -63,13 +63,13 @@ Phases, each printing its result and time on its own line:
      beside the integrated trainer's;
   3c. lane data parallelism: ranks of ``python -m torch.distributed.run``
      sharing the card on gloo, each a subprocess whose failure fails the
-     script: (a) ``tools/torch_shard_smoke.py`` at 2 ranks (data 2) and 4
-     (data 2, model 2), traffic FNN A = 1, traffic GRU A = 25 (agents
-     replicated, the lanes take "model"), warehouse GRU and FNN A = 36
-     (18 agents a rank on 4 ranks), B = 16, T = 128 at phase 3's widths,
-     and on 4 ranks also traffic GRU A = 25 at B = 64 (16 lanes a rank,
-     where a rank's own launch plan would take other K-parts than the
-     one-process launch's): every output leaf of the
+     script: (a) ``tools/torch_shard_smoke.py`` at 2 ranks (data 2:
+     traffic FNN A = 1, warehouse GRU A = 36) and 4 (data 2, model 2:
+     traffic GRU A = 25, agents replicated, the lanes take "model";
+     warehouse FNN A = 36, 18 agents a rank), B = 16, T = 128 at phase
+     3's widths, and on 4 ranks also traffic GRU A = 25 at B = 64 (16
+     lanes a rank, where a rank's own launch plan would take other
+     K-parts than the one-process launch's): every output leaf of the
      sharded ``ppo.rollout``, ``engine.rollout`` and train iteration
      bitwise equal to the one-process program's, one ``policy_rollout``
      launch per rank a rollout, one ``aip_rollout_multi`` /
@@ -77,18 +77,18 @@ Phases, each printing its result and time on its own line:
      ``policy_rollout`` device ms on its block (``torch.profiler``, one
      rank at a time, B = 8 a rank at 2 ranks), the one-process launch's,
      and the gathers' event ms of one sharded rollout (host included);
-     (b) ``rl_train`` at 2 ranks (traffic FNN A = 1, 3
-     iterations) and 4 ranks (warehouse GRU A = 36, 2 iterations):
+     (b) ``rl_train`` at 4 ranks (warehouse GRU A = 36, 2 iterations):
      final-parameter md5, losses and GS evaluations equal to phase 3's
-     one-process runs, each rank launching ``policy_rollout`` once an
-     iteration; (c) phase 3b's one-process traffic
+     one-process run, each rank launching ``policy_rollout`` once an
+     iteration; (c) at 2 ranks (traffic FNN A = 1), phase 3b's
+     one-process traffic
      checkpoint at iteration 1 resumed under 2 ranks to 3 at
      ``--save-every 2`` (a save, its gather included, after the second
      iteration only), equal to phase 3's uninterrupted run; the F-IALS (phase 3b's traffic run) and
      the GS (one process here) on 2 ranks, PPO's plain loop, whose
      bitwise repeat is reported, not required (no kernel launched); (d)
-     the steady iteration time at 1 and 2 ranks (traffic) and 1 and 4
-     (warehouse);
+     the steady iteration time at 1 and 2 ranks (traffic, the resumed
+     run) and 1 and 4 (warehouse);
   4. the engine's own entry points on both domains (``engine.rollout``
      per backbone, ``engine.step`` with the GRU AIP), counters zeroed
      before and read after: ``fnn_rollout``, ``aip_rollout_multi`` (each
@@ -223,7 +223,35 @@ Phases, each printing its result and time on its own line:
      the card against the CPU's: the gradients handed to the optimizer
      within ``TRAIN_GRAD_TOL``, the metrics within ``LM_REDUCED_TOL``,
      and the CPU's update on the card's gradients equal to the card's
-     parameters and moments within ``TRAIN_REPLAY_ULPS`` ulps.
+     parameters and moments within ``TRAIN_REPLAY_ULPS`` ulps;
+  10. LM sharding (``distributed/act_sharding.py``, the LM half of
+     ``distributed/sharding.py``, ``nn/moe_ep.py``'s mesh route,
+     ``launch/specs.py``, ``launch/dryrun.py``'s LM cells), the launch
+     counters read before and after (no kernel may launch, in this
+     process or a rank's): (a) ``launch/dryrun.py`` counts
+     ``LM_DRYRUN_CELLS`` (qwen3-4b ``train_4k`` pod1, deepseek-moe-16b
+     ``train_4k`` pod1, qwen3-4b ``decode_32k`` pod2, whisper-base's
+     ``train_4k`` pod1 and ``decode_32k`` pod2), each in a process of
+     its own on the CPU, started together at the phase's start (the
+     counts run beside (b) and (c), whose step times are taken so;
+     phases 8 and 9 run without them) and read at its end: each
+     ``ok``, collective bytes above 0, its model-FLOP bound and argument
+     bytes per device beside the global bytes over the chips printed;
+     (b) ``tools/torch_lm_shard_smoke.py`` at qwen3-4b's full width cut
+     to 2 layers, float32, B = 8 x 512, 2 microbatches, 2 steps, on 2
+     ranks (data 2, the config's ``fsdp_only``) and 4 (data 2, model 2,
+     ``tp``: heads, FFN and vocab on "model") sharing the card over gloo
+     (``launch/mesh.py::gloo_on_card``): each step's loss,
+     metrics and gradients against the one-process step from the same
+     state, the AdamW update replayed within 4 ulps, each rank's
+     parameter and moment bytes the global bytes over the ranks that
+     shard them, its ``max_memory_allocated``, the steady step time
+     beside the one-process step's; (c) one MoE layer of
+     deepseek-moe-16b at full width (64 experts, top 6, 2 shared),
+     dropless, through the expert-parallel route on 4 ranks (data 2,
+     model 2) against ``moe_apply``: output and gradients of
+     ``out.sum()`` within the reference test's 1e-5 and 1e-4, of the
+     largest value where it exceeds 1.
 The build phase also prints ptxas's register and spill lines per kernel
 and the HGMMA count of the tensor-core kernel's SASS (``cuobjdump``).
 Then one JSON line lists every kernel (route, source, the TPU kernel it
@@ -245,6 +273,7 @@ from __future__ import annotations
 import json
 import math
 import statistics
+import signal
 import subprocess
 import sys
 import time
@@ -1306,10 +1335,12 @@ def phase_grid(dev, ref, keep):
 RANKS_TIMEOUT_S = 240
 
 
-def _ranks(world, argv, label):
+def _ranks(world, argv, label, timeout=None):
     """``python -m torch.distributed.run --standalone --nproc-per-node
     world <argv>`` in its own process group, killed whole if it overruns
-    -> its output; a non-zero exit fails the phase."""
+    (``timeout``, default ``RANKS_TIMEOUT_S``) -> its output; a non-zero
+    exit fails the phase."""
+    timeout = timeout or RANKS_TIMEOUT_S
     import os
     import signal
     env = dict(os.environ)
@@ -1323,15 +1354,16 @@ def _ranks(world, argv, label):
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         start_new_session=True)
     try:
-        text, _ = proc.communicate(timeout=RANKS_TIMEOUT_S)
+        text, _ = proc.communicate(timeout=timeout)
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, signal.SIGKILL)
         proc.communicate()
-        raise AssertionError(f"{label}: {world} ranks overran "
-                             f"{RANKS_TIMEOUT_S} s")
+        raise AssertionError(f"{label}: {world} ranks overran {timeout} s")
     if proc.returncode != 0:
+        errors = [ln for ln in text.splitlines() if "Error" in ln][:20]
         raise AssertionError(f"{label}: {world} ranks exited "
-                             f"{proc.returncode}:\n{text[-6000:]}")
+                             f"{proc.returncode}:\n" + "\n".join(errors)
+                             + f"\n{text[-6000:]}")
     log(f"[ranks] {label}: {world} ranks in "
         f"{time.perf_counter() - t0:.1f} s (processes started included)")
     return text
@@ -1413,20 +1445,22 @@ def _train_ranks(world, argv, ref, label, tmp, bitwise=True,
 def phase_ranks(ref, keep):
     import tempfile
     with tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_") as tmp:
-        # (a) the sharded programs against the one-process one
-        cases = ("traffic:fnn:1,traffic:gru:25,warehouse:gru:36,"
-                 "warehouse:fnn:36")
-        _shard_smoke(2, 1, ["--cases", cases], "2 ranks (data 2)", tmp)
+        # (a) the sharded programs against the one-process one: each
+        # domain and backbone once a world size (the four cases once on
+        # each were cut for the script's time)
+        _shard_smoke(2, 1, ["--cases", "traffic:fnn:1,warehouse:gru:36"],
+                     "2 ranks (data 2)", tmp)
         # + 64 lanes of traffic GRU A = 25, 16 a rank: a rank's own plan
         # would take other K-parts than the one-process launch's
-        _shard_smoke(4, 2, ["--cases", cases + ",traffic:gru:25:64"],
+        _shard_smoke(4, 2, ["--cases", "traffic:gru:25,warehouse:fnn:36,"
+                            "traffic:gru:25:64"],
                      "4 ranks (data 2, model 2)", tmp)
-        # (b) rl_train under ranks, (c) a one-process checkpoint resumed
+        # (b) rl_train under ranks, (c) a one-process checkpoint resumed:
+        # the 2-rank traffic run is the resumed one (its own run from
+        # iteration 0 was cut for the script's time)
         traffic = MAIN_ARGS + ["--domain", "traffic", "--simulator", "ials",
                                "--aip", "fnn", "--iterations", "3"]
         pol_fnn = "policy_rollout_fnn"
-        t2 = _train_ranks(2, traffic, ref["fnn"], "traffic fnn A=1", tmp,
-                          counter=pol_fnn)
         w4 = _train_ranks(4, MAIN_ARGS + [
             "--domain", "warehouse", "--simulator", "ials", "--n-agents",
             "36", "--iterations", "2"], ref["warehouse gru"],
@@ -1456,7 +1490,8 @@ def phase_ranks(ref, keep):
         _train_ranks(2, gs, gs_one, "gs traffic A=1", tmp, bitwise=False)
     # (d) the steady iteration time at 1, 2 and 4 ranks
     log(f"[ranks] steady iteration, traffic FNN A=1 (16 envs): 1 rank "
-        f"{_steady_s(ref['fnn']):.4f} s, 2 ranks {_steady_s(t2):.4f} s; "
+        f"{_steady_s(ref['fnn']):.4f} s, 2 ranks {_steady_s(res):.4f} s "
+        f"(resumed); "
         f"warehouse GRU A=36: 1 rank "
         f"{_steady_s(ref['warehouse gru']):.4f} s, 4 ranks "
         f"{_steady_s(w4):.4f} s (ranks share the card on gloo)")
@@ -3784,6 +3819,201 @@ def phase_train(dev, card):
                              f"{moved}")
 
 
+# phase 10: the LM's sharding. (a) dry-run cells, each counted in a
+# process of its own (rank 0 of a fake process group, fake tensors, the
+# CPU), all started together at the phase's start
+LM_DRYRUN_CELLS = (("qwen3-4b", "train_4k", "pod1"),
+                   ("deepseek-moe-16b", "train_4k", "pod1"),
+                   ("qwen3-4b", "decode_32k", "pod2"),
+                   ("whisper-base", "train_4k", "pod1"),
+                   ("whisper-base", "decode_32k", "pod2"))
+LM_DRYRUN_TIMEOUT_S = 600
+# (b) the sharded train step at qwen3-4b's full width, cut to 2 layers,
+# float32: (ranks, model axis, profile). Two of the four combinations: 2
+# ranks on "tp" passed alone but would put the script past its limit
+# (~190-250 s a run), and 4 ranks on "fsdp_only" do not fit the card
+# (the rule replicates the 1.56 GB float32 embedding and its gradient on
+# every rank: 78.7 GiB over the four)
+LM_SHARD_ARGV = ["--arch", "qwen3-4b", "--layers", "2", "--batch", "8",
+                 "--seq", "512", "--microbatches", "2", "--steps", "2",
+                 "--what", "train"]
+LM_SHARD_RUNS = ((2, 1, "fsdp_only"), (4, 2, "tp"))
+# (c) one MoE layer of deepseek-moe-16b at full width (64 experts, top 6,
+# 2 shared), dropless, on 4 ranks (data 2, model 2)
+LM_EP_ARGV = ["--arch", "deepseek-moe-16b", "--batch", "8", "--seq", "512",
+              "--what", "ep"]
+LM_SHARD_TIMEOUT_S = 480
+
+
+def lm_dryrun_line(cell) -> str:
+    """A counted LM cell's line; raises unless it is ``ok`` with
+    collective bytes above 0 and its model-FLOP bound."""
+    name = f"{cell['arch']} {cell['shape']} {cell['mesh']}"
+    if cell.get("status") != "ok":
+        raise AssertionError(f"dry-run {name}: {cell.get('status')}: "
+                             f"{str(cell.get('stderr', ''))[-2000:]}")
+    ops, r, mem = cell["ops"], cell["roofline"], cell["memory"]
+    if not ops["collective_bytes_total"] > 0:
+        raise AssertionError(f"dry-run {name}: no collective counted")
+    if ops["custom_call_count"]:
+        raise AssertionError(f"dry-run {name}: {ops['custom_call_count']} "
+                             f"kernel launches counted")
+    coll = ", ".join(f"{k} {v / 2**30:.3f}" for k, v in
+                     sorted(ops["collective_bytes"].items()))
+    return (f"[dryrun] {name} ({cell['n_chips']} chips, "
+            f"{cell['parallelism']}): counted in {cell['count_s']:.1f} s; "
+            f"per device: {ops['flops']:.4g} FLOPs, HBM "
+            f"{ops['hbm_bytes'] / 2**30:.2f} GiB (unfused), collectives "
+            f"GiB {{{coll}}}; argument bytes "
+            f"{mem['argument_bytes_per_device']} (global over chips "
+            f"{mem['argument_bytes_global_over_chips']:.0f}); model-FLOP "
+            f"bound {r['model_flops_bound_s']:.4g} s, roofline "
+            f"{r['step_time_lower_bound_s']:.4g} s ({r['bottleneck']}), "
+            f"useful FLOPs {r['useful_flops_ratio']:.3f}")
+
+
+def lm_shard_line(s, label) -> str:
+    """A ``tools/torch_lm_shard_smoke.py`` summary's line; raises on a
+    failed check, on a rank whose bytes are not the global bytes over its
+    shards, or on a kernel launch."""
+    if not s.get("ok") or s.get("failed"):
+        raise AssertionError(f"LM shard smoke {label}: {s.get('failed')}")
+    for r, pr in enumerate(s["per_rank"]):
+        if pr["kernel_launches"]:
+            raise AssertionError(f"LM shard smoke {label}: rank {r} "
+                                 f"launched {pr['kernel_launches']} kernels")
+        for k in ("param", "moment"):
+            if pr[f"{k}_bytes"] is not None and \
+                    pr[f"{k}_bytes"] != pr[f"{k}_bytes_expected"]:
+                raise AssertionError(
+                    f"LM shard smoke {label}: rank {r} holds "
+                    f"{pr[f'{k}_bytes']} {k} bytes, not "
+                    f"{pr[f'{k}_bytes_expected']}")
+    worst = ", ".join(f"{k} {v:.3g}" for k, v in s["worst_share"].items())
+    out = f"[lmshard] {label}: every check within its bound (worst share " \
+          f"of the bound: {worst})"
+    if "steady_step_s" in s:
+        per = s["per_rank"]
+        out += (f"; per rank: parameter bytes "
+                f"{[p['param_bytes'] for p in per]}, moment bytes "
+                f"{[p['moment_bytes'] for p in per]}, max_memory_allocated "
+                f"{[p['max_memory_allocated'] for p in per]}; step s "
+                f"{[round(t, 3) for t in s['step_s']]}, steady "
+                f"{s['steady_step_s']:.3f} s beside one process "
+                f"{s['one_process_step_s'][-1]:.3f} s; loss (sharded, one "
+                f"process) {s['loss']}")
+    if "ep_fwd_err" in s:
+        out += (f"; EP forward max |diff| {s['ep_fwd_err']:.3g}, gradients "
+                f"{s['ep_grad_err']:.3g}, drop_frac {s['ep_drop_frac']}, "
+                f"forward + backward {s['ep_fwd_bwd_s']:.3f} s")
+    return out
+
+
+def _lm_shard(world, argv, label, tmp):
+    out = Path(tmp) / f"lmshard_{label.replace(' ', '_')}.json"
+    _ranks(world, ["tools/torch_lm_shard_smoke.py", "--device", "cuda",
+                   "--json", str(out), *argv],
+           f"LM shard smoke {label}", timeout=LM_SHARD_TIMEOUT_S)
+    line = lm_shard_line(json.loads(out.read_text()), label)
+    log(line)
+    return line
+
+
+class LmDryrunCells:
+    """Phase 10 (a)'s dry-run cells, each counted by ``launch/dryrun.py``
+    in a process of its own on the CPU (no kernel, no card): started at
+    the phase's start, so the counts overlap (b) and (c) (whose step
+    times are then taken beside them; phases 8 and 9, which report
+    host-bound times, run alone), and read at its end."""
+
+    def __init__(self):
+        import os
+        import tempfile
+        self.tmp = tempfile.mkdtemp(prefix="chip_smoke_lm_")
+        env = dict(os.environ)
+        env["PYTHONPATH"] = str(ROOT / "src") + (
+            os.pathsep + env["PYTHONPATH"] if env.get("PYTHONPATH") else "")
+        env["OMP_NUM_THREADS"] = "1"
+        self.t0 = time.perf_counter()
+        self.procs = [subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", a,
+             "--shape", sh, "--mesh", m, "--out", self.tmp], cwd=ROOT,
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True, start_new_session=True)
+            for a, sh, m in LM_DRYRUN_CELLS]
+
+    def read(self) -> float:
+        """Wait for every cell and log its line -> the seconds waited."""
+        t0 = time.perf_counter()
+        for (a, sh, m), proc in zip(LM_DRYRUN_CELLS, self.procs):
+            text, _ = proc.communicate(timeout=LM_DRYRUN_TIMEOUT_S)
+            fn = Path(self.tmp) / f"{a}__{sh}__{m}.json"
+            if proc.returncode != 0 or not fn.exists():
+                errors = [ln for ln in text.splitlines() if "Error" in ln]
+                raise AssertionError(
+                    f"dry-run {a} {sh} {m} exited {proc.returncode}:\n"
+                    + "\n".join(errors[:20]) + f"\n{text[-4000:]}")
+            log(lm_dryrun_line(json.loads(fn.read_text())))
+        log(f"[dryrun] the five cells counted in "
+            f"{time.perf_counter() - self.t0:.1f} s since their start")
+        return time.perf_counter() - t0
+
+    def close(self):
+        import os
+        import shutil
+        for proc in self.procs:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.communicate()
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+
+@phase("LM sharding: dry-run cells, sharded steps on ranks, the EP route")
+def phase_lm_sharding(dev, card):
+    """The LM's sharding (``distributed/act_sharding.py``,
+    ``distributed/sharding.py``'s LM half, ``nn/moe_ep.py``'s mesh route,
+    ``launch/specs.py``, ``launch/dryrun.py``'s LM cells): (a) the
+    dry-run's cells counted (on the CPU, beside (b) and (c)), (b)
+    qwen3-4b's sharded train step on ranks against the one-process step,
+    (c) the expert-parallel route at deepseek-moe-16b's width, (d) no
+    kernel launches."""
+    import tempfile
+    import torch
+    from repro_torch.kernels import aip_step as cuda
+    before = dict(cuda.LAUNCHES)
+    parts = {}
+    t_phase = time.perf_counter()
+    cells = LmDryrunCells()
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_lm_") as tmp:
+            t0 = time.perf_counter()
+            for world, model, profile in LM_SHARD_RUNS:
+                _lm_shard(world, LM_SHARD_ARGV + [
+                    "--model", str(model), "--profile", profile],
+                    f"(b) qwen3-4b 2 layers {profile} {world} ranks "
+                    f"(data {world // model}, model {model})", tmp)
+            parts["(b) sharded train steps"] = round(
+                time.perf_counter() - t0, 2)
+            t0 = time.perf_counter()
+            _lm_shard(4, LM_EP_ARGV + ["--model", "2"],
+                      "(c) deepseek-moe-16b MoE layer, EP on 4 ranks "
+                      "(data 2, model 2)", tmp)
+            parts["(c) EP route"] = round(time.perf_counter() - t0, 2)
+        parts["(a) dry-run cells, waited for after (b), (c)"] = round(
+            cells.read(), 2)
+    finally:
+        cells.close()
+    moved = {k: v - before[k] for k, v in cuda.LAUNCHES.items()
+             if v != before[k]}
+    log(f"[lmshard] {card}; part times (s): {parts}, phase "
+        f"{time.perf_counter() - t_phase:.1f}; kernel launches during the "
+        f"phase: {moved or 'none'}")
+    if moved:
+        raise AssertionError(f"the LM sharding path launched kernels: "
+                             f"{moved}")
+    torch.cuda.empty_cache()
+
+
 def _near(a, b, tols, what):
     """``a`` finite, of ``b``'s shape and dtype, and within the dtype's
     tolerance of it (``tols`` = (f32, bf16); bf16 also one bf16 ulp of
@@ -3829,6 +4059,7 @@ def main():
     launches.update(phase_layer_path(dev))
     phase_lm(dev, card)
     phase_train(dev, card)
+    phase_lm_sharding(dev, card)
     kernels = []
     for name, rec in recs.items():
         b_ms, b_by = bound(rec["flops"], rec["bytes"],

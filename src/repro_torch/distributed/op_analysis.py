@@ -19,11 +19,18 @@ counts with the reference's rules:
   allocations and metadata ops free (the reference's ``_SKIP_MEM``).
   Eager PyTorch fuses nothing, so every op is top-level: the count is the
   unfused program's traffic, above what a fused program moves;
-- collectives: they are not counted among the ops (a ``c10d`` op may or
-  may not reach a dispatch mode). The port's own gather
+- collectives: the port's own gather
   (``distributed/sharding.py::gather_block``) notes each all-gather and
   its operand bytes here (``note_collective``), as the reference sums
-  operand sizes (an all-reduce twice);
+  operand sizes (an all-reduce twice). The functional collectives
+  (``_c10d_functional``: what ``DTensor`` and ``nn/moe_ep.py`` issue)
+  reach the mode and count by kind with their operand bytes;
+- ``DTensor``s: an op on ``DTensor``s is not counted itself; it runs on
+  each rank's local blocks, and those local ops count (the mode steps
+  aside for the ``DTensor`` op, ``NotImplemented``, and sees what it
+  dispatches). The ops DTensor runs on meta tensors or in a fake-tensor
+  mode of its own to propagate shardings are not the program's work and
+  are left out;
 - kernel launches: a call into the port's CUDA kernels is opaque, as a
   Pallas custom-call is to the reference: it counts in
   ``custom_call_count`` (the launch counters of ``kernels/aip_step.py``)
@@ -105,6 +112,11 @@ def collective_bw(n_chips: int) -> float:
     """Bytes/s a card moves in a collective over ``n_chips`` cards."""
     return NVLINK_BW if n_chips <= NVLINK_CARDS else NIC_BW
 
+
+try:
+    from torch.distributed.tensor import DTensor as _DTENSOR
+except ImportError:                     # a build without distributed
+    _DTENSOR = None
 
 _active = threading.local()
 
@@ -198,12 +210,79 @@ def _dot_flops(base, args, out) -> tuple:
     return 2.0 * out.numel() * k, dtype
 
 
+# functional collectives -> the reference's collective kinds
+FUNCTIONAL_COLLECTIVES = {
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
+    "all_to_all_single": "all-to-all", "broadcast": "collective-permute",
+}
+
+
+def _foreign(x, fake_mode) -> bool:
+    """A tensor of DTensor's sharding propagation: on the meta device, or
+    fake in a mode other than the counted run's own."""
+    if not isinstance(x, torch.Tensor):
+        return False
+    if x.device.type == "meta":
+        return True
+    mode = getattr(x, "fake_mode", None)
+    return mode is not None and mode is not fake_mode
+
+
+_PROPAGATION = ("_propagate_tensor_meta_non_cached",)
+_patched = {}
+
+
+def _hide_propagation(on: bool):
+    """While a counter is active, mark the ops DTensor runs to propagate
+    tensor metadata (global shapes, in the active fake-tensor mode when
+    there is one) so that no counter counts them."""
+    try:
+        from torch.distributed.tensor._sharding_prop import \
+            ShardingPropagator
+    except ImportError:
+        return
+    if on:
+        _patched["depth"] = _patched.get("depth", 0) + 1
+        if _patched["depth"] > 1:
+            return
+        for name in _PROPAGATION:
+            orig = getattr(ShardingPropagator, name, None)
+            if orig is None:
+                continue
+
+            def hidden(self, *a, _orig=orig, **k):
+                _active.propagating = getattr(_active, "propagating", 0) + 1
+                try:
+                    return _orig(self, *a, **k)
+                finally:
+                    _active.propagating -= 1
+            _patched[name] = orig
+            setattr(ShardingPropagator, name, hidden)
+        return
+    _patched["depth"] -= 1
+    if _patched["depth"]:
+        return
+    for name in _PROPAGATION:
+        if name in _patched:
+            setattr(ShardingPropagator, name, _patched.pop(name))
+
+
 class OpCounter(TorchDispatchMode):
     """A dispatch mode that counts every aten op run inside it (module
-    docstring); ``result()`` reads the counts in the reference's keys."""
+    docstring); ``result()`` reads the counts in the reference's keys.
+    With ``record=True`` it also keeps, by (op, operand shapes), the
+    HBM bytes, FLOPs and collective bytes (``rows()``: what
+    ``launch/attribute.py`` ranks)."""
 
-    def __init__(self):
+    def __init__(self, record: bool = False):
         super().__init__()
+        self.record = record
+        self._rows = defaultdict(lambda: [0.0, 0.0, 0.0, 0])
+        self._fake_mode = None
         self.flops_dot = 0.0
         self.flops_dot_by_dtype = defaultdict(float)
         self.flops_elementwise = 0.0
@@ -215,21 +294,65 @@ class OpCounter(TorchDispatchMode):
         self._launches0 = 0
 
     def __enter__(self):
+        _hide_propagation(True)
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+        modes = [m for m in _get_current_dispatch_mode_stack()
+                 if isinstance(m, FakeTensorMode)]
+        self._fake_mode = modes[-1] if modes else None
         self._launches0 = _launch_total()
         _counters().append(self)
         return super().__enter__()
 
     def __exit__(self, *exc):
+        _hide_propagation(False)
         _counters().remove(self)
         self.custom_call_count += _launch_total() - self._launches0
         return super().__exit__(*exc)
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if _DTENSOR is not None and any(issubclass(t, _DTENSOR)
+                                        for t in types):
+            return NotImplemented      # count its local ops instead
         out = func(*args, **kwargs)
+        if func.namespace not in ("aten", "_c10d_functional") \
+                or getattr(_active, "propagating", 0):
+            return out
+        if any(_foreign(t, self._fake_mode)
+               for t in _tensors([args, kwargs])):
+            return out
         if func.namespace == "aten":
             self._count(func, args, kwargs, out)
+        else:
+            self._collective(func, args)
         return out
+
+    def _collective(self, func, args):
+        kind = FUNCTIONAL_COLLECTIVES.get(func.overloadpacket.__name__)
+        if kind is None:                # wait_tensor and the like
+            return
+        nbytes = _bytes(args[0])
+        self.collective_bytes[kind] += nbytes * (2.0 if kind == "all-reduce"
+                                                 else 1.0)
+        self.collective_counts[kind] += 1
+        self._row(func, args, coll=nbytes * (2.0 if kind == "all-reduce"
+                                             else 1.0))
+
+    def _row(self, func, args, mem=0.0, flops=0.0, coll=0.0):
+        if not self.record:
+            return
+        shapes = tuple(tuple(t.shape) for t in _tensors(args))[:3]
+        r = self._rows[(func.overloadpacket.__name__, shapes)]
+        r[0] += mem
+        r[1] += flops
+        r[2] += coll
+        r[3] += 1
+
+    def rows(self):
+        """[(op, operand shapes, hbm bytes, flops, collective bytes,
+        calls)] of a ``record=True`` count."""
+        return [(k[0], k[1], *v) for k, v in self._rows.items()]
 
     def _count(self, func, args, kwargs, out):
         cls, base = _kind(func)
@@ -238,17 +361,24 @@ class OpCounter(TorchDispatchMode):
             return
         if out is None:                 # an in-place foreach op
             out = args[0]
+        flops = 0.0
         if cls == "dot":
             f, dtype = _dot_flops(base, args, out)
             self.flops_dot += f
             self.flops_dot_by_dtype[dtype] += f
+            flops = f
             if base in _BIASED_DOTS:
                 self.flops_elementwise += out.numel()
+                flops += out.numel()
         elif cls == "elementwise":
-            self.flops_elementwise += _elems(out)
+            flops = _elems(out)
+            self.flops_elementwise += flops
         elif cls == "reduction":
-            self.flops_elementwise += _elems(args[0])
-        self.hbm_bytes += _bytes(args) + _bytes(kwargs) + _bytes(out)
+            flops = _elems(args[0])
+            self.flops_elementwise += flops
+        mem = _bytes(args) + _bytes(kwargs) + _bytes(out)
+        self.hbm_bytes += mem
+        self._row(func, args, mem=mem, flops=flops)
 
     def result(self) -> Dict:
         return {

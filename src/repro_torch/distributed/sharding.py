@@ -479,3 +479,313 @@ def shard_env(env, mesh, n_agents: int = 1):
 
     return env._replace(reset=reset, noise_fn=noise_fn, step=step,
                         mesh=mesh)
+
+
+# ---------------------------------------------------------------------------
+# The LM half: every parameter / optimizer / input / cache leaf -> a spec
+# (the reference's rules, ``repro/distributed/sharding.py``)
+# ---------------------------------------------------------------------------
+#
+# - tensor parallelism on "model": attention heads, FFN hidden, experts,
+#   vocab;
+# - FSDP on "data": the d_model-sized dim of each weight;
+# - pure DP on "pod": parameters replicated; optimizer moments widen over
+#   "pod" (and "data") where divisible (ZeRO-1);
+# - batch on ("pod", "data"); a batch-1 long-context cache shards its
+#   sequence dim instead.
+#
+# LM specs keep one entry per dim (``tuple(P(*specs))`` of the
+# reference's); a mesh is read through ``_view`` as above.
+
+def _fits(dim: int, mesh, name):
+    m = _view(mesh)
+    if name is None:
+        return None
+    if isinstance(name, tuple):   # combined axes (fsdp_only profile)
+        n = 1
+        for a in name:
+            if a not in m.axis_names:
+                return None
+            n *= m.shape[a]
+        if dim % n == 0 and n > 1:
+            return name
+        return _fits(dim, mesh, name[0])   # the first axis alone
+    if name in m.axis_names and dim % m.shape[name] == 0 \
+            and m.shape[name] > 1:
+        return name
+    return None
+
+
+def dp_axes(mesh, profile: str = "tp") -> tuple:
+    """Batch axes: ("pod", "data") (+ "model" in the fsdp_only profile)."""
+    names = (("pod", "data", "model") if profile == "fsdp_only"
+             else ("pod", "data"))
+    return tuple(a for a in names if a in _view(mesh).axis_names)
+
+
+def batch_spec(mesh, batch: int, extra_dims: int = 1,
+               profile: str = "tp") -> tuple:
+    """Spec of (B, ...) activations: B over as many dp axes as divide."""
+    sizes = _view(mesh).shape
+    axes = []
+    rem = batch
+    for a in dp_axes(mesh, profile):
+        if rem % sizes[a] == 0:
+            axes.append(a)
+            rem //= sizes[a]
+    return (_lead(tuple(axes)),) + (None,) * extra_dims
+
+
+# (matched path key) -> (dim roles), roles "fsdp" | "tp" | None per dim of
+# the *unstacked* (per-layer) shape; a stacked leading layer dim gets None
+_RULES = {
+    # embeddings / heads: vocab on tp; the embed dim NOT fsdp-sharded
+    "table": ("tp", None),
+    "lm_head.w": ("fsdp", "tp"),
+    # attention
+    "wq.w": ("fsdp", "tp"), "wk.w": ("fsdp", "tp"), "wv.w": ("fsdp", "tp"),
+    "wq.b": ("tp",), "wk.b": ("tp",), "wv.b": ("tp",),
+    "wo.w": ("tp", "fsdp"), "wo.b": (None,),
+    # MLA
+    "wq_a.w": ("fsdp", "tp"), "wq_b.w": ("fsdp", "tp"),
+    "wkv_a.w": ("fsdp", None), "wkv_b.w": ("fsdp", "tp"),
+    # MLP
+    "w_gate": ("fsdp", "tp"), "w_in": ("fsdp", "tp"), "w_out": ("tp", "fsdp"),
+    # MoE: experts sharded on E only (pure expert parallelism)
+    "experts.w_gate": ("tp", None, None),
+    "experts.w_in": ("tp", None, None),
+    "experts.w_out": ("tp", None, None),
+    "router": (None, None),
+    # mamba
+    "in_proj": ("fsdp", "tp"), "out_proj": ("tp", "fsdp"),
+    "conv_w": ("tp", None), "conv_b": ("tp",),
+    "x_proj": ("tp", None), "dt_w": (None, "tp"),
+    "A_log": ("tp", None), "D": ("tp",),
+    # mLSTM / sLSTM (bare (NH, DH, DH) block-diagonal projections)
+    "up_proj": ("fsdp", "tp"), "down_proj": ("tp", "fsdp"),
+    "wq": (None, "tp", None), "wk": (None, "tp", None),
+    "wv": (None, "tp", None),
+    "w_if.w": ("tp", None), "w_if.b": (None,),
+    "r_z": (None, "tp", None), "r_i": (None, "tp", None),
+    "r_f": (None, "tp", None), "r_o": (None, "tp", None),
+    "ff_up": ("fsdp", "tp"), "ff_down": ("tp", "fsdp"),
+    "w_in.w": ("fsdp", "tp"), "w_in.b": ("tp",),
+}
+
+_AXIS_FOR_ROLE = {"fsdp": "data", "tp": "model"}
+_AXIS_FOR_ROLE_FSDP_ONLY = {"fsdp": ("data", "model"), "tp": None}
+
+# the expert-dim axes of "experts.*" leaves: ("model",), or ("data",
+# "model") for 2-D EP (``ArchConfig.moe_expert_axes``)
+_EP_AXES = ("model",)
+
+
+def set_moe_expert_axes(axes: str) -> None:
+    global _EP_AXES
+    _EP_AXES = ("data", "model") if axes == "data_model" else ("model",)
+
+
+def _map_with_keys(fn, tree, keys=()):
+    """``tree_map`` with each leaf's tuple of keys (dict keys, NamedTuple
+    field names, list indices as strings): the reference's tree path."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _map_with_keys(fn, tree[k], keys + (str(k),))
+                for k in sorted(tree)}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_map_with_keys(fn, t, keys + (f,))
+                            for f, t in zip(tree._fields, tree)))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map_with_keys(fn, t, keys + (str(i),))
+                          for i, t in enumerate(tree))
+    return fn(keys, tree)
+
+
+def param_pspec(names, leaf, mesh, *, profile: str = "tp") -> tuple:
+    """The spec of one parameter leaf from its tree path ``names`` (the
+    most specific rule whose dotted parts are all in the path)."""
+    names = list(names)
+    best = None
+    for key, roles in _RULES.items():
+        if all(p in names for p in key.split(".")):
+            if best is None or len(key) > len(best[0]):
+                best = (key, roles)
+    shape = _shape(leaf)
+    stacked = "blocks" in names       # decoder and encoder stacks
+    if best is None:
+        roles = (None,) * (len(shape) - (1 if stacked else 0))
+    else:
+        roles = best[1]
+    role_map = dict(_AXIS_FOR_ROLE_FSDP_ONLY if profile == "fsdp_only"
+                    else _AXIS_FOR_ROLE)
+    if best is not None and best[0].startswith("experts."):
+        role_map["tp"] = _EP_AXES if len(_EP_AXES) > 1 else _EP_AXES[0]
+    specs = []
+    offset = 0
+    if stacked:
+        specs.append(None)            # the layer-stack dim
+        offset = 1
+    for i in range(offset, len(shape)):
+        ridx = i - offset
+        role = roles[ridx] if ridx < len(roles) else None
+        ax = role_map.get(role)
+        specs.append(_fits(shape[i], mesh, ax) if ax else None)
+    return tuple(specs)
+
+
+def param_specs(params, mesh, profile: str = "tp"):
+    """The spec of every leaf of a parameter tree (meta tensors will do)."""
+    return _map_with_keys(
+        lambda keys, leaf: param_pspec(keys, leaf, mesh, profile=profile),
+        params)
+
+
+def _lookup(tree, keys):
+    """The node at ``keys`` (``_map_with_keys``'s path) if it is a spec."""
+    node = tree
+    for k in keys:
+        try:
+            if isinstance(node, tuple) and hasattr(node, "_fields"):
+                node = getattr(node, k)
+            elif isinstance(node, (tuple, list)):
+                node = node[int(k)]
+            else:
+                node = node[k]
+        except (KeyError, TypeError, IndexError, ValueError,
+                AttributeError):
+            return None
+    return node if isinstance(node, tuple) else None
+
+
+def opt_state_specs(opt_state, mesh, pspecs):
+    """AdamW's state: ``step`` replicated; the moments shard like their
+    parameters, then widen over the axes the parameter leaves unused
+    ("pod" always, ZeRO-1 across pods; "data" too), on the first dim
+    that divides."""
+    m = _view(mesh)
+
+    def mom(tree):
+        def widen(keys, leaf):
+            base = _lookup(pspecs, keys)
+            shape = _shape(leaf)
+            if base is None:
+                return ()
+            parts = list(base) + [None] * (len(shape) - len(base))
+            used = {a for cur in parts for a in _axes(cur)}
+            for ax in ("pod", "data"):
+                if ax not in m.axis_names or ax in used:
+                    continue
+                for i, (cur, dim) in enumerate(zip(parts, shape)):
+                    if cur is None and dim % m.shape[ax] == 0 and dim > 1:
+                        parts[i] = ax
+                        used.add(ax)
+                        break
+            return tuple(parts)
+        return _map_with_keys(widen, tree)
+
+    return type(opt_state)(step=(), mu=mom(opt_state.mu),
+                           nu=mom(opt_state.nu))
+
+
+def cache_pspec(names, leaf, mesh, batch: int) -> tuple:
+    """A KV / state cache leaf: the batch over the dp axes where they
+    divide; KV heads over "model" where they divide; the axes left go to
+    the sequence dim (a sequence-parallel cache)."""
+    m = _view(mesh)
+    names = list(names)
+    stacked = "blocks" in names
+    shape = _shape(leaf)
+    specs = [None] * len(shape)
+    bdim = 1 if stacked else 0
+    used = set()
+    axes = []
+    rem = shape[bdim]
+    for a in dp_axes(mesh):
+        if rem % m.shape[a] == 0 and m.shape[a] > 1:
+            axes.append(a)
+            used.add(a)
+            rem //= m.shape[a]
+    if axes:
+        specs[bdim] = tuple(axes) if len(axes) > 1 else axes[0]
+    # kv heads on model where they divide: (..., S, KH, hd)
+    if any(k in ("k", "v", "mk", "mv") for k in names) \
+            and len(shape) >= bdim + 3 and "model" not in used:
+        if _fits(shape[bdim + 2], mesh, "model"):
+            specs[bdim + 2] = "model"
+            used.add("model")
+    if any(k in ("k", "v", "ckv", "krope") for k in names) \
+            and len(shape) > bdim + 1:
+        seq_axes = []
+        rem = shape[bdim + 1]
+        for a in ("data", "model"):
+            if a in m.axis_names and a not in used \
+                    and m.shape[a] > 1 and rem % m.shape[a] == 0:
+                seq_axes.append(a)
+                used.add(a)
+                rem //= m.shape[a]
+        if seq_axes:
+            specs[bdim + 1] = (tuple(seq_axes) if len(seq_axes) > 1
+                               else seq_axes[0])
+    return tuple(specs)
+
+
+def cache_specs(cache, mesh, batch: int):
+    return _map_with_keys(
+        lambda keys, leaf: cache_pspec(keys, leaf, mesh, batch), cache)
+
+
+# ---------------------------------------------------------------------------
+# specs -> DTensor placements, trees -> DTensors and back
+# ---------------------------------------------------------------------------
+
+def to_placements(spec: tuple, mesh) -> tuple:
+    """A spec as DTensor placements on ``mesh`` (the counterpart of
+    ``to_shardings``): ``Shard(d)`` on each mesh dim the spec names for
+    tensor dim d, ``Replicate()`` elsewhere. A dim split over several
+    axes is split over them in the mesh's order, the first major, as the
+    spec orders them; a spec that orders them otherwise raises."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = _view(mesh).axis_names
+    out = [Replicate()] * len(names)
+    for d, entry in enumerate(spec):
+        axes = _axes(entry)
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"spec {spec}: dim {d} names {axes}, not in "
+                             f"the mesh's order {names}")
+        for i in idx:
+            out[i] = Shard(d)
+    return tuple(out)
+
+
+def distribute_tree(tree, specs, mesh):
+    """Global tensors -> DTensors on ``mesh``, each leaf cut to this
+    rank's block of its spec in ``specs`` (a tree of the same structure;
+    every rank holds the global tree, nothing is sent). A block is a copy:
+    writing into the DTensor (AdamW's update, a cache) leaves the global
+    tensor as it was."""
+    from torch.distributed.tensor import DTensor
+    coord = _coordinate(mesh)
+
+    def one(keys, leaf):
+        spec = _lookup(specs, keys)
+        if spec is None:
+            raise KeyError(f"no spec for the leaf at {keys}")
+        blk = local_block(leaf, spec, mesh, coord)
+        if blk.untyped_storage().data_ptr() == \
+                leaf.untyped_storage().data_ptr():
+            blk = blk.clone()
+        return DTensor.from_local(
+            blk, mesh,
+            to_placements(spec, mesh), run_check=False,
+            shape=leaf.shape, stride=leaf.contiguous().stride())
+    return _map_with_keys(one, tree)
+
+
+def undistribute_tree(tree):
+    """DTensors -> their global tensors on every rank (``full_tensor``,
+    on the local block's device); plain leaves as they are."""
+    from torch.distributed.tensor import DTensor
+    return tree_map(lambda l: l.full_tensor().to(l.to_local().device)
+                    if isinstance(l, DTensor) else l, tree)

@@ -1,5 +1,32 @@
-"""The IALS dry-run on the H100: what each whole-horizon program costs (the
-IALS half of ``repro/launch/dryrun.py``).
+"""The dry-run on the H100 (counterpart of ``repro/launch/dryrun.py``):
+what each program of a cell costs on one rank of the pods' layouts.
+
+Two cell families, as in the reference:
+
+- the LM cells (``--arch/--shape``, ``run_cell``): the sharded train,
+  prefill or decode step of an LM config at its full width and depth;
+- the IALS cells (``--ials``): this repo's whole-horizon programs.
+
+How an LM cell is counted. Rank 0 of the pod1 (16 x 16) or pod2
+(2 x 16 x 16) layout joins a fake process group of the layout's size
+(``torch.testing._internal.distributed.fake_pg``: its collectives do
+nothing) and builds the layout's ``DeviceMesh`` on it; under
+``FakeTensorMode`` (nothing is allocated) every input is a ``DTensor``
+of rank 0's fake local block on its spec (``distributed/sharding.py``:
+the parameters from ``lm.param_shapes``, AdamW's state, the inputs of
+``launch/specs.py``, the decode cache). The step
+(``launch/steps.py``: ``make_train_step`` with ``cfg.force_microbatches
+or shape.n_microbatches``, ``make_prefill_step``, ``make_serve_step`` at
+the cache's last slot) runs under ``act_sharding.use_mesh`` and
+``op_analysis.OpCounter``: the rank's local ops count, and the
+collectives DTensor and the expert-parallel route issue count by kind
+with their operand bytes. The roofline takes the reference's model
+FLOPs (6 N D for train, 2 N D for prefill and decode, N the active
+non-embedding parameters). ``memory.argument_bytes_per_device`` is the
+sum of rank 0's local blocks; a fake run measures no peak, so
+``peak_bytes_per_device`` is ``null`` with the reason.
+
+The IALS cells:
 
 A cell is one of the repo's real programs at representative shapes (A in
 {1, 25, 36}, a B sweep, both domains and backbones), on the pods' layouts
@@ -49,6 +76,10 @@ projections from the card's peaks (``op_analysis.roofline``), not
 measurements.
 
 Usage:
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-4b \\
+      --shape train_4k --mesh pod1 [--overrides JSON] [--tag T]
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all \\
+      [--mesh pod1|pod2|both] [--force] [--jobs N]
   PYTHONPATH=src python -m repro_torch.launch.dryrun --ials all \\
       [--mesh pod1|pod2|both|host] [--device cuda|cpu] [--out DIR]
   PYTHONPATH=src python -m repro_torch.launch.dryrun --ials policy_rollout \\
@@ -57,13 +88,18 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
+import os
+import subprocess
+import sys
 import time
 from pathlib import Path
 from typing import Callable, NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device, stream
 from repro_torch.core import engine, influence
@@ -80,6 +116,309 @@ from repro_torch.tree import tree_leaves, tree_map
 RESULTS = (Path(__file__).resolve().parents[3] / "results" / "tmp"
            / "dryrun_torch")
 COUNTED_ON = "cpu, plain route"
+LM_COUNTED_ON = "rank 0 of a fake process group, fake tensors"
+CELL_TIMEOUT_S = 7200        # a sweep cell's subprocess, as the reference's
+
+
+# ---------------------------------------------------------------------------
+# LM cells: the sharded train / prefill / decode step of a config
+# ---------------------------------------------------------------------------
+
+def _lm_layout(mesh_name: str):
+    if mesh_name not in ("pod1", "pod2"):
+        raise ValueError(f"an LM cell's mesh is pod1 or pod2, not "
+                         f"{mesh_name!r}")
+    layout = mesh_mod.make_production_mesh(multi_pod=(mesh_name == "pod2"))
+    if not isinstance(layout, mesh_mod.MeshLayout):
+        raise RuntimeError("an LM cell is counted in a fake process group "
+                           "of its own: none may be initialised")
+    return layout
+
+
+def _counted_alltoall(input, gather_dim, shard_dim, mesh, mesh_dim):
+    """DTensor's ``Shard(gather_dim)`` -> ``Shard(shard_dim)`` in a count:
+    one all-to-all of the rank's block, noted as such (torch's route for a
+    "cpu" mesh, which the fake group's is, would make it an all-gather and
+    a chunk); it returns rank 0's block, uninitialised (fake data)."""
+    n = mesh.size(mesh_dim)
+    op_analysis.note_collective("all-to-all", input)
+    shape = list(input.shape)
+    shape[shard_dim] = -(-shape[shard_dim] // n)
+    shape[gather_dim] *= n
+    return input.new_empty(shape)
+
+
+@contextlib.contextmanager
+def fake_ranks(layout):
+    """This process as rank 0 of a fake process group of ``layout``'s size
+    (its collectives do nothing) and the layout's ``DeviceMesh`` on it,
+    DTensor's all-to-alls counted as such (``_counted_alltoall``); the
+    group is destroyed on exit."""
+    import torch.distributed.tensor.placement_types as placement_types
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=layout.size)
+    alltoall = placement_types.shard_dim_alltoall
+    placement_types.shard_dim_alltoall = _counted_alltoall
+    try:
+        yield init_device_mesh("cpu", layout.shape,
+                               mesh_dim_names=layout.axis_names)
+    finally:
+        placement_types.shard_dim_alltoall = alltoall
+        dist.destroy_process_group()
+
+
+def _fake_dtensors(tree, specs, mesh):
+    """Each (meta) leaf of ``tree`` -> a ``DTensor`` of its global shape on
+    its spec whose local block is rank 0's, a fake tensor (call under
+    ``FakeTensorMode``)."""
+    from torch.distributed.tensor import DTensor
+    sizes = sharding._view(mesh).shape
+    zero = {a: 0 for a in sizes}
+
+    def one(keys, leaf):
+        spec = sharding._lookup(specs, keys)
+        local = list(leaf.shape)
+        for d, entry in enumerate(spec):
+            local[d] //= sharding._block_index(entry, sizes, zero)[1]
+        blk = torch.empty(local, dtype=leaf.dtype, device="cpu")
+        stride = torch.empty(leaf.shape, device="meta").stride()
+        return DTensor.from_local(blk, mesh,
+                                  sharding.to_placements(spec, mesh),
+                                  run_check=False, shape=leaf.shape,
+                                  stride=stride)
+    return sharding._map_with_keys(one, tree)
+
+
+def _local_nbytes(*trees) -> int:
+    total = 0
+    for t in trees:
+        for x in tree_leaves(t):
+            if isinstance(x, torch.Tensor):
+                loc = x.to_local() if hasattr(x, "to_local") else x
+                total += loc.numel() * loc.element_size()
+    return total
+
+
+def _global_nbytes(*trees) -> int:
+    return sum(x.numel() * x.element_size() for t in trees
+               for x in tree_leaves(t) if isinstance(x, torch.Tensor))
+
+
+def lm_model_flops(cfg, shape) -> float:
+    """The reference's model FLOPs: 6 N D (train) / 2 N D (prefill,
+    decode), N the active non-embedding parameters, D the tokens."""
+    from repro_torch.models import lm
+    counts = lm.count_params(cfg)
+    n_active = counts["active"] - counts["embed"]
+    tokens = shape.global_batch * (shape.seq_len if shape.kind != "decode"
+                                   else 1)
+    return {"train": 6.0, "prefill": 2.0, "decode": 2.0}[shape.kind] \
+        * n_active * tokens
+
+
+def lm_cell_program(cfg, shape, mesh):
+    """-> (step, args) of a cell on ``mesh`` (a ``DeviceMesh`` of a fake
+    process group; call under ``FakeTensorMode``): every argument a
+    ``DTensor`` of rank 0's block on its spec, AdamW's step a host int."""
+    from repro_torch.launch import specs as specs_lib
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import adamw
+    sharding.set_moe_expert_axes(cfg.moe_expert_axes)
+    pshapes = lm.param_shapes(cfg)
+    pspecs = sharding.param_specs(pshapes, mesh, cfg.parallelism)
+    params = _fake_dtensors(pshapes, pspecs, mesh)
+    if shape.kind == "train":
+        opt = adamw(1e-4)
+        state = opt.init(pshapes)
+        ospecs = sharding.opt_state_specs(state, mesh, pspecs)
+        state = _fake_dtensors(state, ospecs, mesh)._replace(step=0)
+        inputs = specs_lib.train_input_specs(cfg, shape, mesh)
+        n_micro = cfg.force_microbatches or shape.n_microbatches
+        step = steps_lib.make_train_step(cfg, opt, n_micro)
+        return step, (params, state,
+                      _fake_dtensors(inputs.tensors, inputs.specs, mesh))
+    if shape.kind == "prefill":
+        inputs = specs_lib.prefill_input_specs(cfg, shape, mesh)
+        step = steps_lib.make_prefill_step(cfg, shape.seq_len)
+        return step, (params,
+                      _fake_dtensors(inputs.tensors, inputs.specs, mesh))
+    inputs = specs_lib.decode_input_specs(cfg, shape, mesh)
+    tensors = dict(inputs.tensors)
+    specs = dict(inputs.specs)
+    tensors.pop("pos")
+    specs.pop("pos")
+    d = _fake_dtensors(tensors, specs, mesh)
+    # the cache's last slot: the step attends over every position
+    return steps_lib.make_serve_step(cfg), (params, d["cache"], d["token"],
+                                            shape.seq_len - 1)
+
+
+def _check_counter(mesh):
+    """The counter must see a ``DTensor`` product as rank 0's local one
+    (not DTensor's propagation on the global shapes)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    n = mesh.size(0)
+    x = DTensor.from_local(torch.empty(8, 4), mesh,
+                           [Shard(0)] + [Replicate()] * (mesh.ndim - 1),
+                           run_check=False)
+    w = DTensor.from_local(torch.empty(4, 2), mesh,
+                           [Replicate()] * mesh.ndim, run_check=False)
+    with op_analysis.OpCounter() as c:
+        x @ w
+    if c.flops_dot != 2.0 * 8 * 4 * 2:
+        raise RuntimeError(
+            f"the op counter saw {c.flops_dot} FLOPs for a local (8, 4) x "
+            f"(4, 2) product on a {n}-way sharded DTensor: this torch's "
+            f"DTensor propagation is not hidden from it")
+
+
+def run_cell(arch: str, shape_name: str, mesh_name: str,
+             overrides: dict | None = None, *, record: bool = False):
+    """Count one LM cell (module docstring) -> its JSON record; with
+    ``record`` -> (record, the counter's ``rows()``)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.configs.base import SHAPES, cell_applicable, get_config
+    from repro_torch.distributed.act_sharding import use_mesh
+    from repro_torch.models import lm
+    cfg = get_config(arch)
+    if overrides:
+        cfg = cfg.with_overrides(**overrides)
+    shape = SHAPES[shape_name]
+    ok, reason = cell_applicable(cfg, shape)
+    if not ok:
+        cell = {"arch": arch, "shape": shape_name, "mesh": mesh_name,
+                "status": reason}
+        return (cell, []) if record else cell
+    layout = _lm_layout(mesh_name)
+    n_chips = layout.size
+    t0 = time.perf_counter()
+    with fake_ranks(layout) as mesh, \
+            FakeTensorMode(allow_non_fake_inputs=True):
+        _check_counter(mesh)
+        step, args = lm_cell_program(cfg, shape, mesh)
+        with op_analysis.OpCounter(record=record) as counter, \
+                use_mesh(mesh, cfg.parallelism):
+            out = step(*args)
+        arg_bytes = _local_nbytes(args)
+        global_bytes = _global_nbytes(args)
+        out_bytes = _local_nbytes(out)
+        ins = {id(x) for x in tree_leaves(args)}
+        alias = sum(_local_nbytes(x) for x in tree_leaves(out)
+                    if id(x) in ins)
+    count_s = time.perf_counter() - t0
+    ops = counter.result()
+    counts = lm.count_params(cfg)
+    cell = {
+        "arch": arch, "shape": shape_name, "mesh": mesh_name,
+        "status": "ok", "family": cfg.family, "kind": shape.kind,
+        "parallelism": cfg.parallelism, "n_chips": n_chips,
+        "n_microbatches": (cfg.force_microbatches or shape.n_microbatches)
+        if shape.kind == "train" else 1,
+        "count_s": count_s, "counted_on": LM_COUNTED_ON,
+        "params_total": counts["total"], "params_active": counts["active"],
+        "memory": {
+            "argument_bytes_per_device": arg_bytes,
+            "argument_bytes_global_over_chips": global_bytes / n_chips,
+            "output_bytes_per_device": out_bytes,
+            "alias_bytes_per_device": alias,
+            "peak_bytes_per_device": None,
+            "peak_not_measured": "counted on fake tensors: nothing is "
+                                 "allocated",
+        },
+        "ops": ops,
+        "roofline": op_analysis.roofline(ops, n_chips,
+                                         lm_model_flops(cfg, shape)),
+    }
+    # the model FLOPs alone at the card's peak for their dtype
+    rf = cell["roofline"]
+    rf["model_flops_bound_s"] = rf["model_flops_total"] / n_chips / \
+        op_analysis.peak_flops(cfg.dtype())
+    return (cell, counter.rows()) if record else cell
+
+
+def _lm_cell_filename(arch, shape, mesh, tag="") -> str:
+    return f"{arch}__{shape}__{mesh}{tag}.json"
+
+
+def _write_lm(cell: dict, fn: Path):
+    fn.write_text(json.dumps(cell, indent=1))
+    print(json.dumps({k: cell[k] for k in ("arch", "shape", "mesh",
+                                           "status") if k in cell}),
+          flush=True)
+    if cell.get("status") != "ok":
+        return
+    r, mem = cell["roofline"], cell["memory"]
+    print(f"  count={cell['count_s']:.1f}s  args/dev="
+          f"{mem['argument_bytes_per_device'] / 2**30:.3f}GiB (global/"
+          f"chips {mem['argument_bytes_global_over_chips'] / 2**30:.3f}GiB)"
+          f"  coll={cell['ops']['collective_bytes_total'] / 2**30:.3f}GiB"
+          f"  t_comp={r['t_compute_s']:.4f}s t_mem={r['t_memory_s']:.4f}s "
+          f"(unfused) t_coll={r['t_collective_s']:.4f}s  model-FLOP "
+          f"bound={r['model_flops_bound_s']:.4f}s  -> {r['bottleneck']}",
+          flush=True)
+
+
+def _lm_sweep(args):
+    """Every (arch, shape, mesh) cell, one subprocess each, ``--jobs`` at
+    a time (a crash is recorded as status "error"; ``cell_applicable``'s
+    refusals are written as the status; a written cell is skipped unless
+    ``--force``)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.configs.base import (SHAPES, cell_applicable,
+                                          get_config, list_configs)
+    meshes = ["pod1", "pod2"] if args.mesh == "both" else [args.mesh]
+    src = str(Path(__file__).resolve().parents[2])
+    env = dict(os.environ, PYTHONPATH=src + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    todo = []
+    for arch in list_configs():
+        for shape in SHAPES:
+            for mesh in meshes:
+                fn = args.out / _lm_cell_filename(arch, shape, mesh,
+                                                  args.tag)
+                if fn.exists() and not args.force:
+                    print(f"skip (cached): {fn.name}", flush=True)
+                    continue
+                ok, reason = cell_applicable(get_config(arch),
+                                             SHAPES[shape])
+                if not ok:
+                    fn.write_text(json.dumps({
+                        "arch": arch, "shape": shape, "mesh": mesh,
+                        "status": reason}))
+                    print(f"{arch} {shape} {mesh}: {reason}", flush=True)
+                    continue
+                todo.append((arch, shape, mesh, fn))
+
+    def count(cell):
+        arch, shape, mesh, fn = cell
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+               "--arch", arch, "--shape", shape, "--mesh", mesh,
+               "--out", str(args.out), "--tag", args.tag]
+        if args.overrides:
+            cmd += ["--overrides", args.overrides]
+        try:
+            r = subprocess.run(cmd, capture_output=True, text=True,
+                               timeout=CELL_TIMEOUT_S, env=env)
+            rc, out, err = r.returncode, r.stdout, r.stderr
+        except subprocess.TimeoutExpired as e:
+            rc, out, err = -1, "", f"overran {CELL_TIMEOUT_S} s: {e}"
+        print(f"=== {arch} {shape} {mesh} ===\n{out[-2000:]}", flush=True)
+        if rc != 0:
+            print("FAILED:", err[-3000:], flush=True)
+            fn.write_text(json.dumps({
+                "arch": arch, "shape": shape, "mesh": mesh,
+                "status": "error", "stderr": err[-3000:]}))
+
+    with ThreadPoolExecutor(max_workers=max(1, args.jobs)) as pool:
+        list(pool.map(count, todo))
+
+
+# ---------------------------------------------------------------------------
+# IALS cells
+# ---------------------------------------------------------------------------
 
 IALS_PROGRAMS = ("aip_rollout_multi", "fnn_rollout", "policy_rollout",
                  "train_iteration")
@@ -412,13 +751,35 @@ def main(argv=None):
     ap.add_argument("--arch")
     ap.add_argument("--shape")
     ap.add_argument("--all", action="store_true")
+    ap.add_argument("--overrides", default=None,
+                    help="JSON dict of ArchConfig overrides")
+    ap.add_argument("--tag", default="",
+                    help="suffix of the result's file name")
+    ap.add_argument("--force", action="store_true",
+                    help="--all: recount cells already written")
+    ap.add_argument("--jobs", type=int, default=1,
+                    help="--all: cells counted at a time")
     args = ap.parse_args(argv)
-    if args.arch or args.shape or args.all:
-        ap.error("the LM half of the dry-run (--arch / --shape / --all, "
-                 "run_cell) is not ported: it comes with the LM training "
-                 "and sharding slice")
+    if args.all or args.arch or args.shape:
+        # LM cells: counted only, on fake tensors (no device runs them)
+        if args.mesh == "host":
+            ap.error("LM cells run on --mesh pod1, pod2 or both")
+        args.out.mkdir(parents=True, exist_ok=True)
+        if args.all:
+            _lm_sweep(args)
+            return 0
+        if not (args.arch and args.shape):
+            ap.error("--arch and --shape go together (or --all)")
+        overrides = json.loads(args.overrides) if args.overrides else None
+        meshes = ["pod1", "pod2"] if args.mesh == "both" else [args.mesh]
+        for mesh in meshes:
+            cell = run_cell(args.arch, args.shape, mesh, overrides)
+            _write_lm(cell, args.out / _lm_cell_filename(
+                args.arch, args.shape, mesh, args.tag))
+        return 0
     if not args.ials:
-        ap.error("--ials PROGRAM|all is required")
+        ap.error("--ials PROGRAM|all, or --arch/--shape, or --all is "
+                 "required")
     resolve_device(args.device)
     args.out.mkdir(parents=True, exist_ok=True)
     if args.ials == "all":

@@ -30,6 +30,7 @@ DIST_TIMEOUT_S = 60   # default: a collective that waits longer fails,
 #                       not hangs
 RANK0_ALONE_S = 86400  # the others' wait for rank 0's work alone: its
 #                        length grows with the run's settings
+RENDEZVOUS_S = 600     # the ranks' wait for each other at start-up
 
 
 class MeshLayout(NamedTuple):
@@ -61,17 +62,20 @@ def make_production_mesh(*, multi_pod: bool = False):
                             mesh_dim_names=layout.axis_names)
 
 
-def make_host_mesh(model: int = 1):
+def make_host_mesh(model: int = 1, device_type: str | None = None):
     """Every rank of the process group as a (data = world // model, model)
-    ``DeviceMesh`` with ``mesh_dim_names=("data", "model")``: of device
-    type "cuda" under NCCL, "cpu" otherwise (gloo moves CPU and CUDA
-    tensors alike)."""
+    ``DeviceMesh`` with ``mesh_dim_names=("data", "model")``: of
+    ``device_type``, by default "cuda" under NCCL and "cpu" otherwise
+    (gloo moves CPU and CUDA tensors alike). A ``DTensor`` lives on its
+    mesh's device type: DTensors on the card over gloo take "cuda" (and
+    ``gloo_on_card``)."""
     if not dist.is_initialized():
         raise RuntimeError("make_host_mesh needs an initialised process "
                            "group (torch.distributed.init_process_group)")
     n = dist.get_world_size()
     assert n % model == 0, f"world size {n} is not a multiple of {model}"
-    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    device_type = device_type or (
+        "cuda" if dist.get_backend() == "nccl" else "cpu")
     from torch.distributed.device_mesh import init_device_mesh
     return init_device_mesh(device_type, (n // model, model),
                             mesh_dim_names=("data", "model"))
@@ -104,17 +108,29 @@ def init_ranks(backend: str, device: str, *,
     ``backend`` process group (``init_method`` default ``env://``; a
     ``file://`` store needs no port; collectives time out after
     ``timeout_s``) -> this rank's device, made current. NCCL on the
-    CPU, or with more ranks than cards, raises."""
+    CPU, or with more ranks than cards, raises.
+
+    The ranks first meet in the store, for up to ``RENDEZVOUS_S`` (at
+    least ``timeout_s``): processes that start seconds apart (a loaded
+    host importing torch) then connect the group together, so the
+    group's own waits, which ``timeout_s`` bounds, are not spent on a
+    late start."""
     dev = mesh_rank_device(backend, device)
     if backend == "nccl" and dev.type != "cuda":
         raise ValueError("--dist-backend nccl needs --device cuda")
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    meet = datetime.timedelta(seconds=max(RENDEZVOUS_S, timeout_s))
+    store, _, _ = next(dist.rendezvous(init_method or "env://", rank,
+                                       world, timeout=meet))
+    store.set_timeout(meet)
+    arrived = dist.PrefixStore("repro_torch/arrived", store)
+    arrived.set(str(rank), "1")
+    arrived.wait([str(r) for r in range(world)])
     dist.init_process_group(
-        backend, init_method=init_method or "env://",
-        rank=int(os.environ["RANK"]),
-        world_size=int(os.environ["WORLD_SIZE"]),
-        timeout=datetime.timedelta(seconds=timeout_s))
+        backend, store=dist.PrefixStore("default_pg", store), rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=timeout_s))
     return dev
 
 
@@ -135,3 +151,162 @@ def rank0_alone(mesh, timeout_s: float = RANK0_ALONE_S):
     yield
     dist.barrier(group=group)
     dist.destroy_process_group(group)
+
+
+_REDUCE_OPS = {"sum": "SUM", "avg": "SUM", "max": "MAX", "min": "MIN",
+               "product": "PRODUCT"}
+
+
+def gloo_on_card(force: bool = False) -> None:
+    """Route the functional collectives that ``DTensor`` (and the port's
+    own sharded code) issues on CUDA tensors over gloo groups through
+    the synchronous c10d collectives of the same names. Ranks that share
+    one card must use gloo (NCCL refuses two ranks on one card), and in
+    torch 2.11 the functional all-gather of a CUDA tensor on a gloo group
+    (``_c10d_functional.all_gather_into_tensor``, as DTensor's redistribute
+    calls it) segfaults at its wait, while ``dist.all_gather_into_tensor``
+    of the same tensor works; so do the c10d reduce-scatter, all-reduce,
+    all-gather and all-to-all of CUDA tensors, which this uses, one for
+    one: DTensor's ``Shard(a)`` -> ``Shard(b)`` is an all-to-all here
+    too (``dist.all_to_all_single``, after a gather of one integer a
+    rank: the blocks' sizes), not the all-gather and chunk that torch's
+    own CPU route makes of it, and so is the functional
+    ``all_to_all_single`` (the microbatch split's,
+    ``launch/steps.py::_route_rows``). Applies to the
+    process, once; other tensors and groups take the functional
+    collectives as before (``force``: every tensor on a gloo group, which
+    the CPU tests use to run this route)."""
+    import torch.distributed._functional_collectives as funcol
+    import torch.distributed.tensor.placement_types as placement_types
+    from torch.distributed import distributed_c10d as c10d
+    from torch.distributed.device_mesh import DeviceMesh
+    if getattr(funcol, "_repro_torch_gloo_on_card", False):
+        return
+
+    def group_of(group):
+        if isinstance(group, tuple) and len(group) == 2 \
+                and isinstance(group[0], DeviceMesh):
+            return group[0].get_group(group[1])
+        if isinstance(group, str):
+            return c10d._resolve_process_group(group)
+        if isinstance(group, dist.ProcessGroup):
+            return group
+        if isinstance(group, DeviceMesh) and group.ndim == 1:
+            return group.get_group()
+        return None
+
+    def raw_group(t, group):
+        """The gloo group to run ``t``'s collective on, or None."""
+        pg = group_of(group)
+        if pg is None or not (force or t.is_cuda):
+            return None
+        return pg if dist.get_backend(pg) == "gloo" else None
+
+    def op_of(name):
+        return getattr(dist.ReduceOp, _REDUCE_OPS[name.lower()])
+
+    def gather(self, gather_dim, group, pg):
+        n = pg.size()
+        x = self.contiguous()
+        out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+        dist.all_gather_into_tensor(out, x, group=pg)
+        if gather_dim != 0:
+            out = torch.cat(torch.chunk(out, n, dim=0), dim=gather_dim)
+        return out
+
+    def wrap_gather(orig):
+        def all_gather(self, gather_dim, group, tag=""):
+            pg = raw_group(self, group)
+            if pg is None:
+                return orig(self, gather_dim, group, tag)
+            return gather(self, gather_dim, group, pg)
+        return all_gather
+
+    def wrap_scatter(orig):
+        def reduce_scatter(self, reduceOp, scatter_dim, group, tag=""):
+            pg = raw_group(self, group)
+            if pg is None:
+                return orig(self, reduceOp, scatter_dim, group, tag)
+            n = pg.size()
+            x = self
+            if scatter_dim != 0:
+                x = torch.cat(torch.chunk(x, n, dim=scatter_dim), dim=0)
+            x = x.contiguous()
+            out = x.new_empty((x.shape[0] // n,) + tuple(x.shape[1:]))
+            dist.reduce_scatter_tensor(out, x, op=op_of(reduceOp), group=pg)
+            return out / n if reduceOp.lower() == "avg" else out
+        return reduce_scatter
+
+    def wrap_reduce(orig):
+        def all_reduce(self, reduceOp, group, tag=""):
+            pg = raw_group(self, group)
+            if pg is None:
+                return orig(self, reduceOp, group, tag)
+            out = self.contiguous().clone()
+            dist.all_reduce(out, op=op_of(reduceOp), group=pg)
+            return out / pg.size() if reduceOp.lower() == "avg" else out
+        return all_reduce
+
+    def alltoall(x, gather_dim, shard_dim, pg):
+        """``Shard(gather_dim)`` -> ``Shard(shard_dim)`` as one
+        all-to-all: chunk j of ``x`` along ``shard_dim`` (DTensor's
+        ``torch.chunk`` split) goes to rank j, and the chunks received
+        are laid along ``gather_dim`` in rank order. The ranks' blocks
+        along ``gather_dim`` may differ (an uneven split): their sizes
+        come first, in a gather of one integer a rank."""
+        n, me = pg.size(), pg.rank()
+        parts = list(torch.chunk(x, n, dim=shard_dim))
+        parts += [x.narrow(shard_dim, 0, 0)] * (n - len(parts))
+        every = torch.empty(n, dtype=torch.int64)
+        dist.all_gather_into_tensor(
+            every, torch.tensor([x.shape[gather_dim]]), group=pg)
+        shape = list(x.shape)
+        shape[shard_dim] = parts[me].shape[shard_dim]
+        recv = [shape[:gather_dim] + [g] + shape[gather_dim + 1:]
+                for g in every.tolist()]
+        counts = [math.prod(s) for s in recv]
+        out = x.new_empty(sum(counts))
+        dist.all_to_all_single(
+            out, torch.cat([p.reshape(-1) for p in parts]),
+            output_split_sizes=counts,
+            input_split_sizes=[p.numel() for p in parts], group=pg)
+        return torch.cat([b.view(s) for b, s in
+                          zip(torch.split(out, counts), recv)],
+                         dim=gather_dim)
+
+    def wrap_alltoall(orig):
+        def shard_dim_alltoall(input, gather_dim, shard_dim, mesh, mesh_dim):
+            pg = raw_group(input, (mesh, mesh_dim))
+            if pg is None:
+                return orig(input, gather_dim, shard_dim, mesh, mesh_dim)
+            return alltoall(input, gather_dim, shard_dim, pg)
+        return shard_dim_alltoall
+
+    def wrap_alltoall_single(orig):
+        def all_to_all_single(self, output_split_sizes, input_split_sizes,
+                              group, tag=""):
+            pg = raw_group(self, group)
+            if pg is None:
+                return orig(self, output_split_sizes, input_split_sizes,
+                            group, tag)
+            x = self.contiguous()
+            out = x.new_empty((sum(output_split_sizes),) + tuple(x.shape[1:]))
+            dist.all_to_all_single(out, x,
+                                   output_split_sizes=output_split_sizes,
+                                   input_split_sizes=input_split_sizes,
+                                   group=pg)
+            return out
+        return all_to_all_single
+
+    for name, wrap in (("all_to_all_single", wrap_alltoall_single),
+                       ("all_gather_tensor", wrap_gather),
+                       ("all_gather_single", wrap_gather),
+                       ("reduce_scatter_tensor", wrap_scatter),
+                       ("reduce_scatter_single", wrap_scatter),
+                       ("all_reduce", wrap_reduce)):
+        if hasattr(funcol, name):
+            setattr(funcol, name, wrap(getattr(funcol, name)))
+    if hasattr(placement_types, "shard_dim_alltoall"):
+        placement_types.shard_dim_alltoall = wrap_alltoall(
+            placement_types.shard_dim_alltoall)
+    funcol._repro_torch_gloo_on_card = True

@@ -23,8 +23,17 @@ Parameters are the reference's pytree: nested dicts of tensors, dense
 ``w`` (in, out), the block stack with a leading ``n_groups`` axis, so
 ``repro_torch/convert.py`` carries JAX weights across as they are.
 Modality frontends (whisper conv / vision encoder) are stubs, as in the
-reference: ``inputs`` carries precomputed frame/patch embeddings. Not in
-this module: the activation sharding constraints (no mesh on one card).
+reference: ``inputs`` carries precomputed frame/patch embeddings.
+
+Under a mesh (``distributed/act_sharding.py::use_mesh``) the parameters
+and inputs are ``DTensor``s and the reference's ``constrain`` calls
+redistribute the activations at the same places; without one they return
+their input, and nothing changes. Where the reference leaves a
+cross-device reduction to XLA, the port writes it: the vocab-sharded
+logits of the loss are gathered on the vocab dim (``_vocab_whole``), and
+a sequence-parallel decode cache is written and read block by block
+(``attention.write_slot``, ``attention.decode_attention``'s split
+over the sequence).
 
 The stack is unbound once per forward (``_unstack``): group g's leaves
 are views of it, and autograd's backward of the unbind is one ``stack``
@@ -59,6 +68,9 @@ from torch.utils.checkpoint import CheckpointPolicy, checkpoint, \
     create_selective_checkpoint_contexts
 
 from repro_torch.configs.base import ArchConfig, LayerSpec
+from repro_torch.distributed.act_sharding import (batch_local, constrain,
+                                                  current_mesh,
+                                                  gather_weights)
 from repro_torch.nn import attention as att
 from repro_torch.nn import module as nn
 from repro_torch.nn import moe as moe_lib
@@ -285,14 +297,87 @@ def _pattern(cfg: ArchConfig):
 # Per-layer forward (full sequence)
 # ===========================================================================
 
+def _split_last(t: torch.Tensor, *sizes) -> torch.Tensor:
+    """(..., prod(sizes)) -> (..., *sizes). A ``DTensor`` sharded on its
+    last dim over more blocks than ``sizes[0]`` (the heads) divides into
+    is gathered on that dim first: DTensor cannot split a block across a
+    head (the reference's GSPMD reshards there too)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if isinstance(t, DTensor):
+        last = t.dim() - 1
+        mesh = t.device_mesh
+        k = 1
+        for i, pl in enumerate(t.placements):
+            if pl.is_shard(last):
+                k *= mesh.size(i)
+        if k > 1 and sizes[0] % k:
+            t = t.redistribute(mesh, [Replicate() if pl.is_shard(last)
+                                      else pl for pl in t.placements])
+    return t.reshape(*t.shape[:-1], *sizes)
+
+
+def _heads(t: torch.Tensor) -> torch.Tensor:
+    """A (batch, ..., heads, head_dim) activation pinned to the batch
+    axes and "model" on its heads (under a mesh, as ``moe._ff``)."""
+    return constrain(t, "dp", *([None] * (t.dim() - 3)), "tp", None)
+
+
+def _merge_heads(o: torch.Tensor) -> torch.Tensor:
+    """(B, T, H, d) -> (B, T, H * d). Under a mesh the merged dim is
+    sharded on "model" only where the heads are: a split of a merged dim
+    whose shards cut a head (the backward of this reshape) is refused by
+    DTensor (torch 2.11), so such a gradient is gathered here first."""
+    B, T = o.shape[:2]
+    merged = o.reshape(B, T, -1)
+    from torch.distributed.tensor import DTensor
+    if isinstance(o, DTensor):
+        tp = "tp" if any(p.is_shard(2) for p in o.placements) else None
+        merged = constrain(merged, "dp", None, tp)
+    return merged
+
+
+def _local_name(o: torch.Tensor, name: str) -> torch.Tensor:
+    """``checkpoint_name``; on a ``DTensor``, on its local block (a custom
+    op has no sharding rule)."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(o, DTensor):
+        return checkpoint_name(o, name)
+    return DTensor.from_local(checkpoint_name(o.to_local(), name),
+                              o.device_mesh, o.placements, run_check=False)
+
+
+def _flash(q, k, v, **kw):
+    """``att.flash_attention``; on ``DTensor``s, run on each rank's local
+    blocks (attention never mixes batch rows or heads): q, k and v are
+    laid out batch-sharded as q is, heads sharded where q's are and the
+    KV heads divide as well, everything else whole, and the output keeps
+    that layout. DTensor's own choice for the ops of the chunked loop may
+    shard the sequence, which its backward cannot always follow."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(q, DTensor):
+        return att.flash_attention(q, k, v, **kw)
+    mesh = q.device_mesh
+    heads = 1
+    for i, pl in enumerate(q.placements):
+        if pl.is_shard(2):
+            heads *= mesh.size(i)
+    split = heads > 1 and k.shape[2] % heads == 0
+    pl = [Shard(0) if p.is_shard(0) else
+          (Shard(2) if p.is_shard(2) and split else Replicate())
+          for p in q.placements]
+    q, k, v = (t.redistribute(mesh, pl).to_local() for t in (q, k, v))
+    o = att.flash_attention(q, k, v, **kw)
+    return DTensor.from_local(o, mesh, pl, run_check=False)
+
+
 def _qkv(p, cfg: ArchConfig, x, memory=None):
     """q from x; k, v from ``memory`` (cross) or x; per-head RMSNorm."""
     B, T, _ = x.shape
     hd, H, KH = cfg.hd(), cfg.n_heads, cfg.n_kv_heads
     src = x if memory is None else memory
-    q = nn.dense(p["wq"], x).reshape(B, T, H, hd)
-    k = nn.dense(p["wk"], src).reshape(B, src.shape[1], KH, hd)
-    v = nn.dense(p["wv"], src).reshape(B, src.shape[1], KH, hd)
+    q = _heads(_split_last(nn.dense(p["wq"], x), H, hd))
+    k = _heads(_split_last(nn.dense(p["wk"], src), KH, hd))
+    v = _heads(_split_last(nn.dense(p["wv"], src), KH, hd))
     if cfg.qk_norm:
         q = nn.rmsnorm(p["q_norm"], q)
         k = nn.rmsnorm(p["k_norm"], k)
@@ -301,25 +386,23 @@ def _qkv(p, cfg: ArchConfig, x, memory=None):
 
 def _self_attention(p, cfg: ArchConfig, x, positions, *, causal=True,
                     want_cache=False, name_attn=False):
-    B, T, _ = x.shape
     q, k, v = _qkv(p, cfg, x)
     if cfg.use_rope:
         q = att.apply_rope(q, positions, cfg.rope_theta)
         k = att.apply_rope(k, positions, cfg.rope_theta)
-    o = att.flash_attention(q, k, v, causal=causal,
-                            q_chunk=cfg.attn_q_chunk, k_chunk=cfg.attn_k_chunk)
+    o = _flash(q, k, v, causal=causal,
+               q_chunk=cfg.attn_q_chunk, k_chunk=cfg.attn_k_chunk)
     if name_attn:
-        o = checkpoint_name(o, "attn_out")
-    out = nn.dense(p["wo"], o.reshape(B, T, -1))
+        o = _local_name(o, "attn_out")
+    out = moe_lib.rows(nn.dense(p["wo"], _merge_heads(_heads(o))))
     return out, ({"k": k, "v": v} if want_cache else None)
 
 
 def _cross_attention(p, cfg: ArchConfig, x, memory, *, want_cache=False):
-    B, T, _ = x.shape
     q, k, v = _qkv(p, cfg, x, memory)
-    o = att.flash_attention(q, k, v, causal=False,
-                            q_chunk=cfg.attn_q_chunk, k_chunk=cfg.attn_k_chunk)
-    out = nn.dense(p["wo"], o.reshape(B, T, -1))
+    o = _flash(q, k, v, causal=False,
+               q_chunk=cfg.attn_q_chunk, k_chunk=cfg.attn_k_chunk)
+    out = moe_lib.rows(nn.dense(p["wo"], _merge_heads(_heads(o))))
     return out, ({"mk": k, "mv": v} if want_cache else None)
 
 
@@ -328,23 +411,25 @@ def _mla_attention(p, cfg: ArchConfig, x, positions, *, want_cache=False):
     H = cfg.n_heads
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
     kr = cfg.kv_lora_rank
-    q = nn.dense(p["wq_b"], nn.rmsnorm(p["q_norm"], nn.dense(p["wq_a"], x)))
-    q = q.reshape(B, T, H, dn + dr)
+    # the low-rank activations pinned whole on "model" (their gradients
+    # are summed there, not reduce-scattered over the tokens)
+    q_a = constrain(nn.dense(p["wq_a"], x), "dp", None, None)
+    q = nn.dense(p["wq_b"], nn.rmsnorm(p["q_norm"], q_a))
+    q = _split_last(q, H, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = att.apply_rope(q_rope, positions, cfg.rope_theta)
 
-    kv_a = nn.dense(p["wkv_a"], x)
+    kv_a = constrain(nn.dense(p["wkv_a"], x), "dp", None, None)
     ckv = nn.rmsnorm(p["kv_norm"], kv_a[..., :kr])           # (B,T,R)
     krope = att.apply_rope(kv_a[..., kr:].reshape(B, T, 1, dr), positions,
                            cfg.rope_theta)                   # (B,T,1,dr)
-    kv = nn.dense(p["wkv_b"], ckv).reshape(B, T, H, dn + dv)
+    kv = _split_last(nn.dense(p["wkv_b"], ckv), H, dn + dv)
     k_nope, v = kv[..., :dn], kv[..., dn:]
     k = torch.cat([k_nope, krope.expand(B, T, H, dr)], dim=-1)
     qf = torch.cat([q_nope, q_rope], dim=-1)
-    o = att.flash_attention(qf, k, v, causal=True,
-                            scale=(dn + dr) ** -0.5,
-                            q_chunk=cfg.attn_q_chunk, k_chunk=cfg.attn_k_chunk)
-    out = nn.dense(p["wo"], o.reshape(B, T, H * dv))
+    o = _flash(qf, k, v, causal=True, scale=(dn + dr) ** -0.5,
+               q_chunk=cfg.attn_q_chunk, k_chunk=cfg.attn_k_chunk)
+    out = moe_lib.rows(nn.dense(p["wo"], _merge_heads(o)))
     cache = {"ckv": ckv, "krope": krope[:, :, 0]} if want_cache else None
     return out, cache
 
@@ -361,7 +446,7 @@ def _ffn_apply(p, cfg: ArchConfig, x, ffn: str, *, full_capacity=False):
         if cfg.moe_impl == "ep":
             return moe_ep_lib.moe_apply_ep(
                 p, x, top_k=cfg.moe_top_k, act=cfg.act, capacity_factor=cf,
-                expert_axes=cfg.moe_expert_axes)
+                expert_axes=cfg.moe_expert_axes, mesh=current_mesh())
         return moe_lib.moe_apply(p, x, top_k=cfg.moe_top_k, act=cfg.act,
                                  capacity_factor=cf)
     raise ValueError(ffn)
@@ -371,6 +456,7 @@ def _layer_apply(p, cfg: ArchConfig, spec: LayerSpec, h, ctx, *,
                  want_cache=False):
     """-> (h, aux, cache)."""
     _, norm = nn.make_norm(cfg.norm)
+    p = gather_weights(p)
     x = norm(p["norm1"], h)
     cache: Dict[str, Any] = {}
     aux = _zero_aux(h.device)
@@ -406,17 +492,18 @@ def _layer_apply(p, cfg: ArchConfig, spec: LayerSpec, h, ctx, *,
         h = h + out2
     elif spec.kind in ("mamba", "mlstm", "slstm"):
         if spec.kind == "mamba":
-            res = ssm_lib.mamba_apply(p["mix"], x, d_state=cfg.mamba_d_state,
-                                      chunk=cfg.mamba_chunk,
-                                      return_state=want_cache)
+            res = batch_local(ssm_lib.mamba_apply, x, p["mix"],
+                              d_state=cfg.mamba_d_state,
+                              chunk=cfg.mamba_chunk,
+                              return_state=want_cache)
         elif spec.kind == "mlstm":
-            res = ssm_lib.mlstm_apply(p["mix"], x, cfg.n_heads,
-                                      chunk=cfg.rnn_chunk,
-                                      return_state=want_cache)
+            res = batch_local(ssm_lib.mlstm_apply, x,
+                              p["mix"], n_heads=cfg.n_heads,
+                              chunk=cfg.rnn_chunk, return_state=want_cache)
         else:
-            res = ssm_lib.slstm_apply(p["mix"], x, cfg.n_heads,
-                                      chunk=cfg.rnn_chunk,
-                                      return_state=want_cache)
+            res = batch_local(ssm_lib.slstm_apply, x,
+                              p["mix"], n_heads=cfg.n_heads,
+                              chunk=cfg.rnn_chunk, return_state=want_cache)
         out, cache["state"] = res if want_cache else (res, None)
         h = h + out
     else:
@@ -432,6 +519,19 @@ def _layer_apply(p, cfg: ArchConfig, spec: LayerSpec, h, ctx, *,
 # Encoder (whisper)
 # ===========================================================================
 
+def _gather_top(params: Params) -> Params:
+    """The weights outside the layer stacks gathered
+    (``act_sharding.gather_weights``; each layer gathers its own)."""
+    out = dict(params)
+    for k, v in params.items():
+        if k not in ("blocks", "prologue", "enc"):
+            out[k] = gather_weights(v)
+    if "enc" in params:
+        out["enc"] = dict(params["enc"], pos=gather_weights(
+            params["enc"]["pos"]), norm=gather_weights(params["enc"]["norm"]))
+    return out
+
+
 def encode(params: Params, cfg: ArchConfig,
            frames: torch.Tensor) -> torch.Tensor:
     """frames: (B, F, d_model) post-conv stub embeddings -> (B, F, d)."""
@@ -444,6 +544,7 @@ def encode(params: Params, cfg: ArchConfig,
            "causal": False}
     for lp in _unstack(enc["blocks"], cfg.n_encoder_layers):
         h, _, _ = _layer_apply(lp, cfg, spec, h, ctx)
+        h = constrain(h, "dp", None, None)
     return norm(enc["norm"], h)
 
 
@@ -457,6 +558,7 @@ def _group_body(gp, cfg: ArchConfig, pattern, h, aux, ctx, want_cache):
     for i, spec in enumerate(pattern):
         h, a, c = _layer_apply(gp[str(i)], cfg, spec, h, ctx,
                                want_cache=want_cache)
+        h = constrain(h, "dp", None, None)
         aux = _add_aux(aux, a)
         if want_cache:
             caches[str(i)] = c
@@ -473,12 +575,18 @@ def forward(params: Params, cfg: ArchConfig, inputs: Dict[str, Any], *,
     """
     prologue, pattern, n_groups = _pattern(cfg)
     _, norm = nn.make_norm(cfg.norm)
+    params = _gather_top(params)
     tokens = inputs["tokens"]
     T = tokens.shape[1]
     h = nn.embedding(params["embed"], tokens)
+    h = constrain(h, "dp", None, None)
     positions = torch.arange(T, device=tokens.device)
     if cfg.learned_pos:
-        h = h + params["pos_emb"]["table"][None, :T]
+        # the table's rows may be sharded on "model": the sum is pinned
+        # back to the batch axes (a full-length slice keeps the rows'
+        # shards on the tokens)
+        h = constrain(h + params["pos_emb"]["table"][None, :T],
+                      "dp", None, None)
 
     memory = None
     if cfg.family == "encdec":
@@ -519,11 +627,29 @@ def logits(params: Params, cfg: ArchConfig, h: torch.Tensor) -> torch.Tensor:
     return nn.dense(params["lm_head"], h)
 
 
+def _vocab_whole(lg: torch.Tensor) -> torch.Tensor:
+    """A logits chunk with its vocab dim whole on every rank: a
+    vocab-sharded ``DTensor`` (a "tp" profile's head) is gathered on that
+    dim, a (B, ck, V) all-gather, so ``logsumexp`` and the label's
+    ``gather`` run on local rows; anything else as it is."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(lg, DTensor):
+        return lg
+    last = lg.dim() - 1
+    if not any(isinstance(p, Shard) and p.dim == last
+               for p in lg.placements):
+        return lg
+    return lg.redistribute(lg.device_mesh, [
+        Replicate() if isinstance(p, Shard) and p.dim == last else p
+        for p in lg.placements])
+
+
 def loss_fn(params: Params, cfg: ArchConfig, inputs: Dict[str, Any], *,
             loss_chunk: int = 512):
     """Next-token CE, chunked over T so (B,T,V) logits are never resident.
     Labels < 0 are masked out."""
     h, aux, _ = forward(params, cfg, inputs)
+    params = _gather_top(params)
     labels = inputs["labels"]
     T = h.shape[1]
     ck = min(loss_chunk, T)
@@ -538,7 +664,8 @@ def loss_fn(params: Params, cfg: ArchConfig, inputs: Dict[str, Any], *,
     ce_sum = torch.zeros((), dtype=torch.float32, device=h.device)
     n_tok = torch.zeros((), dtype=torch.float32, device=h.device)
     for t0 in range(0, T, ck):
-        lg = (h[:, t0:t0 + ck] @ head).float()
+        lg = _vocab_whole(constrain((h[:, t0:t0 + ck] @ head).float(),
+                                    "dp", None, "tp"))
         ls = labels[:, t0:t0 + ck]
         lse = torch.logsumexp(lg, dim=-1)
         ll = torch.gather(lg, -1, ls.clamp(min=0)[..., None])[..., 0]
@@ -616,8 +743,8 @@ def _attn_decode(p, cfg: ArchConfig, x, c, pos: int):
         pp = torch.full((1,), pos, device=x.device)
         q = att.apply_rope(q, pp, cfg.rope_theta)
         k = att.apply_rope(k, pp, cfg.rope_theta)
-    c["k"][:, pos] = k[:, 0].to(c["k"].dtype)
-    c["v"][:, pos] = v[:, 0].to(c["v"].dtype)
+    att.write_slot(c["k"], pos, k[:, 0])
+    att.write_slot(c["v"], pos, v[:, 0])
     o = att.decode_attention(q[:, 0], c["k"], c["v"], pos)
     return nn.dense(p["wo"], o.reshape(B, -1))
 
@@ -625,7 +752,7 @@ def _attn_decode(p, cfg: ArchConfig, x, c, pos: int):
 def _cross_decode(p, cfg: ArchConfig, x, c):
     B = x.shape[0]
     hd, H = cfg.hd(), cfg.n_heads
-    q = nn.dense(p["wq"], x).reshape(B, 1, H, hd)
+    q = _split_last(nn.dense(p["wq"], x), H, hd)[:, None]
     if cfg.qk_norm:
         q = nn.rmsnorm(p["q_norm"], q)
     S = c["mk"].shape[1]
@@ -639,7 +766,7 @@ def _mla_decode(p, cfg: ArchConfig, x, c, pos: int):
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
     kr = cfg.kv_lora_rank
     q = nn.dense(p["wq_b"], nn.rmsnorm(p["q_norm"], nn.dense(p["wq_a"], x)))
-    q = q.reshape(B, 1, H, dn + dr)
+    q = _split_last(q, H, dn + dr)[:, None]
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     pp = torch.full((1,), pos, device=x.device)
     q_rope = att.apply_rope(q_rope, pp, cfg.rope_theta)
@@ -648,10 +775,10 @@ def _mla_decode(p, cfg: ArchConfig, x, c, pos: int):
     ckv_new = nn.rmsnorm(p["kv_norm"], kv_a[..., :kr])
     krope_new = att.apply_rope(kv_a[..., kr:].reshape(B, 1, 1, dr), pp,
                                cfg.rope_theta)[:, 0, 0]
-    c["ckv"][:, pos] = ckv_new.to(c["ckv"].dtype)
-    c["krope"][:, pos] = krope_new.to(c["krope"].dtype)
+    att.write_slot(c["ckv"], pos, ckv_new)
+    att.write_slot(c["krope"], pos, krope_new)
 
-    wkv_b = p["wkv_b"]["w"].reshape(kr, H, dn + dv)
+    wkv_b = _split_last(p["wkv_b"]["w"], H, dn + dv)
     w_kb_k = wkv_b[..., :dn].permute(1, 0, 2)     # (H, R, dn)
     w_kb_v = wkv_b[..., dn:].permute(1, 0, 2)     # (H, R, dv)
     o = att.mla_decode_attention(q_nope[:, 0], q_rope[:, 0], c["ckv"],
@@ -668,6 +795,7 @@ def _write_state(dst, src):
 def _layer_decode(p, cfg: ArchConfig, spec: LayerSpec, h, c, pos: int):
     """h: (B, d) -> h; writes this layer's new cache entries into ``c``."""
     _, norm = nn.make_norm(cfg.norm)
+    p = gather_weights(p)
     x = norm(p["norm1"], h)
     if spec.kind == "attn":
         h = h + _attn_decode(p["mix"], cfg, x, c["self"], pos)
@@ -686,16 +814,18 @@ def _layer_decode(p, cfg: ArchConfig, spec: LayerSpec, h, c, pos: int):
         xc = norm(p["norm_cross"], h)
         h = h + _cross_decode(p["mix"]["cross"], cfg, xc, c["cross"])
     elif spec.kind == "mamba":
-        out, st = ssm_lib.mamba_step(p["mix"], c["state"], x,
-                                     d_state=cfg.mamba_d_state)
+        out, st = batch_local(ssm_lib.mamba_step, x, p["mix"], c["state"],
+                              d_state=cfg.mamba_d_state)
         _write_state(c["state"], st)
         h = h + out
     elif spec.kind == "mlstm":
-        out, st = ssm_lib.mlstm_step(p["mix"], c["state"], x, cfg.n_heads)
+        out, st = batch_local(ssm_lib.mlstm_step, x, p["mix"],
+                              c["state"], n_heads=cfg.n_heads)
         _write_state(c["state"], st)
         h = h + out
     elif spec.kind == "slstm":
-        out, st = ssm_lib.slstm_step(p["mix"], c["state"], x, cfg.n_heads)
+        out, st = batch_local(ssm_lib.slstm_step, x, p["mix"],
+                              c["state"], n_heads=cfg.n_heads)
         _write_state(c["state"], st)
         h = h + out
     else:
@@ -716,6 +846,7 @@ def decode_step(params: Params, cfg: ArchConfig, cache, token: torch.Tensor,
     pos = int(pos)
     prologue, pattern, n_groups = _pattern(cfg)
     _, norm = nn.make_norm(cfg.norm)
+    params = _gather_top(params)
     h = nn.embedding(params["embed"], token)
     if cfg.learned_pos:
         h = h + params["pos_emb"]["table"][pos]

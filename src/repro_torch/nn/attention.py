@@ -21,6 +21,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.act_sharding import is_dtensor
+
 BIG_NEG = -1e30
 
 
@@ -126,6 +128,120 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 # Decode attention (one new token vs a KV cache)
 # ---------------------------------------------------------------------------
 
+# a decode cache whose sequence dim is sharded over mesh axes (the
+# sequence-parallel cache of ``distributed/sharding.py::cache_pspec``) is
+# written and read block by block: each rank attends over its own slots,
+# and the blocks' softmax sums combine with all-reduces (max, then sum)
+
+def _seq_dims(cache) -> list:
+    """The mesh dims a ``DTensor`` cache's sequence dim (1) is sharded
+    over, in mesh order; [] for anything else."""
+    from torch.distributed.tensor import DTensor, Shard
+    if not isinstance(cache, DTensor):
+        return []
+    return [i for i, p in enumerate(cache.placements)
+            if isinstance(p, Shard) and p.dim == 1]
+
+
+def _seq_block(cache, dims) -> tuple:
+    """-> (first slot, slots) of this rank's block of the sequence."""
+    mesh = cache.device_mesh
+    coord = mesh.get_coordinate()
+    idx = 0
+    for i in dims:
+        idx = idx * mesh.size(i) + coord[i]
+    n = cache.to_local().shape[1]
+    return idx * n, n
+
+
+def _without_seq(cache, ndim: int, head_dim: int | None):
+    """Placements for a tensor laid out as ``cache`` without its sequence
+    dim: the batch (dim 0) as the cache's, dim ``head_dim`` as the
+    cache's heads (dim 2), everything else replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = []
+    for p in cache.placements:
+        if isinstance(p, Shard) and p.dim == 0:
+            out.append(Shard(0))
+        elif isinstance(p, Shard) and p.dim == 2 and head_dim is not None:
+            out.append(Shard(head_dim))
+        else:
+            out.append(Replicate())
+    return out
+
+
+def write_slot(cache: torch.Tensor, pos: int, value: torch.Tensor):
+    """``cache[:, pos] = value`` (in place); on a sequence-sharded cache
+    only the rank whose block holds ``pos`` writes."""
+    dims = _seq_dims(cache)
+    if not dims:
+        cache[:, pos] = value.to(cache.dtype)
+        return
+    local = value.redistribute(cache.device_mesh, _without_seq(
+        cache, value.dim(), 1)).to_local()
+    start, n = _seq_block(cache, dims)
+    if start <= pos < start + n:
+        cache.to_local()[:, pos - start] = local.to(cache.dtype)
+
+
+def _combine_blocks(s, pv, mesh, dims):
+    """Softmax attention over the whole sequence from this rank's block:
+    ``s`` the block's float32 scores (..., S_loc) with slots past ``pos``
+    at ``BIG_NEG``; ``pv(p)`` the block's weighted values for weights
+    ``p``. The blocks' max, weight sums and weighted values are combined
+    over the sequence's mesh dims."""
+    import torch.distributed._functional_collectives as funcol
+    groups = [mesh.get_group(i) for i in dims]
+    m = s.amax(-1, keepdim=True)
+    for g in groups:
+        m = funcol.wait_tensor(funcol.all_reduce(m, "max", g))
+    p = torch.exp(s - m).masked_fill(s <= BIG_NEG / 2, 0.0)
+    lsum = p.sum(-1, keepdim=True)
+    o = pv(p)
+    for g in groups:
+        lsum = funcol.wait_tensor(funcol.all_reduce(lsum, "sum", g))
+        o = funcol.wait_tensor(funcol.all_reduce(o, "sum", g))
+    return o / lsum
+
+
+def _masked_scores(s, start: int, pos: int):
+    """Scores of a block starting at slot ``start``, slots past ``pos`` at
+    ``BIG_NEG``."""
+    slots = start + torch.arange(s.shape[-1], device=s.device)
+    return s.masked_fill(slots > pos, BIG_NEG)
+
+
+def _decode_attention_local(q, k_cache, v_cache, pos, scale):
+    """``decode_attention`` on ``DTensor``s, on each rank's local blocks:
+    q laid out as the cache (batch, heads), whole elsewhere; a
+    sequence-sharded cache combined block by block."""
+    from torch.distributed.tensor import DTensor
+    mesh = k_cache.device_mesh
+    B, H, D = q.shape
+    qpl = _without_seq(k_cache, 3, 1)
+    kl, vl = k_cache.to_local(), v_cache.to_local()
+    dims = _seq_dims(k_cache)
+    if not dims:
+        o = decode_attention(q.redistribute(mesh, qpl).to_local(), kl, vl,
+                             pos, scale=scale)
+    else:
+        ql = (q * torch.tensor(scale, dtype=q.dtype, device=q.device)
+              ).redistribute(mesh, qpl).to_local()
+        G = H // k_cache.shape[2]
+        start, _ = _seq_block(k_cache, dims)
+        qg = ql.reshape(ql.shape[0], kl.shape[2], G, D)
+        s = _masked_scores(torch.einsum("bhgd,bkhd->bhgk", qg.float(),
+                                        kl.float()), start, pos)
+        o = _combine_blocks(s, lambda p: torch.einsum(
+            "bhgk,bkhd->bhgd", p.to(vl.dtype).float(), vl.float()), mesh,
+            dims)
+        o = o.reshape(o.shape[0], -1, vl.shape[-1]).to(q.dtype)
+    return DTensor.from_local(o.contiguous(), mesh, qpl, run_check=False,
+                              shape=(B, H, v_cache.shape[-1]),
+                              stride=(H * v_cache.shape[-1],
+                                      v_cache.shape[-1], 1))
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, pos: int, *,
                      scale: float | None = None) -> torch.Tensor:
@@ -140,6 +256,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     KH = k_cache.shape[2]
     G = H // KH
     scale = (D ** -0.5) if scale is None else scale
+    if is_dtensor(k_cache):
+        return _decode_attention_local(q, k_cache, v_cache, int(pos), scale)
     n = int(pos) + 1
     # the scale is rounded to q's dtype first, as the reference does
     qg = (q * torch.tensor(scale, dtype=q.dtype, device=q.device)
@@ -164,10 +282,13 @@ def mla_decode_attention(q_nope: torch.Tensor, q_rope: torch.Tensor,
     cache. Each product's operands are rounded to the dtype the
     reference hands its einsum, and the sum is float32.
     """
+    if is_dtensor(ckv_cache):
+        return _mla_decode_local(q_nope, q_rope, ckv_cache, krope_cache,
+                                 w_kb_k, w_kb_v, int(pos), scale)
     n = int(pos) + 1
     cdt = ckv_cache.dtype
-    ckv = ckv_cache[:, :n].float()
     q_lat = torch.einsum("bhd,hrd->bhr", q_nope.float(), w_kb_k.float())
+    ckv = ckv_cache[:, :n].float()
     s = torch.einsum("bhr,bsr->bhs", q_lat.to(cdt).float(), ckv)
     s = s + torch.einsum("bhd,bsd->bhs", q_rope.float(),
                          krope_cache[:, :n].float())
@@ -177,3 +298,39 @@ def mla_decode_attention(q_nope: torch.Tensor, q_rope: torch.Tensor,
     out = torch.einsum("bhr,hrd->bhd", o_lat.to(w_kb_v.dtype).float(),
                        w_kb_v.float())
     return out.to(q_nope.dtype)
+
+
+def _mla_decode_local(q_nope, q_rope, ckv_cache, krope_cache, w_kb_k,
+                      w_kb_v, pos, scale):
+    """``mla_decode_attention`` on ``DTensor``s, on each rank's local
+    blocks: the queries batch-sharded as the latent cache, whole
+    elsewhere, the absorbed weights whole; a sequence-sharded cache
+    combined block by block."""
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = ckv_cache.device_mesh
+    B, H, _ = q_nope.shape
+    pl = _without_seq(ckv_cache, 3, None)
+    whole = [Replicate()] * mesh.ndim
+    qn, qr = (t.redistribute(mesh, pl).to_local() for t in (q_nope, q_rope))
+    wk, wv = (w.contiguous().redistribute(mesh, whole).to_local()
+              for w in (w_kb_k, w_kb_v))
+    ckv_l, krope_l = ckv_cache.to_local(), krope_cache.to_local()
+    dims = _seq_dims(ckv_cache)
+    if not dims:
+        out = mla_decode_attention(qn, qr, ckv_l, krope_l, wk, wv, pos,
+                                   scale=scale)
+    else:
+        cdt = ckv_cache.dtype
+        q_lat = torch.einsum("bhd,hrd->bhr", qn.float(), wk.float())
+        ckv = ckv_l.float()
+        start, _ = _seq_block(ckv_cache, dims)
+        s = torch.einsum("bhr,bsr->bhs", q_lat.to(cdt).float(), ckv)
+        s = s + torch.einsum("bhd,bsd->bhs", qr.float(), krope_l.float())
+        s = _masked_scores(s * scale, start, pos)
+        o_lat = _combine_blocks(s, lambda p: torch.einsum(
+            "bhs,bsr->bhr", p.to(cdt).float(), ckv), mesh, dims)
+        out = torch.einsum("bhr,hrd->bhd", o_lat.to(wv.dtype).float(),
+                           wv.float()).to(q_nope.dtype)
+    Dv = w_kb_v.shape[-1]
+    return DTensor.from_local(out.contiguous(), mesh, pl, run_check=False,
+                              shape=(B, H, Dv), stride=(H * Dv, Dv, 1))

@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import resolve_device
+from repro_torch.distributed.act_sharding import is_dtensor
 from repro_torch.tree import tree_leaves, tree_map
 
 Params = Dict[str, Any]
@@ -73,7 +74,14 @@ def embedding_init(generator: torch.Generator, vocab: int, d: int, *,
 
 
 def embedding(p: Params, ids: torch.Tensor) -> torch.Tensor:
-    return p["table"][ids]
+    """Rows ``ids`` of the table; a ``DTensor`` table (the sharded LM)
+    on each rank's local blocks
+    (``distributed/act_sharding.py::embedding_lookup``)."""
+    table = p["table"]
+    if is_dtensor(table):
+        from repro_torch.distributed.act_sharding import embedding_lookup
+        return embedding_lookup(table, ids)
+    return table[ids]
 
 
 def rmsnorm_init(d: int, *, dtype=torch.float32, device="cuda") -> Params:

@@ -23,6 +23,15 @@ Two forms of one update, bitwise equal:
   the functional form would hold a second set of parameters, moments and
   clipped gradients (~56 GB) beside the first.
 
+On ``DTensor`` leaves (the sharded train step, ``launch/steps.py``)
+``update_`` runs on each rank's local blocks: a gradient is first
+redistributed to its parameter's placements (a partial one is summed),
+the global norm sums every block's squares once (a replicated block's
+divided by its number of replicas, then one all-reduce over the mesh),
+and where ``opt_state_specs`` shards a moment wider than its parameter
+the update is computed on the moment's block and the parameter's block
+gathered from it. Each element goes through the same ops as on one card.
+
 ``per_agent=True`` is the stacked form of a ``vmap`` over independent
 fits (``influence.train_aip_batched``): every leaf carries a leading
 agent axis, and each agent's gradient is clipped by that agent's own
@@ -35,6 +44,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from repro_torch.distributed.act_sharding import is_dtensor
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 
 
@@ -100,6 +110,45 @@ def clip_by_global_norm(tree, max_norm: float, *, per_agent: bool = False):
     return tree_map(clip, tree), norm
 
 
+def _sharded_norm(leaves) -> torch.Tensor:
+    """The global norm of DTensor leaves (with no partial placement):
+    each rank's squares once, a replicated block's over its replicas,
+    summed over the mesh."""
+    import torch.distributed._functional_collectives as funcol
+    total = 0
+    mesh = None
+    for x in leaves:
+        if not is_dtensor(x):
+            raise TypeError("update_ takes a tree of DTensors or of plain "
+                            "tensors, not both")
+        mesh = x.device_mesh
+        reps = math.prod(mesh.size(i) for i, p in enumerate(x.placements)
+                         if p.is_replicate())
+        total = total + torch.square(x.to_local().to(torch.float32)).sum() \
+            / reps
+    for i in range(mesh.ndim):
+        if mesh.size(i) > 1:
+            total = funcol.wait_tensor(
+                funcol.all_reduce(total, "sum", mesh.get_group(i)))
+    return torch.sqrt(total)
+
+
+def _sub_gathered(p, u_blk: torch.Tensor, wide) -> None:
+    """``p -= u`` in place for a DTensor parameter ``p`` whose update
+    ``u_blk`` was computed on the block of the wider placements of the
+    moment ``wide``: the update is gathered to ``p``'s placements."""
+    from torch.distributed.tensor import DTensor
+    u = DTensor.from_local(u_blk, wide.device_mesh, wide.placements,
+                           run_check=False, shape=wide.shape,
+                           stride=wide.stride())
+    u = u.redistribute(p.device_mesh, p.placements).to_local()
+    loc = p.to_local()
+    if loc.dtype == torch.float32:
+        loc.sub_(u)
+    else:
+        loc.copy_(loc.to(torch.float32).sub_(u))
+
+
 def _slices(x: torch.Tensor):
     """Views of ``x`` along its leading axis, each of at most
     ``SLICE_ELEMENTS`` elements (whole rows): in-place ops on them write
@@ -161,7 +210,15 @@ def adamw(lr: Callable | float, *, b1: float = 0.9, b2: float = 0.95,
         if per_agent:
             raise ValueError("update_ clips by one global norm; the "
                              "per-agent fits take the functional update")
-        gnorm = global_norm(grads)
+        sharded = is_dtensor(tree_leaves(params)[0])
+        if sharded:
+            grads = tree_map(
+                lambda g, p: g if tuple(g.placements) == tuple(p.placements)
+                else g.redistribute(p.device_mesh, p.placements),
+                grads, params)
+            gnorm = _sharded_norm(tree_leaves(grads))
+        else:
+            gnorm = global_norm(grads)
         scale = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-9),
                             max=1.0)
         step = int(state.step) + 1
@@ -172,8 +229,19 @@ def adamw(lr: Callable | float, *, b1: float = 0.9, b2: float = 0.95,
             if g.device not in dev:
                 dev[g.device] = [x.to(g.device) for x in (lr_t, c1, c2)]
             lr_d, c1_d, c2_d = dev[g.device]
-            for gs, ms, vs, ps in zip(_slices(g), _slices(m), _slices(v),
-                                      _slices(p)):
+            wide = None              # a moment sharded wider than p
+            p_param = p
+            if sharded:
+                if tuple(m.placements) != tuple(p.placements):
+                    wide = m
+                    g = g.redistribute(m.device_mesh, m.placements)
+                    p_blk = p.redistribute(m.device_mesh, m.placements)
+                    u_blk = torch.empty_like(m.to_local())
+                g, m, v = (x.to_local() for x in (g, m, v))
+                p = p_blk.to_local() if wide is not None else p.to_local()
+            outs = _slices(u_blk) if wide is not None else _slices(p)
+            for gs, ms, vs, ps, os_ in zip(_slices(g), _slices(m),
+                                           _slices(v), _slices(p), outs):
                 # each line is one op of ``update``'s, in its order
                 if gs.dtype == torch.float32:
                     g32 = gs.mul_(scale)
@@ -185,10 +253,14 @@ def adamw(lr: Callable | float, *, b1: float = 0.9, b2: float = 0.95,
                 u = (ms / c1_d).div_(torch.sqrt_(vs / c2_d).add_(eps))
                 u.add_(weight_decay * ps.to(torch.float32))
                 u.mul_(lr_d)
-                if ps.dtype == torch.float32:
+                if wide is not None:
+                    os_.copy_(u)
+                elif ps.dtype == torch.float32:
                     ps.sub_(u)
                 else:
                     ps.copy_(ps.to(torch.float32).sub_(u))
+            if wide is not None:
+                _sub_gathered(p_param, u_blk, wide)
         return (params, AdamWState(step=torch.tensor(step, dtype=torch.int32),
                                    mu=state.mu, nu=state.nu),
                 {"grad_norm": gnorm, "lr": lr_t})

@@ -179,3 +179,78 @@ def test_the_step_profile_helpers():
         "vectorized_elementwise_kernel<4>") == "elementwise"
     assert chip_smoke.kernel_kind("Memcpy DtoD") == "copy"
     assert chip_smoke.kernel_kind("foo") == "other"
+
+
+def _lm_cell(**kw):
+    cell = {"arch": "whisper-base", "shape": "decode_32k", "mesh": "pod2",
+            "status": "ok", "n_chips": 512, "parallelism": "tp",
+            "count_s": 2.5,
+            "ops": {"collective_bytes_total": 3.0 * 2**30,
+                    "collective_bytes": {"all-gather": 2.0 * 2**30,
+                                         "all-reduce": 1.0 * 2**30},
+                    "custom_call_count": 0, "flops": 4.4e8,
+                    "hbm_bytes": 1.3e10},
+            "memory": {"argument_bytes_per_device": 235000000,
+                       "argument_bytes_global_over_chips": 105000000.0},
+            "roofline": {"model_flops_bound_s": 3.1e-9,
+                         "step_time_lower_bound_s": 4.1e-3,
+                         "bottleneck": "memory",
+                         "useful_flops_ratio": 0.0123}}
+    cell.update(kw)
+    return cell
+
+
+def test_the_lm_sharding_phase_reads_a_dryrun_cell():
+    line = chip_smoke.lm_dryrun_line(_lm_cell())
+    assert line.startswith("[dryrun] whisper-base decode_32k pod2 (512")
+    assert "model-FLOP bound 3.1e-09 s" in line
+    assert "argument bytes 235000000 (global over chips 105000000)" in line
+    with pytest.raises(AssertionError, match="error"):
+        chip_smoke.lm_dryrun_line(_lm_cell(status="error", stderr="x"))
+    no_coll = _lm_cell()
+    no_coll["ops"] = dict(no_coll["ops"], collective_bytes_total=0.0)
+    with pytest.raises(AssertionError, match="no collective"):
+        chip_smoke.lm_dryrun_line(no_coll)
+    launched = _lm_cell()
+    launched["ops"] = dict(launched["ops"], custom_call_count=2)
+    with pytest.raises(AssertionError, match="kernel launches"):
+        chip_smoke.lm_dryrun_line(launched)
+    assert len(chip_smoke.LM_DRYRUN_CELLS) == 5
+
+
+def _shard_summary(**kw):
+    rank = {"param_bytes": 10, "param_bytes_expected": 10,
+            "moment_bytes": 20, "moment_bytes_expected": 20,
+            "max_memory_allocated": 123, "step_s": [2.0, 1.0],
+            "kernel_launches": 0}
+    s = {"ok": True, "failed": [], "worst_share": {"step 0 loss": 0.01},
+         "per_rank": [dict(rank), dict(rank)], "step_s": [2.0, 1.0],
+         "steady_step_s": 1.0, "one_process_step_s": [0.5, 0.4],
+         "loss": [[1.0, 1.0], [0.9, 0.9]]}
+    s.update(kw)
+    return s
+
+
+def test_the_lm_sharding_phase_reads_a_shard_summary():
+    line = chip_smoke.lm_shard_line(_shard_summary(), "x")
+    assert "steady 1.000 s beside one process 0.400 s" in line
+    assert "max_memory_allocated [123, 123]" in line
+    with pytest.raises(AssertionError, match="bound"):
+        chip_smoke.lm_shard_line(_shard_summary(
+            ok=False, failed=["step 0 loss: 2 of the bound"]), "x")
+    s = _shard_summary()
+    s["per_rank"][1]["param_bytes"] = 11
+    with pytest.raises(AssertionError, match="rank 1 holds 11 param"):
+        chip_smoke.lm_shard_line(s, "x")
+    s = _shard_summary()
+    s["per_rank"][0]["kernel_launches"] = 1
+    with pytest.raises(AssertionError, match="launched 1 kernels"):
+        chip_smoke.lm_shard_line(s, "x")
+    ep = {"ok": True, "failed": [], "worst_share": {"ep forward": 0.1},
+          "per_rank": [{"param_bytes": None, "param_bytes_expected": None,
+                        "moment_bytes": None, "moment_bytes_expected": None,
+                        "kernel_launches": 0}],
+          "ep_fwd_err": 1e-6, "ep_grad_err": 2e-5, "ep_drop_frac": 0.0,
+          "ep_fwd_bwd_s": 1.5}
+    assert "EP forward max |diff| 1e-06" in chip_smoke.lm_shard_line(ep,
+                                                                      "ep")

@@ -280,11 +280,18 @@ def test_the_cli_writes_a_cell_with_the_reference_keys(tmp_path):
 
 def test_the_cli_refuses_the_lm_flags_and_a_missing_program(tmp_path,
                                                             capsys):
+    """The LM flags run LM cells (tests/test_torch_lm_dryrun.py); misused
+    they are refused: an arch without a shape, a shape alone, LM cells on
+    the host mesh, and no program at all."""
     for argv in (["--ials", "policy_rollout", "--arch", "qwen3-4b"],
-                 ["--all"], ["--shape", "train_4k"], []):
+                 ["--all", "--mesh", "host"], ["--shape", "train_4k"], []):
         with pytest.raises(SystemExit):
             dryrun.main(argv + ["--device", "cpu", "--out", str(tmp_path)])
-    assert "LM training and sharding slice" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "--arch and --shape go together" in err
+    assert "LM cells run on --mesh pod1, pod2 or both" in err
+    assert "is required" in err
+    assert not list(tmp_path.glob("*.json"))
 
 
 def test_without_cuda_the_default_device_refuses(tmp_path):

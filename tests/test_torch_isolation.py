@@ -2,8 +2,9 @@
 ``jax`` and ``repro`` out of ``sys.modules``; no module of
 ``src/repro_torch`` (the dry-run, ``launch/dryrun.py``, and its op
 count, ``distributed/op_analysis.py``, included), not ``chip_smoke.py``
-and not the five ablation tools, the profiler check, the fault smoke, the shard smoke and the iteration
-profile that run beside it on the card, not the port's examples (the
+and not the five ablation tools, the profiler check, the fault smoke, the
+shard smokes (the IALS and the LM one) and the iteration profile that
+run beside it on the card, not the port's examples (the
 quickstart, the two training sweeps, the LM serving demo, the LM
 pretraining example) and not the chaos smoke and docs
 check import them; and without CUDA the entry points
@@ -56,7 +57,11 @@ def test_the_analysis_modules_are_checked():
               "repro_torch.configs.archs", "repro_torch.launch.train",
               "repro_torch.launch.steps", "repro_torch.data.pipeline",
               "repro_torch.optim.grad_compress",
-              "repro_torch.optim.adamw"):
+              "repro_torch.optim.adamw",
+              "repro_torch.distributed.act_sharding",
+              "repro_torch.distributed.sharding",
+              "repro_torch.launch.specs", "repro_torch.launch.attribute",
+              "repro_torch.nn.moe_ep"):
         assert m in mods, m
 
 
@@ -68,6 +73,7 @@ def test_the_analysis_modules_are_checked():
        "tools/profile_count.py", "tools/torch_fault_smoke.py",
        "tools/iteration_profile.py", "tools/torch_serve_chaos.py",
        "tools/torch_docs_check.py", "tools/torch_shard_smoke.py",
+       "tools/torch_lm_shard_smoke.py", "tools/torch_lm_mixer_tp_check.py",
        "examples/torch_quickstart.py",
        "examples/torch_train_traffic.py",
        "examples/torch_train_warehouse.py",

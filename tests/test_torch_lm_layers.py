@@ -302,7 +302,10 @@ def test_moe_apply_ep_without_a_mesh_is_moe_apply_and_refuses_one():
     c, _ = tmoe_ep.moe_apply_ep(tp, x, top_k=2,
                                 mesh=MeshLayout(("data",), (2,)))
     assert torch.equal(a, c)
-    with pytest.raises(NotImplementedError, match="sharding slice"):
+    # over a mesh with a "model" axis the route runs on DTensors on a
+    # DeviceMesh (its parity: tests/test_torch_lm_sharded_moe.py); a
+    # layout without a process group, or plain tensors, are refused
+    with pytest.raises(TypeError, match="DTensors on a DeviceMesh"):
         tmoe_ep.moe_apply_ep(tp, x, top_k=2,
                              mesh=MeshLayout(("data", "model"), (1, 2)))
 

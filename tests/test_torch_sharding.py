@@ -332,6 +332,31 @@ def test_the_ranks_wait_for_rank0s_fit_beyond_the_group_timeout(tmp_path):
     assert all("rank0_alone ok" in out for _, out in res)
 
 
+LATE_START = textwrap.dedent("""
+    import os, sys, time
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_ranks
+    if os.environ["RANK"] == "1":
+        time.sleep(8)     # a late interpreter, past the group's 5 s
+    init_ranks("gloo", "cpu", init_method=sys.argv[1], timeout_s=5)
+    t = torch.tensor([dist.get_rank() + 1.0])
+    dist.all_reduce(t)
+    assert float(t) == 3.0
+    dist.destroy_process_group()
+    print("late start ok")
+""")
+
+
+def test_ranks_that_start_apart_join_a_group_with_a_short_timeout(tmp_path):
+    """``init_ranks`` meets the ranks in the store (``RENDEZVOUS_S``)
+    before the group connects: a rank that starts 8 s late joins a group
+    whose waits time out after 5 s."""
+    res = spawn(2, ["-c", LATE_START, f"file://{tmp_path / 'store'}"])
+    assert [rc for rc, _ in res] == [0, 0], res[1][1][-3000:]
+    assert all("late start ok" in out for _, out in res)
+
+
 # ---------------------------------------------------------------------------
 # refusals: nothing runs other than what was asked
 # ---------------------------------------------------------------------------

@@ -86,6 +86,16 @@ REQUIRED_SNIPPETS = (
     "models/lm.py::checkpoint_name",
     "python -m repro_torch.launch.train",
     "python examples/torch_lm_pretrain.py",
+    # LM sharding
+    "distributed/act_sharding.py::constrain",
+    "distributed/sharding.py::param_specs",
+    "distributed/sharding.py::to_placements",
+    "launch/specs.py::train_input_specs",
+    "launch/dryrun.py::run_cell",
+    "nn/moe_ep.py::moe_apply_ep",
+    "python -m repro_torch.launch.attribute",
+    "tools/torch_lm_shard_smoke.py",
+    "tools/torch_lm_mixer_tp_check.py",
     # entry points
     "python -m repro_torch.launch.rl_train",
     "python -m repro_torch.launch.policy_serve",

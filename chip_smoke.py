@@ -236,7 +236,10 @@ Phases, each printing its result and time on its own line:
      counts run beside (b) and (c), whose step times are taken so;
      phases 8 and 9 run without them) and read at its end: each
      ``ok``, collective bytes above 0, its model-FLOP bound and argument
-     bytes per device beside the global bytes over the chips printed;
+     bytes per device beside the global bytes over the chips printed,
+     and how it was counted (``counted_by``: the layer groups, encoder
+     layers and microbatches extrapolated from a few trip counts, or
+     every iteration; ``trips``: the full trip counts and the points);
      (b) ``tools/torch_lm_shard_smoke.py`` at qwen3-4b's full width cut
      to 2 layers, float32, B = 8 x 512, 2 microbatches, 2 steps, on 2
      ranks (data 2, the config's ``fsdp_only``) and 4 (data 2, model 2,
@@ -3860,8 +3863,14 @@ def lm_dryrun_line(cell) -> str:
                              f"kernel launches counted")
     coll = ", ".join(f"{k} {v / 2**30:.3f}" for k, v in
                      sorted(ops["collective_bytes"].items()))
+    trips = cell["trips"]
+    points = sorted({tuple(p[k] for k in trips if k != "points")
+                     for p in trips["points"]})
+    loops = ", ".join(f"{k} {v}" for k, v in trips.items() if k != "points")
     return (f"[dryrun] {name} ({cell['n_chips']} chips, "
-            f"{cell['parallelism']}): counted in {cell['count_s']:.1f} s; "
+            f"{cell['parallelism']}): counted in {cell['count_s']:.1f} s, "
+            f"{cell['counted_by']} (trips: {loops}; counted at "
+            f"{points}); "
             f"per device: {ops['flops']:.4g} FLOPs, HBM "
             f"{ops['hbm_bytes'] / 2**30:.2f} GiB (unfused), collectives "
             f"GiB {{{coll}}}; argument bytes "

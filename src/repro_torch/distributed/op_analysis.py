@@ -38,11 +38,16 @@ counts with the reference's rules:
   (``kernels/ops.py`` dispatches on the tensor's device), and their ops
   count.
 
-Loops need no trip-count multiplier: eager PyTorch dispatches every op of
-every iteration, so a horizon of T ticks counts T bodies, and nested loops
-multiply, by construction (the reference corrects for XLA's cost analysis
-counting a while body once). Ops outside the ``aten`` namespace are not
-counted. All numbers are one process's: a rank's, on its block.
+Loops: eager PyTorch dispatches every op of every iteration, so what
+runs under the counter counts every iteration by construction (a horizon
+of T ticks counts T bodies; the reference multiplies a while body's count
+by its trip count, ``_trip_count``). That makes a deep program slow to
+count, so the LM dry-run (``launch/dryrun.py``, "Loops") runs its cells
+at a few trip counts of the loops the reference scans over (layer
+groups, encoder layers, microbatches) and extrapolates, exactly; the
+IALS cells and the loops over the sequence count every iteration. Ops
+outside the ``aten`` namespace are not counted. All numbers are one
+process's: a rank's, on its block.
 
 ``roofline`` keeps the reference's keys and formulas with the H100's
 peaks (NVIDIA's data sheet, SXM part, dense, at the 700 W limit).

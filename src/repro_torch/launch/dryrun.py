@@ -26,6 +26,33 @@ non-embedding parameters). ``memory.argument_bytes_per_device`` is the
 sum of rank 0's local blocks; a fake run measures no peak, so
 ``peak_bytes_per_device`` is ``null`` with the reason.
 
+Loops. The reference runs the decoder's layer groups, whisper's encoder
+layers and a train step's microbatches under ``lax.scan``, and its
+``hlo_analysis`` multiplies a body's count by the trip count. The port's
+loops are Python loops that dispatch every iteration, so a cell is
+counted at a few trip counts and extrapolated (``lm_trips``,
+``trip_points``, ``at_trips``). The count is linear in each of these
+loops from 2 trips on (one group leaves a stacked dim of size 1, which
+DTensor gathers another way; one microbatch takes ``make_train_step``'s
+path without a split or an accumulation) and multilinear across them
+(every group runs once a microbatch), so the counts at two trip counts
+a, b of each loop give the full count N exactly: a point's weight is the
+product over loops of (b - N) / (b - a) or (N - a) / (b - a). A point
+keeps the cell's widths: its config has the point's groups
+(``n_layers``) and encoder layers, its batch the point's microbatches of
+the full cell's rows each, and a trip count qualifies only where every
+argument shards as in the full cell (the moments' widening and the
+batch's axes follow divisibility). A loop extrapolates where that
+counts fewer layers than its full count would; the rest count every
+iteration. Every number the counter reports, and the step's output and
+alias bytes, is that weighted sum of the points' (in integers: exact);
+the argument bytes come from the full-depth arguments. ``counted_by``
+says how (``"extrapolated"``, or ``"every iteration"``: ``exact=True``,
+and ``record=True``, whose per-(op, shapes) rows do not extrapolate);
+``trips`` holds the full trip counts and each point counted. The loops
+over the sequence (the loss chunks, ``nn/ssm.py``'s chunks and steps)
+depend on T and count iteration by iteration.
+
 The IALS cells:
 
 A cell is one of the repo's real programs at representative shapes (A in
@@ -89,12 +116,15 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import gc
+import itertools
 import json
 import os
 import subprocess
 import sys
 import time
+from fractions import Fraction
 from pathlib import Path
 from typing import Callable, NamedTuple
 
@@ -218,41 +248,50 @@ def lm_model_flops(cfg, shape) -> float:
         * n_active * tokens
 
 
-def lm_cell_program(cfg, shape, mesh):
-    """-> (step, args) of a cell on ``mesh`` (a ``DeviceMesh`` of a fake
-    process group; call under ``FakeTensorMode``): every argument a
-    ``DTensor`` of rank 0's block on its spec, AdamW's step a host int."""
+def lm_cell_inputs(cfg, shape, mesh) -> list:
+    """-> [(meta tree, spec tree)] of a cell's step arguments, in order
+    (``mesh`` a ``DeviceMesh`` or a ``MeshLayout``): the parameters,
+    then AdamW's state and the batch (train), the prompt (prefill) or the
+    decode cache and token."""
     from repro_torch.launch import specs as specs_lib
-    from repro_torch.launch import steps as steps_lib
     from repro_torch.models import lm
     from repro_torch.optim.adamw import adamw
     sharding.set_moe_expert_axes(cfg.moe_expert_axes)
     pshapes = lm.param_shapes(cfg)
     pspecs = sharding.param_specs(pshapes, mesh, cfg.parallelism)
-    params = _fake_dtensors(pshapes, pspecs, mesh)
+    out = [(pshapes, pspecs)]
     if shape.kind == "train":
-        opt = adamw(1e-4)
-        state = opt.init(pshapes)
-        ospecs = sharding.opt_state_specs(state, mesh, pspecs)
-        state = _fake_dtensors(state, ospecs, mesh)._replace(step=0)
-        inputs = specs_lib.train_input_specs(cfg, shape, mesh)
+        state = adamw(1e-4).init(pshapes)
+        out.append((state, sharding.opt_state_specs(state, mesh, pspecs)))
+        out.append(specs_lib.train_input_specs(cfg, shape, mesh))
+    elif shape.kind == "prefill":
+        out.append(specs_lib.prefill_input_specs(cfg, shape, mesh))
+    else:
+        inputs = specs_lib.decode_input_specs(cfg, shape, mesh)
+        tensors, specs = dict(inputs.tensors), dict(inputs.specs)
+        tensors.pop("pos")
+        specs.pop("pos")
+        out.append((tensors, specs))
+    return [tuple(x) for x in out]
+
+
+def lm_cell_program(cfg, shape, mesh):
+    """-> (step, args) of a cell on ``mesh`` (a ``DeviceMesh`` of a fake
+    process group; call under ``FakeTensorMode``): every argument a
+    ``DTensor`` of rank 0's block on its spec, AdamW's step a host int."""
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.optim.adamw import adamw
+    args = [_fake_dtensors(t, s, mesh)
+            for t, s in lm_cell_inputs(cfg, shape, mesh)]
+    if shape.kind == "train":
         n_micro = cfg.force_microbatches or shape.n_microbatches
-        step = steps_lib.make_train_step(cfg, opt, n_micro)
-        return step, (params, state,
-                      _fake_dtensors(inputs.tensors, inputs.specs, mesh))
+        step = steps_lib.make_train_step(cfg, adamw(1e-4), n_micro)
+        return step, (args[0], args[1]._replace(step=0), args[2])
     if shape.kind == "prefill":
-        inputs = specs_lib.prefill_input_specs(cfg, shape, mesh)
-        step = steps_lib.make_prefill_step(cfg, shape.seq_len)
-        return step, (params,
-                      _fake_dtensors(inputs.tensors, inputs.specs, mesh))
-    inputs = specs_lib.decode_input_specs(cfg, shape, mesh)
-    tensors = dict(inputs.tensors)
-    specs = dict(inputs.specs)
-    tensors.pop("pos")
-    specs.pop("pos")
-    d = _fake_dtensors(tensors, specs, mesh)
+        return steps_lib.make_prefill_step(cfg, shape.seq_len), tuple(args)
+    d = args[1]
     # the cache's last slot: the step attends over every position
-    return steps_lib.make_serve_step(cfg), (params, d["cache"], d["token"],
+    return steps_lib.make_serve_step(cfg), (args[0], d["cache"], d["token"],
                                             shape.seq_len - 1)
 
 
@@ -275,55 +314,232 @@ def _check_counter(mesh):
             f"DTensor propagation is not hidden from it")
 
 
-def run_cell(arch: str, shape_name: str, mesh_name: str,
-             overrides: dict | None = None, *, record: bool = False):
-    """Count one LM cell (module docstring) -> its JSON record; with
-    ``record`` -> (record, the counter's ``rows()``)."""
+# the least trip count from which a loop's count is linear in it
+LINEAR_FROM = {"groups": 2, "encoder_layers": 2, "microbatches": 2}
+
+
+def lm_trips(cfg, shape) -> dict:
+    """The loops of a cell the reference scans over -> their full trip
+    counts: ``groups`` (the decoder's layer groups), ``encoder_layers``
+    (whisper), ``microbatches`` (a train step)."""
+    trips = {"groups": cfg.layer_plan()[2]}
+    if cfg.family == "encdec":
+        trips["encoder_layers"] = cfg.n_encoder_layers
+    if shape.kind == "train":
+        trips["microbatches"] = cfg.force_microbatches or \
+            shape.n_microbatches
+    return trips
+
+
+def at_trips(cfg, shape, point: dict):
+    """``cfg`` and ``shape`` with the loops' trip counts set to ``point``'s
+    (a microbatch keeps the full cell's rows)."""
+    prologue, pattern, _ = cfg.layer_plan()
+    kw = {"n_layers": len(prologue) + point["groups"] * len(pattern)}
+    if "encoder_layers" in point:
+        kw["n_encoder_layers"] = point["encoder_layers"]
+    if "microbatches" in point:
+        m = point["microbatches"]
+        rows = shape.global_batch // lm_trips(cfg, shape)["microbatches"]
+        kw["force_microbatches"] = m
+        shape = dataclasses.replace(shape, global_batch=rows * m,
+                                    n_microbatches=m)
+    out = cfg.with_overrides(**kw)
+    if out.layer_plan()[2] != point["groups"]:
+        raise ValueError(f"{cfg.name}: {kw['n_layers']} layers give "
+                         f"{out.layer_plan()[2]} groups, not "
+                         f"{point['groups']}")
+    return out, shape
+
+
+def _signature(cfg, shape, mesh, point: dict) -> list:
+    """The spec trees of the arguments at ``point``'s trip counts: equal to
+    the full cell's where the point shards every argument alike (the
+    moments' widening and the batch's axes follow divisibility)."""
+    return [spec for _, spec in lm_cell_inputs(*at_trips(cfg, shape, point),
+                                               mesh)]
+
+
+def _layer_runs(cfg, point: dict) -> int:
+    """A point's cost in layer applications: its layers times its
+    microbatches."""
+    prologue, pattern, _ = cfg.layer_plan()
+    layers = len(prologue) + point["groups"] * len(pattern) + \
+        point.get("encoder_layers", 0)
+    return layers * point.get("microbatches", 1)
+
+
+def trip_points(cfg, shape, mesh, extrapolate=None) -> dict:
+    """-> {loop: the trip counts it is counted at}. A loop extrapolates
+    from the two least counts from ``LINEAR_FROM[loop]`` on, below its
+    full count, at which every argument shards as in the full cell (the
+    other loops full); any other loop is counted at its full count.
+    ``extrapolate`` names the loops that may extrapolate (``()``: none,
+    every iteration); ``None`` takes the set whose points run the fewest
+    layer applications (``_layer_runs``), none where that is not fewer
+    than the full cell's. Where a combination of the points shards
+    otherwise, every loop is counted at its full count."""
+    trips = lm_trips(cfg, shape)
+    axes = {name: [n] for name, n in trips.items()}
+    if extrapolate == ():
+        return axes
+    full = _signature(cfg, shape, mesh, trips)
+    cand = {}
+    for name, n in trips.items():
+        if extrapolate is not None and name not in extrapolate:
+            continue
+        ok = []
+        for k in range(LINEAR_FROM[name], n):
+            if _signature(cfg, shape, mesh, dict(trips, **{name: k})) \
+                    == full:
+                ok.append(k)
+                if len(ok) == 2:
+                    cand[name] = ok
+                    break
+    plans = [dict(axes, **{n: cand[n] for n in names})
+             for k in range(len(cand) + 1)
+             for names in itertools.combinations(cand, k)]
+    if extrapolate is not None:
+        plans = plans[-1:]
+    best = min(plans, key=lambda ax: sum(
+        _layer_runs(cfg, dict(zip(ax, c)))
+        for c in itertools.product(*ax.values())))
+    for c in itertools.product(*best.values()):
+        if _signature(cfg, shape, mesh, dict(zip(best, c))) != full:
+            return axes
+    return best
+
+
+def _weights(axes: dict, trips: dict, point: dict) -> Fraction:
+    """A point's weight in the multilinear form that takes the points'
+    counts to the full trip counts' (1 on a loop counted as it is)."""
+    w = Fraction(1)
+    for name, ps in axes.items():
+        if len(ps) == 2:
+            a, b, n = ps[0], ps[1], trips[name]
+            w *= Fraction(n - a if point[name] == b else b - n, b - a)
+    return w
+
+
+def _combine(values: list, weights: list):
+    """sum(w * v) over nested dicts of numbers (a missing key is 0), in
+    exact rationals where every value is an integer (a count linear in
+    the loops comes out an integer)."""
+    if any(isinstance(v, dict) for v in values):
+        keys = list(dict.fromkeys(k for v in values for k in v))
+        return {k: _combine([v.get(k, 0) for v in values], weights)
+                for k in keys}
+    if all(float(v).is_integer() for v in values):
+        total = sum(w * int(v) for w, v in zip(weights, values))
+        if total.denominator == 1:
+            return float(total.numerator) if any(
+                isinstance(v, float) for v in values) else total.numerator
+    return float(sum(float(w) * v for w, v in zip(weights, values)))
+
+
+def _count_program(cfg, shape, mesh, record: bool):
+    """Count one step of ``cfg`` / ``shape`` on ``mesh`` -> (the counter,
+    its argument, global argument, output and alias bytes)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
-    from repro_torch.configs.base import SHAPES, cell_applicable, get_config
     from repro_torch.distributed.act_sharding import use_mesh
-    from repro_torch.models import lm
-    cfg = get_config(arch)
-    if overrides:
-        cfg = cfg.with_overrides(**overrides)
-    shape = SHAPES[shape_name]
-    ok, reason = cell_applicable(cfg, shape)
-    if not ok:
-        cell = {"arch": arch, "shape": shape_name, "mesh": mesh_name,
-                "status": reason}
-        return (cell, []) if record else cell
-    layout = _lm_layout(mesh_name)
-    n_chips = layout.size
-    t0 = time.perf_counter()
-    with fake_ranks(layout) as mesh, \
-            FakeTensorMode(allow_non_fake_inputs=True):
-        _check_counter(mesh)
+    with FakeTensorMode(allow_non_fake_inputs=True):
         step, args = lm_cell_program(cfg, shape, mesh)
         with op_analysis.OpCounter(record=record) as counter, \
                 use_mesh(mesh, cfg.parallelism):
             out = step(*args)
-        arg_bytes = _local_nbytes(args)
-        global_bytes = _global_nbytes(args)
-        out_bytes = _local_nbytes(out)
         ins = {id(x) for x in tree_leaves(args)}
-        alias = sum(_local_nbytes(x) for x in tree_leaves(out)
-                    if id(x) in ins)
+        nbytes = {
+            "argument": _local_nbytes(args),
+            "global": _global_nbytes(args),
+            "output": _local_nbytes(out),
+            "alias": sum(_local_nbytes(x) for x in tree_leaves(out)
+                         if id(x) in ins)}
+    return counter, nbytes
+
+
+def _argument_bytes(cfg, shape, mesh) -> dict:
+    """The full-depth arguments' local and global bytes (built, not
+    run)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        _, args = lm_cell_program(cfg, shape, mesh)
+        return {"argument": _local_nbytes(args),
+                "global": _global_nbytes(args)}
+
+
+def run_cell(arch: str, shape_name: str, mesh_name: str,
+             overrides: dict | None = None, *, record: bool = False,
+             exact: bool = False):
+    """Count one LM cell (module docstring) -> its JSON record; with
+    ``record`` -> (record, the counter's ``rows()``). ``exact`` (implied
+    by ``record``) counts every iteration of every loop; else the loops
+    extrapolate where that counts fewer layers (``trip_points``)."""
+    from repro_torch.configs.base import SHAPES, cell_applicable, get_config
+    cfg = get_config(arch)
+    if overrides:
+        cfg = cfg.with_overrides(**overrides)
+    shape = SHAPES[shape_name]
+    layout = _lm_layout(mesh_name) if cell_applicable(cfg, shape)[0] \
+        else None
+    return count_cell(cfg, shape, layout, mesh_name, record=record,
+                      extrapolate=() if exact else None)
+
+
+def count_cell(cfg, shape, layout, mesh_name: str, *, record: bool = False,
+               extrapolate=None):
+    """``run_cell`` on a config, a ``ShapeCell`` and a layout (any
+    ``MeshLayout``; ``mesh_name`` names it in the record); ``extrapolate``
+    as ``trip_points`` takes it (``()``: every iteration)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.configs.base import cell_applicable
+    from repro_torch.models import lm
+    arch = cfg.name
+    ok, reason = cell_applicable(cfg, shape)
+    if not ok:
+        cell = {"arch": arch, "shape": shape.name, "mesh": mesh_name,
+                "status": reason}
+        return (cell, []) if record else cell
+    n_chips = layout.size
+    if record:
+        extrapolate = ()
+    trips = lm_trips(cfg, shape)
+    t0 = time.perf_counter()
+    with fake_ranks(layout) as mesh:
+        with FakeTensorMode(allow_non_fake_inputs=True):
+            _check_counter(mesh)
+        axes = trip_points(cfg, shape, mesh, extrapolate)
+        points = [dict(zip(axes, c)) for c in itertools.product(
+            *axes.values())]
+        results, point_log = [], []
+        for point in points:
+            t1 = time.perf_counter()
+            counter, nbytes = _count_program(*at_trips(cfg, shape, point),
+                                             mesh, record)
+            results.append((counter, nbytes))
+            point_log.append(dict(point, count_s=time.perf_counter() - t1))
+        every = points == [trips]
+        nbytes = results[0][1] if every else _argument_bytes(cfg, shape,
+                                                             mesh)
     count_s = time.perf_counter() - t0
-    ops = counter.result()
+    weights = [_weights(axes, trips, p) for p in points]
+    ops = _combine([c.result() for c, _ in results], weights)
+    moved = _combine([{k: b[k] for k in ("output", "alias")}
+                      for _, b in results], weights)
     counts = lm.count_params(cfg)
     cell = {
-        "arch": arch, "shape": shape_name, "mesh": mesh_name,
+        "arch": arch, "shape": shape.name, "mesh": mesh_name,
         "status": "ok", "family": cfg.family, "kind": shape.kind,
         "parallelism": cfg.parallelism, "n_chips": n_chips,
-        "n_microbatches": (cfg.force_microbatches or shape.n_microbatches)
-        if shape.kind == "train" else 1,
+        "n_microbatches": trips.get("microbatches", 1),
         "count_s": count_s, "counted_on": LM_COUNTED_ON,
+        "counted_by": "every iteration" if every else "extrapolated",
+        "trips": dict(trips, points=point_log),
         "params_total": counts["total"], "params_active": counts["active"],
         "memory": {
-            "argument_bytes_per_device": arg_bytes,
-            "argument_bytes_global_over_chips": global_bytes / n_chips,
-            "output_bytes_per_device": out_bytes,
-            "alias_bytes_per_device": alias,
+            "argument_bytes_per_device": nbytes["argument"],
+            "argument_bytes_global_over_chips": nbytes["global"] / n_chips,
+            "output_bytes_per_device": moved["output"],
+            "alias_bytes_per_device": moved["alias"],
             "peak_bytes_per_device": None,
             "peak_not_measured": "counted on fake tensors: nothing is "
                                  "allocated",
@@ -336,7 +552,7 @@ def run_cell(arch: str, shape_name: str, mesh_name: str,
     rf = cell["roofline"]
     rf["model_flops_bound_s"] = rf["model_flops_total"] / n_chips / \
         op_analysis.peak_flops(cfg.dtype())
-    return (cell, counter.rows()) if record else cell
+    return (cell, results[0][0].rows()) if record else cell
 
 
 def _lm_cell_filename(arch, shape, mesh, tag="") -> str:

@@ -1,13 +1,14 @@
 """State-space / recurrent blocks: Mamba (S6), xLSTM's mLSTM and sLSTM
 (counterpart of ``repro/nn/ssm.py``).
 
-- Mamba: the reference runs a ``lax.associative_scan`` inside each chunk;
-  the port runs the recurrence ``h = decay * h + u`` step by step inside
-  each chunk (no counterpart of the associative scan), so the state is
-  the same sum in another order: within float32 rounding of it.
+- Mamba: a chunked associative scan, as the reference's: sequential over
+  the chunks (carrying the (B, dI, dS) state), ``associative_scan`` of
+  ``(decay, u)`` inside a chunk (``jax.lax.associative_scan``'s pairing
+  and order, log2(chunk) levels), so live memory is (B, chunk, dI, dS).
 - mLSTM: the chunkwise-parallel form (intra-chunk gate-weighted scores,
   one rank-L update of the matrix memory per chunk), with the xLSTM
-  max-stabiliser; ``mlstm_step`` is the recurrent cell.
+  max-stabiliser; ``chunkwise=False`` runs the recurrent cell step by
+  step (the reference's fallback); ``mlstm_step`` is that cell.
 - sLSTM: the recurrent cell over time, with fused recurrent weights.
 - All recurrent state is float32 whatever the activation dtype.
 """
@@ -128,9 +129,53 @@ def _mamba_inputs(p: Params, xc: torch.Tensor, d_state: int):
     return dt, B_, C_
 
 
+def _ssm_combine(a, b):
+    (a1, u1), (a2, u2) = a, b
+    return a1 * a2, a2 * u1 + u2
+
+
+def _slice(x: torch.Tensor, dim: int, start, stop=None, step=None):
+    return x[(slice(None),) * dim + (slice(start, stop, step),)]
+
+
+def _interleave(a: torch.Tensor, b: torch.Tensor, dim: int) -> torch.Tensor:
+    """a[0], b[0], a[1], b[1], ... along ``dim`` (``a`` as long as ``b``
+    or one longer)."""
+    n = b.shape[dim]
+    out = torch.stack([_slice(a, dim, 0, n), b], dim + 1).flatten(dim,
+                                                                   dim + 1)
+    if a.shape[dim] > n:
+        out = torch.cat([out, _slice(a, dim, n)], dim)
+    return out
+
+
+def associative_scan(fn, elems, dim: int):
+    """Inclusive scan of the tuple ``elems`` along ``dim`` with the
+    associative ``fn`` in ``jax.lax.associative_scan``'s order: combine
+    adjacent pairs, scan the pairs (recursively: the odd positions),
+    combine each with the next even element (the even positions), the
+    first element as it is."""
+    n = elems[0].shape[dim]
+    if n < 2:
+        return elems
+    reduced = fn(tuple(_slice(e, dim, 0, -1, 2) for e in elems),
+                 tuple(_slice(e, dim, 1, None, 2) for e in elems))
+    odd = associative_scan(fn, reduced, dim)
+    rest = tuple(_slice(e, dim, 2, None, 2) for e in elems)
+    if n % 2 == 0:
+        even = fn(tuple(_slice(o, dim, 0, -1) for o in odd), rest)
+    else:
+        even = fn(odd, rest)
+    even = tuple(torch.cat([_slice(e, dim, 0, 1), r], dim)
+                 for e, r in zip(elems, even))
+    return tuple(_interleave(e, o, dim) for e, o in zip(even, odd))
+
+
 def mamba_apply(p: Params, x: torch.Tensor, *, d_state: int = 16,
                 chunk: int = 128, return_state: bool = False):
-    """x: (B, T, d_model) -> (B, T, d_model). Full-sequence (prefill)."""
+    """x: (B, T, d_model) -> (B, T, d_model). Full-sequence (prefill):
+    chunk by chunk, each chunk's states from an associative scan of
+    ``(decay, u)`` and the carried state (module docstring)."""
     B, T, _ = x.shape
     dI = p["conv_w"].shape[0]
     xi, z = (x @ p["in_proj"]).chunk(2, dim=-1)
@@ -146,12 +191,10 @@ def mamba_apply(p: Params, x: torch.Tensor, *, d_state: int = 16,
         sl = slice(c0, c0 + ck)
         decay = torch.exp(dt[:, sl, :, None] * A)                 # (B,ck,dI,dS)
         u = (dt[:, sl] * xc32[:, sl])[..., None] * B_[:, sl, None, :]
-        hs = []
-        for t in range(ck):
-            h = decay[:, t] * h + u[:, t]
-            hs.append(h)
-        ys.append(torch.einsum("btds,bts->btd", torch.stack(hs, 1),
-                               C_[:, sl]))
+        a_cum, u_cum = associative_scan(_ssm_combine, (decay, u), 1)
+        hs = a_cum * h[:, None] + u_cum                         # (B,ck,dI,dS)
+        ys.append(torch.einsum("btds,bts->btd", hs, C_[:, sl]))
+        h = hs[:, -1]
     y = torch.cat(ys, dim=1)
     y = y + p["D"] * xc32
     out = (y.to(x.dtype) * F.silu(z)) @ p["out_proj"]
@@ -315,22 +358,31 @@ def _mlstm_qkvif(p: Params, xi, xc, n_heads: int):
 
 
 def mlstm_apply(p: Params, x: torch.Tensor, n_heads: int, *,
-                chunk: int = 64, return_state: bool = False):
-    """x: (B, T, d_model), chunkwise-parallel over chunks of ``chunk``."""
+                chunk: int = 64, return_state: bool = False,
+                chunkwise: bool = True):
+    """x: (B, T, d_model), chunkwise-parallel over chunks of ``chunk``;
+    ``chunkwise=False`` runs the recurrent cell step by step (the chunks
+    then change nothing)."""
     B, T, _ = x.shape
     dI = p["conv_w"].shape[0]
     xi, z = (x @ p["up_proj"]).chunk(2, dim=-1)
     xc = F.silu(causal_conv1d(xi, p["conv_w"], p["conv_b"]))
     q, k, v, i_raw, f_raw = _mlstm_qkvif(p, xi, xc, n_heads)
 
-    ck = _chunk(T, chunk)
     st = mlstm_init_state(B, dI, n_heads, 1, dtype=x.dtype, device=x.device)
     hs = []
-    for c0 in range(0, T, ck):
-        sl = lambda a: a[:, c0:c0 + ck].transpose(0, 1)
-        h_c, st = _mlstm_chunk_parallel(sl(q), sl(k), sl(v), sl(i_raw),
-                                        sl(f_raw), st)
-        hs.append(h_c)                                  # (ck, B, NH, DH)
+    if chunkwise:
+        ck = _chunk(T, chunk)
+        for c0 in range(0, T, ck):
+            sl = lambda a: a[:, c0:c0 + ck].transpose(0, 1)
+            h_c, st = _mlstm_chunk_parallel(sl(q), sl(k), sl(v), sl(i_raw),
+                                            sl(f_raw), st)
+            hs.append(h_c)                              # (ck, B, NH, DH)
+    else:
+        for t in range(T):
+            h_t, st = _mlstm_cell((q[:, t], k[:, t], v[:, t], i_raw[:, t],
+                                   f_raw[:, t]), st)
+            hs.append(h_t[None])                        # (1, B, NH, DH)
     h = torch.cat(hs, dim=0).reshape(T, B, dI).transpose(0, 1).to(x.dtype)
     h = _groupnorm_heads(h, p["out_norm_g"], n_heads)
     out = (h * F.silu(z)) @ p["down_proj"]
@@ -422,17 +474,23 @@ def _fused_r(p: Params) -> torch.Tensor:
 
 def _slstm_cell(r_all: torch.Tensor, state: SLSTMState,
                 wx: torch.Tensor) -> tuple:
-    """wx: (B, 4, NH, DH) input projections [z, i, f, o]."""
-    rg = torch.einsum("bhj,hij->bhi", state.h, r_all)
+    """wx: (B, 4, NH, DH) input projections [z, i, f, o]. The reference's
+    ``einsum("bhj,hij->bhi")`` as one batched product over the heads,
+    and its ``logf + m`` once: the same sums, in fewer ops a step (the
+    dry-run counts every step)."""
+    rg = torch.bmm(state.h.transpose(0, 1), r_all.transpose(1, 2)) \
+        .transpose(0, 1)
     rz, ri, rf, ro = rg.chunk(4, dim=-1)
-    z_t = torch.tanh(wx[:, 0] + rz)
-    i_raw = wx[:, 1] + ri
-    f_raw = wx[:, 2] + rf
-    o_t = torch.sigmoid(wx[:, 3] + ro)
+    wz, wi, wf, wo = wx.unbind(1)
+    z_t = torch.tanh(wz + rz)
+    i_raw = wi + ri
+    f_raw = wf + rf
+    o_t = torch.sigmoid(wo + ro)
     logf = F.logsigmoid(f_raw)
-    m_new = torch.maximum(logf + state.m, i_raw)
+    lm = logf + state.m
+    m_new = torch.maximum(lm, i_raw)
     i_g = torch.exp(i_raw - m_new)
-    f_g = torch.exp(logf + state.m - m_new)
+    f_g = torch.exp(lm - m_new)
     c = f_g * state.c + i_g * z_t
     n = f_g * state.n + i_g
     h = o_t * c / torch.clamp(n, min=1e-6)

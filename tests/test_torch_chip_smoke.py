@@ -184,7 +184,10 @@ def test_the_step_profile_helpers():
 def _lm_cell(**kw):
     cell = {"arch": "whisper-base", "shape": "decode_32k", "mesh": "pod2",
             "status": "ok", "n_chips": 512, "parallelism": "tp",
-            "count_s": 2.5,
+            "count_s": 2.5, "counted_by": "extrapolated",
+            "trips": {"groups": 6, "encoder_layers": 6, "points": [
+                {"groups": 2, "encoder_layers": 6, "count_s": 1.0},
+                {"groups": 3, "encoder_layers": 6, "count_s": 1.5}]},
             "ops": {"collective_bytes_total": 3.0 * 2**30,
                     "collective_bytes": {"all-gather": 2.0 * 2**30,
                                          "all-reduce": 1.0 * 2**30},
@@ -205,6 +208,8 @@ def test_the_lm_sharding_phase_reads_a_dryrun_cell():
     assert line.startswith("[dryrun] whisper-base decode_32k pod2 (512")
     assert "model-FLOP bound 3.1e-09 s" in line
     assert "argument bytes 235000000 (global over chips 105000000)" in line
+    assert ("counted in 2.5 s, extrapolated (trips: groups 6, "
+            "encoder_layers 6; counted at [(2, 6), (3, 6)])") in line
     with pytest.raises(AssertionError, match="error"):
         chip_smoke.lm_dryrun_line(_lm_cell(status="error", stderr="x"))
     no_coll = _lm_cell()

@@ -3,8 +3,9 @@
 ``src/repro_torch`` (the dry-run, ``launch/dryrun.py``, and its op
 count, ``distributed/op_analysis.py``, included), not ``chip_smoke.py``
 and not the five ablation tools, the profiler check, the fault smoke, the
-shard smokes (the IALS and the LM one) and the iteration profile that
-run beside it on the card, not the port's examples (the
+shard smokes (the IALS and the LM one), the iteration profile and the
+xlstm card check that run beside it on the card, not the port's
+examples (the
 quickstart, the two training sweeps, the LM serving demo, the LM
 pretraining example) and not the chaos smoke and docs
 check import them; and without CUDA the entry points
@@ -74,6 +75,7 @@ def test_the_analysis_modules_are_checked():
        "tools/iteration_profile.py", "tools/torch_serve_chaos.py",
        "tools/torch_docs_check.py", "tools/torch_shard_smoke.py",
        "tools/torch_lm_shard_smoke.py", "tools/torch_lm_mixer_tp_check.py",
+       "tools/torch_xlstm_card_check.py",
        "examples/torch_quickstart.py",
        "examples/torch_train_traffic.py",
        "examples/torch_train_warehouse.py",

@@ -7,10 +7,10 @@ Every state comes back as the port's ``NamedTuple`` of the same name
 (``convert.to_torch`` rebuilds the reference's).
 
 Tolerance: ``SSM_TOL`` = 2e-5 absolute + 1e-5 relative (float32). The
-port runs Mamba's recurrence step by step inside each chunk where the
-reference runs a ``lax.associative_scan`` (the same sum in another
-order), and mLSTM's chunk-parallel form through einsums that reduce in
-another order. bf16 weights: ``BF16_TOL`` 3e-2 plus one bf16 ulp.
+port runs Mamba's associative scan in the reference's order
+(``tests/test_torch_ssm_scan.py``) but its products and mLSTM's
+chunk-parallel form through einsums that reduce in another order. bf16
+weights: ``BF16_TOL`` 3e-2 plus one bf16 ulp.
 """
 import numpy as np
 import pytest

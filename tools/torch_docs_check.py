@@ -92,6 +92,9 @@ REQUIRED_SNIPPETS = (
     "distributed/sharding.py::to_placements",
     "launch/specs.py::train_input_specs",
     "launch/dryrun.py::run_cell",
+    "launch/dryrun.py::trip_points",
+    "nn/ssm.py::associative_scan",
+    "tools/torch_xlstm_card_check.py",
     "nn/moe_ep.py::moe_apply_ep",
     "python -m repro_torch.launch.attribute",
     "tools/torch_lm_shard_smoke.py",

@@ -84,9 +84,10 @@ Phases, each printing its result and time on its own line:
      one-process traffic
      checkpoint at iteration 1 resumed under 2 ranks to 3 at
      ``--save-every 2`` (a save, its gather included, after the second
-     iteration only), equal to phase 3's uninterrupted run; the F-IALS (phase 3b's traffic run) and
-     the GS (one process here) on 2 ranks, PPO's plain loop, whose
-     bitwise repeat is reported, not required (no kernel launched); (d)
+     iteration only), equal to phase 3's uninterrupted run; the F-IALS
+     (phase 3b's traffic run) and the GS (one process here) on 2 ranks,
+     PPO's plain loop, whose bitwise repeat is reported, not required (no
+     kernel launched; the three runs side by side); (d)
      the steady iteration time at 1 and 2 ranks (traffic, the resumed
      run) and 1 and 4 (warehouse);
   4. the engine's own entry points on both domains (``engine.rollout``
@@ -109,7 +110,8 @@ Phases, each printing its result and time on its own line:
      warehouse A = 36) against the native batched envs, 32 ticks from the
      same state, actions, u and noise: integer leaves exactly, floats
      within ATOL; (c) the rows of ``benchmarks/multi_agent_throughput.py``
-     (gs, gs-multi, ials-1, multi-ials, loop-ials) at 16 envs x 128 ticks,
+     (gs, gs-multi, ials-1, multi-ials, loop-ials) at 16 envs x 128 ticks
+     (loop-ials over 32 of them: a rate a tick, cut for the script's time),
      traffic A = 25 (FNN AIP, stack 8) and the warehouse A = 36 (GRU),
      AIPs random from a seed, agent-steps/s each: multi-ials launches one
      ``fnn_rollout`` / ``aip_rollout_multi[warehouse]`` a horizon,
@@ -254,7 +256,15 @@ Phases, each printing its result and time on its own line:
      dropless, through the expert-parallel route on 4 ranks (data 2,
      model 2) against ``moe_apply``: output and gradients of
      ``out.sum()`` within the reference test's 1e-5 and 1e-4, of the
-     largest value where it exceeds 1.
+     largest value where it exceeds 1; (d) the recurrent mixers on
+     "model" (``act_sharding.mixer``) at full width, float32, on 4
+     ranks (data 2, model 2), one launch, B = 2 x 512: one Mamba layer
+     of jamba-1.5-large-398b (d 8192, dI 16384, d_state 16; four scan
+     chunks) and one mLSTM and one sLSTM layer of xlstm-1.3b (d 2048, 4
+     heads; two mLSTM chunks) against each mixer in one process: the
+     output and the gradients of ``(out * w).sum()``, the prefill state
+     and one decode step within the shard smoke's bounds, each rank's
+     bytes of the layer's weights the global bytes over its shards.
 The build phase also prints ptxas's register and spill lines per kernel
 and the HGMMA count of the tensor-core kernel's SASS (``cuobjdump``).
 Then one JSON line lists every kernel (route, source, the TPU kernel it
@@ -1398,19 +1408,25 @@ def _shard_smoke(world, model, extra, label, tmp):
     return summary
 
 
-def _train_ranks(world, argv, ref, label, tmp, bitwise=True,
-                 counter=None):
-    """``rl_train`` on ``world`` gloo ranks: its final params, losses and
-    GS evaluations must equal ``ref``'s (the one-process run) bitwise;
-    with ``bitwise`` False (PPO's plain loop, whose GEMMs may take other
-    algorithms at other row counts) they are compared and reported. Each
-    rank must launch ``counter`` once an iteration it ran (None: no
-    kernel at all)."""
+def _rl_ranks(world, argv, label, tmp):
+    """``rl_train`` on ``world`` gloo ranks -> its ``--out`` summary."""
     out = Path(tmp) / f"rl_{label.replace(' ', '_')}.json"
     _ranks(world, ["-m", "repro_torch.launch.rl_train", *argv,
                    "--dist-backend", "gloo", "--out", str(out)],
            f"rl_train {label}")
-    got = json.loads(out.read_text())
+    return json.loads(out.read_text())
+
+
+def _train_ranks(world, argv, ref, label, tmp, bitwise=True,
+                 counter=None, got=None):
+    """``rl_train`` on ``world`` gloo ranks (or its summary ``got``): its
+    final params, losses and GS evaluations must equal ``ref``'s (the
+    one-process run) bitwise; with ``bitwise`` False (PPO's plain loop,
+    whose GEMMs may take other algorithms at other row counts) they are
+    compared and reported. Each rank must launch ``counter`` once an
+    iteration it ran (None: no kernel at all)."""
+    if got is None:
+        got = _rl_ranks(world, argv, label, tmp)
 
     def hist(o):
         return [(r["loss"], r.get("gs_eval_reward")) for r in o["history"]
@@ -1482,15 +1498,23 @@ def phase_ranks(ref, keep):
         log(f"[ranks] resumed at --save-every 2: iteration 1 saved in "
             f"{saves[0] * 1e3:.2f} ms (the global rollout state's gather "
             f"and rank 0's write), iteration 2 saved nothing")
-        # PPO's plain loop on the ranks' lanes: runs, bitwise reported
-        _train_ranks(2, MAIN_ARGS + [
-            "--domain", "traffic", "--simulator", "f-ials", "--iterations",
-            "2", "--aip", "fnn"], ref["f-ials"], "f-ials traffic fnn A=1",
-            tmp, bitwise=False)
+        # PPO's plain loop on the ranks' lanes: runs, bitwise reported; the
+        # two 2-rank runs and the GS's one-process run side by side (their
+        # iteration times are then taken beside each other)
+        from concurrent.futures import ThreadPoolExecutor
         gs = MAIN_ARGS + ["--domain", "traffic", "--simulator", "gs",
                           "--iterations", "2"]
-        _, _, gs_one = _train(gs, "gs traffic A=1 (one process)")
-        _train_ranks(2, gs, gs_one, "gs traffic A=1", tmp, bitwise=False)
+        with ThreadPoolExecutor(2) as pool:
+            f_ials = pool.submit(_train_ranks, 2, MAIN_ARGS + [
+                "--domain", "traffic", "--simulator", "f-ials",
+                "--iterations", "2", "--aip", "fnn"], ref["f-ials"],
+                "f-ials traffic fnn A=1", tmp, bitwise=False)
+            gs_ranks = pool.submit(_rl_ranks, 2, gs, "gs traffic A=1", tmp)
+            _, _, gs_one = _train(gs, "gs traffic A=1 (one process, beside "
+                                  "the 2-rank runs)")
+            f_ials.result()
+            _train_ranks(2, gs, gs_one, "gs traffic A=1", tmp,
+                         bitwise=False, got=gs_ranks.result())
     # (d) the steady iteration time at 1, 2 and 4 ranks
     log(f"[ranks] steady iteration, traffic FNN A=1 (16 envs): 1 rank "
         f"{_steady_s(ref['fnn']):.4f} s, 2 ranks {_steady_s(res):.4f} s "
@@ -1566,6 +1590,10 @@ def phase_engine(dev):
 # phase 4b's widths: the loop baseline at benchmarks/multi_agent_throughput
 # .py's full size, every region an agent
 LOOP_ENVS, LOOP_T = 16, 128
+# loop-ials steps a Python loop tick by tick (nothing is amortized over
+# the horizon, so its rate a tick does not depend on the ticks): timed
+# over 32 of them, for the script's time
+LOOP_IALS_T = 32
 LOOP_DOMAINS = {"traffic": ("fnn", 8, 25), "warehouse": ("gru", 1, 36)}
 MIN_LOOP_SPEEDUP = 5.0     # the reference's bar for batched_over_loop
 
@@ -1826,12 +1854,12 @@ def _loop_baseline(domain, dev):
                for i in range(A)]
     loop_rollout(singles, n, 8, 172, dev)()     # warm-up, 8 ticks
     cuda.reset_launches()
-    s = _wall_s(loop_rollout(singles, n, T, 172, dev))
+    s = _wall_s(loop_rollout(singles, n, LOOP_IALS_T, 172, dev))
     launches["loop-ials"] = nonzero(cuda.LAUNCHES)
-    rates["loop-ials"] = n * T * A / s
+    rates["loop-ials"] = n * LOOP_IALS_T * A / s
     log(f"[loop] {domain} loop-ials: {rates['loop-ials']:.0f} agent-steps/s "
-        f"({s:.3f} s: {T} ticks x {A} vmapped scalar IALS steps of {n} "
-        f"envs); launches {launches['loop-ials']}")
+        f"({s:.3f} s: {LOOP_IALS_T} ticks x {A} vmapped scalar IALS steps "
+        f"of {n} envs); launches {launches['loop-ials']}")
     want = ("fnn_rollout[traffic]" if domain == "traffic"
             else "aip_rollout_multi[warehouse]")
     if launches["multi-ials"].get(want) != 3 or launches["loop-ials"]:
@@ -3846,6 +3874,13 @@ LM_SHARD_RUNS = ((2, 1, "fsdp_only"), (4, 2, "tp"))
 LM_EP_ARGV = ["--arch", "deepseek-moe-16b", "--batch", "8", "--seq", "512",
               "--what", "ep"]
 LM_SHARD_TIMEOUT_S = 480
+# (d) one layer of each recurrent mixer at full width on 4 ranks (data 2,
+# model 2), float32, in one launch (reduced: the depth, 72 -> 1 Mamba
+# layer, 48 -> 1 mLSTM and 1 sLSTM layer), B = 2 x 512: four Mamba scan
+# chunks, two mLSTM chunks
+LM_MIXER_ARCHS = ("jamba-1.5-large-398b", "xlstm-1.3b")
+LM_MIXER_ARGV = ["--arch", ",".join(LM_MIXER_ARCHS), "--batch", "2",
+                 "--seq", "512", "--what", "mixers", "--model", "2"]
 
 
 def lm_dryrun_line(cell) -> str:
@@ -3911,6 +3946,19 @@ def lm_shard_line(s, label) -> str:
                 f"{s['steady_step_s']:.3f} s beside one process "
                 f"{s['one_process_step_s'][-1]:.3f} s; loss (sharded, one "
                 f"process) {s['loss']}")
+    for kind, r in s.get("mixers", {}).items():
+        for rank, pr in enumerate(s["per_rank"]):
+            got, want = pr["mixer_bytes"][kind]
+            if got != want:
+                raise AssertionError(
+                    f"LM shard smoke {label}: rank {rank} holds {got} bytes "
+                    f"of the {kind} layer's weights, not {want}")
+        out += (f"; {kind}: forward + backward {r['fwd_bwd_s']:.3f} s (one "
+                f"process {r['one_process_s']:.3f} s), the layer's weight "
+                f"bytes per rank "
+                f"{[p['mixer_bytes'][kind][0] for p in s['per_rank']]} "
+                f"(global over shards "
+                f"{s['per_rank'][0]['mixer_bytes'][kind][1]})")
     if "ep_fwd_err" in s:
         out += (f"; EP forward max |diff| {s['ep_fwd_err']:.3g}, gradients "
                 f"{s['ep_grad_err']:.3g}, drop_frac {s['ep_drop_frac']}, "
@@ -3931,7 +3979,7 @@ def _lm_shard(world, argv, label, tmp):
 class LmDryrunCells:
     """Phase 10 (a)'s dry-run cells, each counted by ``launch/dryrun.py``
     in a process of its own on the CPU (no kernel, no card): started at
-    the phase's start, so the counts overlap (b) and (c) (whose step
+    the phase's start, so the counts overlap (b)-(d) (whose step
     times are then taken beside them; phases 8 and 9, which report
     host-bound times, run alone), and read at its end."""
 
@@ -3948,7 +3996,9 @@ class LmDryrunCells:
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", a,
              "--shape", sh, "--mesh", m, "--out", self.tmp], cwd=ROOT,
             env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True, start_new_session=True)
+            text=True, start_new_session=True,
+            # below the ranks of (b)-(d), which share the host's cores
+            preexec_fn=lambda: os.nice(19))
             for a, sh, m in LM_DRYRUN_CELLS]
 
     def read(self) -> float:
@@ -3984,8 +4034,9 @@ def phase_lm_sharding(dev, card):
     ``launch/specs.py``, ``launch/dryrun.py``'s LM cells): (a) the
     dry-run's cells counted (on the CPU, beside (b) and (c)), (b)
     qwen3-4b's sharded train step on ranks against the one-process step,
-    (c) the expert-parallel route at deepseek-moe-16b's width, (d) no
-    kernel launches."""
+    (c) the expert-parallel route at deepseek-moe-16b's width, (d) the
+    recurrent mixers on "model" at jamba's and xlstm's widths; no kernel
+    launches."""
     import tempfile
     import torch
     from repro_torch.kernels import aip_step as cuda
@@ -4008,7 +4059,14 @@ def phase_lm_sharding(dev, card):
                       "(c) deepseek-moe-16b MoE layer, EP on 4 ranks "
                       "(data 2, model 2)", tmp)
             parts["(c) EP route"] = round(time.perf_counter() - t0, 2)
-        parts["(a) dry-run cells, waited for after (b), (c)"] = round(
+            t0 = time.perf_counter()
+            # (c) and (d) side by side do not fit the card's 80 GB
+            _lm_shard(4, LM_MIXER_ARGV, "(d) one layer of each mixer of "
+                      "jamba-1.5-large-398b and xlstm-1.3b on model, 4 ranks "
+                      "(data 2, model 2)", tmp)
+            parts["(d) mixers on model"] = round(time.perf_counter() - t0,
+                                                 2)
+        parts["(a) dry-run cells, waited for after (b)-(d)"] = round(
             cells.read(), 2)
     finally:
         cells.close()

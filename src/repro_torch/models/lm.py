@@ -68,9 +68,8 @@ from torch.utils.checkpoint import CheckpointPolicy, checkpoint, \
     create_selective_checkpoint_contexts
 
 from repro_torch.configs.base import ArchConfig, LayerSpec
-from repro_torch.distributed.act_sharding import (batch_local, constrain,
-                                                  current_mesh,
-                                                  gather_weights)
+from repro_torch.distributed.act_sharding import (constrain, current_mesh,
+                                                  gather_weights, mixer)
 from repro_torch.nn import attention as att
 from repro_torch.nn import module as nn
 from repro_torch.nn import moe as moe_lib
@@ -434,6 +433,25 @@ def _mla_attention(p, cfg: ArchConfig, x, positions, *, want_cache=False):
     return out, cache
 
 
+# each recurrent mixer's (sequence, decode step) functions
+MIXERS = {"mamba": (ssm_lib.mamba_apply, ssm_lib.mamba_step),
+           "mlstm": (ssm_lib.mlstm_apply, ssm_lib.mlstm_step),
+           "slstm": (ssm_lib.slstm_apply, ssm_lib.slstm_step)}
+
+
+def _mixer(cfg: ArchConfig, kind: str, x, p, *state, **kw):
+    """A recurrent mixer of ``nn/ssm.py`` over the sequence (with a decode
+    ``state``: one step) through ``act_sharding.mixer``: on "model" under
+    a mesh's "tp" profile."""
+    fn = MIXERS[kind][1 if state else 0]
+    if kind == "mamba":
+        kw["d_state"] = cfg.mamba_d_state
+    else:
+        kw["n_heads"] = cfg.n_heads
+    return mixer(fn, ssm_lib.tp_layout(kind, p, cfg.n_heads), x, p, *state,
+                 **kw)
+
+
 def _ffn_apply(p, cfg: ArchConfig, x, ffn: str, *, full_capacity=False):
     if ffn in ("gated_mlp", "dense_mlp"):
         return moe_lib.gated_mlp(p, x, cfg.act), _zero_aux(x.device)
@@ -490,20 +508,10 @@ def _layer_apply(p, cfg: ArchConfig, spec: LayerSpec, h, ctx, *,
         out2, cache["cross"] = _cross_attention(
             p["mix"]["cross"], cfg, xc, ctx["memory"], want_cache=want_cache)
         h = h + out2
-    elif spec.kind in ("mamba", "mlstm", "slstm"):
-        if spec.kind == "mamba":
-            res = batch_local(ssm_lib.mamba_apply, x, p["mix"],
-                              d_state=cfg.mamba_d_state,
-                              chunk=cfg.mamba_chunk,
-                              return_state=want_cache)
-        elif spec.kind == "mlstm":
-            res = batch_local(ssm_lib.mlstm_apply, x,
-                              p["mix"], n_heads=cfg.n_heads,
-                              chunk=cfg.rnn_chunk, return_state=want_cache)
-        else:
-            res = batch_local(ssm_lib.slstm_apply, x,
-                              p["mix"], n_heads=cfg.n_heads,
-                              chunk=cfg.rnn_chunk, return_state=want_cache)
+    elif spec.kind in MIXERS:
+        res = _mixer(cfg, spec.kind, x, p["mix"], return_state=want_cache,
+                     chunk=(cfg.mamba_chunk if spec.kind == "mamba"
+                            else cfg.rnn_chunk))
         out, cache["state"] = res if want_cache else (res, None)
         h = h + out
     else:
@@ -538,7 +546,11 @@ def encode(params: Params, cfg: ArchConfig,
     _, norm = nn.make_norm(cfg.norm)
     enc = params["enc"]
     F_ = frames.shape[1]
-    h = frames + enc["pos"]["table"][None, :F_]
+    # the table's rows may be sharded on "model": the sum is pinned to the
+    # batch axes (as the decoder's learned positions are), else the frames
+    # keep the rows' shards and the layers' products meet a strided shard
+    # of the flattened (batch, frames) rows that DTensor cannot propagate
+    h = constrain(frames + enc["pos"]["table"][None, :F_], "dp", None, None)
     spec = LayerSpec("attn", cfg.mlp_kind)
     ctx = {"positions": torch.arange(F_, device=frames.device),
            "causal": False}
@@ -813,19 +825,8 @@ def _layer_decode(p, cfg: ArchConfig, spec: LayerSpec, h, c, pos: int):
         h = h + _attn_decode(p["mix"]["self"], cfg, x, c["self"], pos)
         xc = norm(p["norm_cross"], h)
         h = h + _cross_decode(p["mix"]["cross"], cfg, xc, c["cross"])
-    elif spec.kind == "mamba":
-        out, st = batch_local(ssm_lib.mamba_step, x, p["mix"], c["state"],
-                              d_state=cfg.mamba_d_state)
-        _write_state(c["state"], st)
-        h = h + out
-    elif spec.kind == "mlstm":
-        out, st = batch_local(ssm_lib.mlstm_step, x, p["mix"],
-                              c["state"], n_heads=cfg.n_heads)
-        _write_state(c["state"], st)
-        h = h + out
-    elif spec.kind == "slstm":
-        out, st = batch_local(ssm_lib.slstm_step, x, p["mix"],
-                              c["state"], n_heads=cfg.n_heads)
+    elif spec.kind in MIXERS:
+        out, st = _mixer(cfg, spec.kind, x, p["mix"], c["state"])
         _write_state(c["state"], st)
         h = h + out
     else:

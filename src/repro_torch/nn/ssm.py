@@ -11,11 +11,17 @@
   step (the reference's fallback); ``mlstm_step`` is that cell.
 - sLSTM: the recurrent cell over time, with fused recurrent weights.
 - All recurrent state is float32 whatever the activation dtype.
+
+Each mixer takes ``tp``, the collectives of its tensor-parallel route
+(``Collectives``; ``distributed/act_sharding.py::mixer`` runs a mixer
+on each rank's share of its channels, heads' value rows or hidden units,
+laid out by ``tp_layout``): they sit where a product contracts over a
+dim that is split across ranks, and are the identity in one process.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, NamedTuple
+from typing import Any, Callable, Dict, NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -44,6 +50,66 @@ def _conv_window(xi: torch.Tensor, K: int) -> torch.Tensor:
     """The last K pre-conv inputs, zero-padded in front: (B, K, C)."""
     T = xi.shape[1]
     return F.pad(xi, (0, 0, max(K - T, 0), 0))[:, -K:]
+
+
+class Collectives(NamedTuple):
+    """Where a mixer's product contracts over a dim split across the
+    ranks of its tensor-parallel route: ``sum`` the ranks' partial sums
+    (an all-reduce), ``mean`` them, ``scatter`` the partial sums' last
+    dim (each rank keeps its block of it, summed: a reduce-scatter),
+    ``gather`` the ranks' blocks of the last dim (an all-gather)."""
+    sum: Callable
+    mean: Callable
+    scatter: Callable
+    gather: Callable
+
+
+def _same(t):
+    return t
+
+
+ONE = Collectives(_same, _same, _same, _same)   # one process
+
+
+def tp_layout(kind: str, p: Params, n_heads: int = 0):
+    """The tensor-parallel layout of a mixer's weights ``p`` -> (weights,
+    state, even): for each weight (by its dotted path) ``(dim, parts)``,
+    the dim it splits into ``parts`` equal parts of which each rank takes
+    its share (rank r of n: elements [r P // n, (r + 1) P // n) of each
+    part of P), or None (whole on every rank); the same for the decode
+    state's fields; the sizes that n must divide (the shares of those
+    are gathered or scattered evenly).
+
+    - Mamba: its dI channels (``in_proj``'s [xi | z] both);
+    - mLSTM: each head's value rows (``v``, the rows of C, ``h``), so
+      the channels of ``xi``, ``xc`` and ``z`` are each head's share of
+      its DH, as the rules split ``wq`` / ``wk`` / ``wv`` on their input
+      dim; q, k, n, m and the gates stay whole;
+    - sLSTM: ``w_in``'s 4 d columns (gathered whole for the recurrence,
+      which runs whole) and the FFN's hidden units."""
+    if kind == "mamba":
+        dI = p["conv_w"].shape[0]
+        ch = (0, 1)
+        return ({"in_proj": (1, 2), "conv_w": ch, "conv_b": ch,
+                 "x_proj": ch, "dt_w": (1, 1), "dt_b": ch, "A_log": ch,
+                 "D": ch, "out_proj": ch},
+                MambaState(conv=(2, 1), h=(1, 1)), (dI,))
+    if kind == "mlstm":
+        dI = p["conv_w"].shape[0]
+        rows = (0, n_heads)
+        return ({"up_proj": (1, 2 * n_heads), "conv_w": rows,
+                 "conv_b": rows, "wq": (1, 1), "wk": (1, 1), "wv": (1, 1),
+                 "w_if.w": rows, "w_if.b": None, "out_norm_g": rows,
+                 "down_proj": rows},
+                MLSTMState(conv=(2, n_heads), C=(2, 1), n=None, m=None),
+                (dI // n_heads,))
+    if kind == "slstm":
+        d = p["w_in"]["w"].shape[0]
+        return ({"w_in.w": (1, 1), "w_in.b": (0, 1), "r_z": None,
+                 "r_i": None, "r_f": None, "r_o": None, "out_norm_g": None,
+                 "ff_up": (1, 2), "ff_down": (0, 1)},
+                SLSTMState(None, None, None, None), (4 * d,))
+    raise ValueError(kind)
 
 
 # ---------------------------------------------------------------------------
@@ -118,10 +184,11 @@ def mamba_init_state(batch: int, dI: int, d_conv: int, d_state: int,
                       device=device))
 
 
-def _mamba_inputs(p: Params, xc: torch.Tensor, d_state: int):
+def _mamba_inputs(p: Params, xc: torch.Tensor, d_state: int,
+                  tp: Collectives = ONE):
     """-> dt, B, C (float32) from the post-conv activations."""
     dt_rank = p["dt_w"].shape[0]
-    dbc = xc @ p["x_proj"]
+    dbc = tp.sum(xc @ p["x_proj"])
     dt_in = dbc[..., :dt_rank]
     B_ = dbc[..., dt_rank:dt_rank + d_state].float()
     C_ = dbc[..., dt_rank + d_state:].float()
@@ -172,7 +239,8 @@ def associative_scan(fn, elems, dim: int):
 
 
 def mamba_apply(p: Params, x: torch.Tensor, *, d_state: int = 16,
-                chunk: int = 128, return_state: bool = False):
+                chunk: int = 128, return_state: bool = False,
+                tp: Collectives = ONE):
     """x: (B, T, d_model) -> (B, T, d_model). Full-sequence (prefill):
     chunk by chunk, each chunk's states from an associative scan of
     ``(decay, u)`` and the carried state (module docstring)."""
@@ -180,7 +248,7 @@ def mamba_apply(p: Params, x: torch.Tensor, *, d_state: int = 16,
     dI = p["conv_w"].shape[0]
     xi, z = (x @ p["in_proj"]).chunk(2, dim=-1)
     xc = F.silu(causal_conv1d(xi, p["conv_w"], p["conv_b"]))
-    dt, B_, C_ = _mamba_inputs(p, xc, d_state)
+    dt, B_, C_ = _mamba_inputs(p, xc, d_state, tp)
     A = -torch.exp(p["A_log"])                         # (dI, dS)
     xc32 = xc.float()
 
@@ -205,12 +273,12 @@ def mamba_apply(p: Params, x: torch.Tensor, *, d_state: int = 16,
 
 
 def mamba_step(p: Params, state: MambaState, x: torch.Tensor, *,
-               d_state: int = 16) -> tuple:
+               d_state: int = 16, tp: Collectives = ONE) -> tuple:
     """Single decode step. x: (B, d_model) -> (out (B, d_model), state)."""
     xi, z = (x @ p["in_proj"]).chunk(2, dim=-1)
     conv = torch.cat([state.conv[:, 1:], xi[:, None]], dim=1)
     xc = F.silu(conv_step(conv, p["conv_w"], p["conv_b"]))
-    dt, B_, C_ = _mamba_inputs(p, xc, d_state)
+    dt, B_, C_ = _mamba_inputs(p, xc, d_state, tp)
     A = -torch.exp(p["A_log"])
     xc32 = xc.float()
     decay = torch.exp(dt[..., None] * A)                        # (B,dI,dS)
@@ -272,12 +340,16 @@ class MLSTMState(NamedTuple):
 
 
 def mlstm_init_state(batch: int, dI: int, n_heads: int, d_conv: int,
-                     dtype=torch.float32, device="cpu") -> MLSTMState:
+                     dtype=torch.float32, device="cpu",
+                     rows: int = 0) -> MLSTMState:
+    """The empty state; ``rows``: C's value rows a head (0: all DH of
+    them; a tensor-parallel rank holds its share)."""
     DH = dI // n_heads
     f32 = torch.float32
     return MLSTMState(
         conv=torch.zeros((batch, d_conv, dI), dtype=dtype, device=device),
-        C=torch.zeros((batch, n_heads, DH, DH), dtype=f32, device=device),
+        C=torch.zeros((batch, n_heads, rows or DH, DH), dtype=f32,
+                      device=device),
         n=torch.zeros((batch, n_heads, DH), dtype=f32, device=device),
         m=torch.full((batch, n_heads), -1e30, dtype=f32, device=device))
 
@@ -347,19 +419,20 @@ def _mlstm_chunk_parallel(q, k, v, i_raw, f_raw, state: MLSTMState):
     return h, MLSTMState(conv=state.conv, C=C_new, n=n_new, m=m_state)
 
 
-def _mlstm_qkvif(p: Params, xi, xc, n_heads: int):
-    """-> q, k, v (float32, (..., NH, DH)) and i_raw, f_raw (..., NH)."""
-    q = _bd_proj(xc, p["wq"]).float()
-    k = _bd_proj(xc, p["wk"]).float()
-    v = _bd_proj(xi, p["wv"]).float()
-    if_raw = xc.float() @ p["w_if"]["w"] + p["w_if"]["b"]
+def _mlstm_qkvif(p: Params, xi, xc, n_heads: int, tp: Collectives = ONE):
+    """-> q, k, v (float32, (..., NH, DH); v's last dim the rank's value
+    rows) and i_raw, f_raw (..., NH)."""
+    q = tp.sum(_bd_proj(xc, p["wq"]).float())
+    k = tp.sum(_bd_proj(xc, p["wk"]).float())
+    v = tp.scatter(_bd_proj(xi, p["wv"]).float())
+    if_raw = tp.sum(xc.float() @ p["w_if"]["w"]) + p["w_if"]["b"]
     if_raw = if_raw.reshape(*if_raw.shape[:-1], 2, n_heads)
     return q, k, v, if_raw[..., 0, :], if_raw[..., 1, :]
 
 
 def mlstm_apply(p: Params, x: torch.Tensor, n_heads: int, *,
                 chunk: int = 64, return_state: bool = False,
-                chunkwise: bool = True):
+                chunkwise: bool = True, tp: Collectives = ONE):
     """x: (B, T, d_model), chunkwise-parallel over chunks of ``chunk``;
     ``chunkwise=False`` runs the recurrent cell step by step (the chunks
     then change nothing)."""
@@ -367,9 +440,10 @@ def mlstm_apply(p: Params, x: torch.Tensor, n_heads: int, *,
     dI = p["conv_w"].shape[0]
     xi, z = (x @ p["up_proj"]).chunk(2, dim=-1)
     xc = F.silu(causal_conv1d(xi, p["conv_w"], p["conv_b"]))
-    q, k, v, i_raw, f_raw = _mlstm_qkvif(p, xi, xc, n_heads)
+    q, k, v, i_raw, f_raw = _mlstm_qkvif(p, xi, xc, n_heads, tp)
 
-    st = mlstm_init_state(B, dI, n_heads, 1, dtype=x.dtype, device=x.device)
+    st = mlstm_init_state(B, q.shape[-2] * q.shape[-1], n_heads, 0,
+                          dtype=x.dtype, device=x.device, rows=v.shape[-1])
     hs = []
     if chunkwise:
         ck = _chunk(T, chunk)
@@ -384,7 +458,7 @@ def mlstm_apply(p: Params, x: torch.Tensor, n_heads: int, *,
                                    f_raw[:, t]), st)
             hs.append(h_t[None])                        # (1, B, NH, DH)
     h = torch.cat(hs, dim=0).reshape(T, B, dI).transpose(0, 1).to(x.dtype)
-    h = _groupnorm_heads(h, p["out_norm_g"], n_heads)
+    h = _groupnorm_heads(h, p["out_norm_g"], n_heads, tp)
     out = (h * F.silu(z)) @ p["down_proj"]
     if return_state:
         win = _conv_window(xi, p["conv_w"].shape[-1])
@@ -392,30 +466,31 @@ def mlstm_apply(p: Params, x: torch.Tensor, n_heads: int, *,
     return out
 
 
-def _groupnorm_heads(h: torch.Tensor, g: torch.Tensor,
-                     n_heads: int) -> torch.Tensor:
-    """Per-head RMS norm over the head dim (xLSTM uses GroupNorm)."""
+def _groupnorm_heads(h: torch.Tensor, g: torch.Tensor, n_heads: int,
+                     tp: Collectives = ONE) -> torch.Tensor:
+    """Per-head RMS norm over the head dim (xLSTM uses GroupNorm); the
+    moment averaged over the ranks that share a head (``tp``)."""
     shp = h.shape
     hh = h.reshape(*shp[:-1], n_heads, shp[-1] // n_heads).float()
-    var = (hh * hh).mean(dim=-1, keepdim=True)
+    var = tp.mean((hh * hh).mean(dim=-1, keepdim=True))
     hh = hh * torch.rsqrt(var + 1e-6)
     return (hh.reshape(shp) * g).to(h.dtype)
 
 
 def mlstm_step(p: Params, state: MLSTMState, x: torch.Tensor,
-               n_heads: int) -> tuple:
+               n_heads: int, tp: Collectives = ONE) -> tuple:
     """Single decode step. x: (B, d_model)."""
     B = x.shape[0]
     dI = p["conv_w"].shape[0]
     xi, z = (x @ p["up_proj"]).chunk(2, dim=-1)
     conv = torch.cat([state.conv[:, 1:], xi[:, None]], dim=1)
     xc = F.silu(conv_step(conv, p["conv_w"], p["conv_b"]))
-    q, k, v, i_raw, f_raw = _mlstm_qkvif(p, xi, xc, n_heads)
+    q, k, v, i_raw, f_raw = _mlstm_qkvif(p, xi, xc, n_heads, tp)
     h, st = _mlstm_cell((q, k, v, i_raw, f_raw),
                         MLSTMState(conv=conv, C=state.C, n=state.n,
                                    m=state.m))
     hf = _groupnorm_heads(h.reshape(B, dI).to(x.dtype), p["out_norm_g"],
-                          n_heads)
+                          n_heads, tp)
     return (hf * F.silu(z)) @ p["down_proj"], st
 
 
@@ -504,13 +579,14 @@ def _slstm_out(p: Params, h: torch.Tensor, n_heads: int) -> torch.Tensor:
 
 
 def slstm_apply(p: Params, x: torch.Tensor, n_heads: int, *,
-                chunk: int = 64, return_state: bool = False):
+                chunk: int = 64, return_state: bool = False,
+                tp: Collectives = ONE):
     """x: (B, T, d_model). The recurrence runs step by step; ``chunk``
     (the reference's recompute granularity for the backward) does not
     change the result."""
     B, T, d = x.shape
     DH = d // n_heads
-    wx = (x @ p["w_in"]["w"] + p["w_in"]["b"]).float()
+    wx = tp.gather((x @ p["w_in"]["w"] + p["w_in"]["b"]).float())
     wx = wx.reshape(B, T, 4, n_heads, DH)
     r_all = _fused_r(p)
     st = slstm_init_state(B, n_heads, DH, device=x.device)
@@ -526,9 +602,9 @@ def slstm_apply(p: Params, x: torch.Tensor, n_heads: int, *,
 
 
 def slstm_step(p: Params, state: SLSTMState, x: torch.Tensor,
-               n_heads: int) -> tuple:
+               n_heads: int, tp: Collectives = ONE) -> tuple:
     B, d = x.shape
     DH = d // n_heads
-    wx = (x @ p["w_in"]["w"] + p["w_in"]["b"]).float()
+    wx = tp.gather((x @ p["w_in"]["w"] + p["w_in"]["b"]).float())
     h, st = _slstm_cell(_fused_r(p), state, wx.reshape(B, 4, n_heads, DH))
     return _slstm_out(p, h.reshape(B, d).to(x.dtype), n_heads), st

@@ -259,3 +259,28 @@ def test_the_lm_sharding_phase_reads_a_shard_summary():
           "ep_fwd_bwd_s": 1.5}
     assert "EP forward max |diff| 1e-06" in chip_smoke.lm_shard_line(ep,
                                                                       "ep")
+
+
+def test_the_lm_sharding_phase_reads_a_mixers_summary():
+    """Phase 10 (d): each mixer's times and each rank's bytes of its
+    layer's weights, a rank off the global bytes over its shards fails;
+    the runs cover Mamba, the mLSTM and the sLSTM at full width."""
+    rank = {"param_bytes": None, "param_bytes_expected": None,
+            "moment_bytes": None, "moment_bytes_expected": None,
+            "kernel_launches": 0, "mixer_bytes": {"mamba": [8, 8]}}
+    s = {"ok": True, "failed": [], "worst_share": {"mamba forward": 0.05},
+         "per_rank": [dict(rank), dict(rank)],
+         "mixers": {"mamba": {"fwd_bwd_s": 4.0, "one_process_s": 0.5}}}
+    line = chip_smoke.lm_shard_line(s, "(d)")
+    assert ("mamba: forward + backward 4.000 s (one process 0.500 s), the "
+            "layer's weight bytes per rank [8, 8] (global over shards 8)"
+            ) in line
+    s["per_rank"][1] = dict(rank, mixer_bytes={"mamba": [16, 8]})
+    with pytest.raises(AssertionError, match="rank 1 holds 16 bytes"):
+        chip_smoke.lm_shard_line(s, "(d)")
+    from repro_torch.configs.base import get_config
+    kinds = set()
+    for arch in chip_smoke.LM_MIXER_ARCHS:
+        prologue, pattern, _ = get_config(arch).layer_plan()
+        kinds |= {sp.kind for sp in list(prologue) + pattern}
+    assert {"mamba", "mlstm", "slstm"} <= kinds

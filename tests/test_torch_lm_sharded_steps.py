@@ -7,8 +7,21 @@ one-process step from the same state, the in-place AdamW update replayed
 on each rank's blocks within 4 ulps, each rank's bytes the global bytes
 over its shards), a prefill and one decode step (logits and every cache
 leaf). Dense, enc-dec, VLM and xLSTM archs here; the MoE and MLA archs
-and the expert-parallel route in ``test_torch_lm_sharded_moe.py``."""
+and the expert-parallel route in ``test_torch_lm_sharded_moe.py``; the
+recurrent mixers on "model" in ``test_torch_lm_mixer_tp*.py``.
+
+xLSTM on its own "tp" profile, its mixers tensor-parallel on "model",
+runs in float64 (``tools/torch_lm_mixer_tp_check.py``'s copy of the port
+with every float32 cast a float64 one), within the same bounds: in
+float32 that route's gradients sit 2.4x and its grad norm 3.2x the
+bounds off one process, an open fault (``ROADMAP.md`` Queue 3; a single
+float32 ulp at each mLSTM output in one process alone moves the
+gradients 1.79x the bound, ``PERF.md`` §6). xLSTM in float32 runs under
+``fsdp_only``, where "model" is a batch axis and the mixers run on each
+rank's batch block (``act_sharding.batch_local``)."""
+import importlib.util
 import json
+from pathlib import Path
 
 import pytest
 
@@ -17,11 +30,27 @@ from test_torch_sharding import spawn
 SMOKE = "tools/torch_lm_shard_smoke.py"
 
 
-def run_smoke(tmp_path, world, argv):
+def mixer_check():
+    """``tools/torch_lm_mixer_tp_check.py`` as a module."""
+    path = Path(__file__).resolve().parent.parent / "tools" / \
+        "torch_lm_mixer_tp_check.py"
+    spec = importlib.util.spec_from_file_location("mixer_tp_check", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_smoke(tmp_path, world, argv, float64=False):
     """The smoke on ``world`` ranks -> rank 0's summary (every rank must
-    exit 0); ``tmp_path`` holds the ranks' store: one a run."""
+    exit 0); ``tmp_path`` holds the ranks' store: one a run. ``float64``:
+    the smoke of a float64 copy of the port (``mixer_check().as_float64``)
+    under ``tmp_path``."""
     out = tmp_path / "summary.json"
-    res = spawn(world, [SMOKE, "--device", "cpu", "--reduced",
+    smoke = SMOKE
+    if float64:
+        mixer_check().as_float64(tmp_path / "f64")
+        smoke = str(tmp_path / "f64" / SMOKE)
+    res = spawn(world, [smoke, "--device", "cpu", "--reduced",
                         "--init-method", f"file://{tmp_path / 'store'}",
                         "--json", str(out), *argv])
     assert [rc for rc, _ in res] == [0] * world, \
@@ -39,7 +68,8 @@ STEPS = "train,prefill,decode"
     ("llama3-405b", 4, 2, None),         # tp: heads, FFN, vocab on model
     ("whisper-base", 2, 1, None),        # enc-dec, data parallel
     ("llama-3.2-vision-11b", 4, 2, None),  # gated cross-attention
-    ("xlstm-1.3b", 4, 2, None),         # mLSTM / sLSTM on batch blocks
+    ("xlstm-1.3b", 4, 2, None),         # mLSTM / sLSTM on "model", float64
+    ("xlstm-1.3b", 4, 2, "fsdp_only"),  # mLSTM / sLSTM on batch blocks
 ])
 def test_sharded_steps_match_the_one_process_port(tmp_path, arch, world,
                                                   model, profile):
@@ -47,7 +77,8 @@ def test_sharded_steps_match_the_one_process_port(tmp_path, arch, world,
             "--seq", "32", "--what", STEPS]
     if profile:
         argv += ["--profile", profile]
-    s = run_smoke(tmp_path, world, argv)
+    s = run_smoke(tmp_path, world, argv,
+                  float64=arch == "xlstm-1.3b" and profile is None)
     assert s["mesh"] == {"data": world // model, "model": model}
     # two steps, each checked: loss, gradients, the update
     for k in (0, 1):
@@ -149,13 +180,7 @@ def test_the_cards_all_to_all_moves_each_block_once(tmp_path):
 def test_the_mixer_check_makes_every_float32_cast_a_float64_one(tmp_path):
     """``tools/torch_lm_mixer_tp_check.py --float64`` runs a copy of the
     port and the smoke in which no float32 cast is left."""
-    import importlib.util
-    from pathlib import Path
-    path = Path(__file__).resolve().parent.parent / "tools" / \
-        "torch_lm_mixer_tp_check.py"
-    spec = importlib.util.spec_from_file_location("mixer_tp_check", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
+    mod = mixer_check()
     src = mod.as_float64(tmp_path)
     files = list(src.rglob("*.py")) + [tmp_path / "tools" / mod.SMOKE]
     assert len(files) > 50

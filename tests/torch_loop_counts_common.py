@@ -9,9 +9,8 @@ layer groups, 4 microbatches of 16 rows (train), 4 encoder layers
 layers than the full count here, so the test names every loop in
 ``extrapolate`` (the dry-run's own choice would count every iteration).
 The hybrid, vlm and ssm patterns are cut to a period of 2 (one layer of
-each kind a group) and whisper's audio frames to 5 (an even count
-shards the frames on "model", which the port's DTensor encoder does
-not propagate at this layout): widths and layer kinds are the arch's.
+each kind a group); whisper keeps its 8 audio frames, which "model"
+divides: widths and layer kinds are the arch's.
 
 Every reported number must be equal, not close: the counter's FLOPs (dot,
 by dtype, elementwise), HBM bytes, collective bytes and counts by kind,
@@ -40,7 +39,7 @@ def config(arch: str):
     kw = dict(n_layers=len(prologue) + GROUPS * len(pattern),
               force_microbatches=MICROBATCHES)
     if cfg.family == "encdec":
-        kw.update(n_encoder_layers=ENCODER_LAYERS, n_audio_frames=5)
+        kw.update(n_encoder_layers=ENCODER_LAYERS)
     return cfg.with_overrides(**kw)
 
 

@@ -4,9 +4,9 @@ real process:
 
   1. run a short uninterrupted ``repro_torch.launch.rl_train --ckpt-dir``
      to the end (the same-seed oracle);
-  2. start the same command on a fresh checkpoint directory, SIGTERM it
-     once its first iteration row streams past, and require a clean exit
-     (code 0) that printed the "checkpoint flushed" line;
+  2. beside it, start the same command on a fresh checkpoint directory,
+     SIGTERM it once its first iteration row streams past, and require a
+     clean exit (code 0) that printed the "checkpoint flushed" line;
   3. run that command again: it must resume from the flushed checkpoint
      and end with ``final_params_md5`` and the final GS evaluation equal
      to run 1's, bitwise.
@@ -15,7 +15,8 @@ real process:
 
 The runs write only under a temporary directory. The last line of
 standard output is a JSON summary (both digests, both evaluations, the
-iteration run 3 resumed from, the seconds each run took).
+iteration run 3 resumed from, the seconds each run took, runs 1 and 2
+side by side).
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
@@ -100,17 +102,17 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     with tempfile.TemporaryDirectory(prefix="torch_fault_smoke_") as tmp:
         tmp = Path(tmp)
-        print("fault-smoke: [1/3] uninterrupted same-seed oracle run",
+        print("fault-smoke: [1/3] uninterrupted same-seed oracle run, "
+              "beside [2/3] SIGTERM mid-run, expect a clean flush",
               flush=True)
-        s1 = _run_to_completion(_cmd(args.device, tmp / "ref_ckpt",
-                                     tmp / "ref.json"))
+        with ThreadPoolExecutor(1) as pool:
+            oracle = pool.submit(_run_to_completion, _cmd(
+                args.device, tmp / "ref_ckpt", tmp / "ref.json"))
+            s2 = _run_and_kill(_cmd(args.device, tmp / "kill_ckpt",
+                                    tmp / "kill.json"))
+            s1 = oracle.result()
         ref = json.loads((tmp / "ref.json").read_text())
         assert not ref["preempted"]
-
-        print("fault-smoke: [2/3] SIGTERM mid-run, expect a clean flush",
-              flush=True)
-        s2 = _run_and_kill(_cmd(args.device, tmp / "kill_ckpt",
-                                tmp / "kill.json"))
         killed = json.loads((tmp / "kill.json").read_text())
         assert killed["preempted"], "the killed run recorded no preemption"
 

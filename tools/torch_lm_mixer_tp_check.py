@@ -1,28 +1,49 @@
 """Is the recurrent mixers' tensor-parallel drift rounding or a fault?
 
-Under a mesh the port runs the recurrent mixers (Mamba, mLSTM, sLSTM) on
-batch-local blocks with their weights gathered
-(``distributed/act_sharding.py::batch_local``). This check runs
-``tools/torch_lm_shard_smoke.py`` on gloo ranks on the CPU the other way
-too: the mixers straight on the ``DTensor``s, their weights left on
-"model" by the rules (the reference's tensor-parallel layout, DTensor
-choosing the collectives), in float32 and, with ``--float64``, in
-float64 (a copy of ``src/repro_torch`` and the smoke with every float32
-cast made a float64 one). A difference from the one-process step that is
-the order of sums shrinks by ~1e9 from float32 to float64; a fault does
-not. ``F.logsigmoid`` is replaced by the same function with its backward
-written out (DTensor has no sharding rule for ``log_sigmoid_backward``).
+Under a mesh's "tp" profile the port runs the recurrent mixers (Mamba,
+mLSTM, sLSTM) on "model" (``distributed/act_sharding.py::mixer``: each
+rank's share of the channels, value rows or hidden units, partial sums
+all-reduced). This check runs ``tools/torch_lm_shard_smoke.py`` on 4
+gloo ranks on the CPU that way, or with the mixers batch-local
+(``--batch-local``: ``act_sharding.batch_local``, their weights gathered
+whole and every "model" rank computing the same rows), in float32 and,
+with ``--float64``, in float64 (a copy of ``src/repro_torch`` and the
+smoke with every float32 cast made a float64 one). A difference from the
+one-process step that is the order of sums shrinks by ~1e9 from float32
+to float64; a fault does not.
 
     python tools/torch_lm_mixer_tp_check.py [--float64] [--batch-local] \\
-        [--seq 32] [--timeout 900]
+        [--arch xlstm-1.3b] [--model 2] [--seq 32] [--what train] \\
+        [--timeout 900]
+    python tools/torch_lm_mixer_tp_check.py --ulp-noise [--arch ...]
+    python tools/torch_lm_mixer_tp_check.py --count [--arch ...]
 
-It runs xlstm-1.3b at ``reduced()`` (mLSTM and sLSTM layers), two train
-steps of B = 8 rows in 2 microbatches, on 4 ranks (data 2, model 2).
+It runs ``--arch`` at ``reduced()``, two train steps of B = 8 rows in 2
+microbatches (and ``--what``'s prefill and decode), on 4 ranks (data 4 /
+``--model``, model ``--model``).
+
+``--ulp-noise`` asks how far any order of sums can move the step, in one
+process on the CPU: the loss's gradients at the smoke's first batch with
+one float32 ulp of noise (each element moved to the next float32 up or
+down, the side drawn from a seed) where the route on "model" sums across ranks (each
+``nn/ssm.py::Collectives`` hook, and each mixer's output: its all-reduce)
+against the same gradients without it, as the smoke's shares of its
+bounds (``GRAD_TOL``; the global norm's under ``LOSS_TOL``), one line
+a site.
+
+``--count`` counts one full-width layer of each of ``--arch``'s mixers
+(``distributed/op_analysis.py``), forward and the backward of
+``out.sum()``, on rank 0 of a fake (data 16, model 16) process group
+(pod1's layout) at ``train_4k``'s microbatch (32 rows of 4,096), on
+"model" and batch-local: dot FLOPs, HBM bytes (unfused), collective
+bytes, and the dot FLOPs every rank of "model" computes whole, (16 x
+on-model - batch-local) / 15, one line a mixer.
 
 Prints rank 0's summary's shares of the bounds above 0 (the smoke's
-``worst_share``) and the step times (the sharded steps', rank 0's
-one-process steps') as one JSON line; exits 1 if a rank failed or
-overran.
+``worst_share``), its failed checks, whether each rank's bytes are the
+global bytes over its shards, and the step times (the sharded steps',
+rank 0's one-process steps') as one JSON line; exits 1 if a rank failed
+to run or overran (a check above its bound is reported, not an exit).
 """
 from __future__ import annotations
 
@@ -56,43 +77,190 @@ def as_float64(dst: Path) -> Path:
 
 
 def rank_main(argv):
-    """One rank: the smoke, with the mixers on the DTensors unless
+    """One rank: the smoke, with the mixers batch-local if
     ``REPRO_MIXERS_BATCH_LOCAL`` is set."""
-    import torch
-    import torch.nn.functional as F
     tools = Path(os.environ["REPRO_SMOKE_DIR"])
     sys.path.insert(0, str(tools))
-    if not os.environ.get("REPRO_MIXERS_BATCH_LOCAL"):
+    if os.environ.get("REPRO_MIXERS_BATCH_LOCAL"):
+        from repro_torch.distributed.act_sharding import batch_local
         from repro_torch.models import lm
-        logsigmoid = F.logsigmoid
-
-        class LogSigmoid(torch.autograd.Function):
-            @staticmethod
-            def forward(ctx, x):
-                ctx.save_for_backward(x)
-                return logsigmoid(x)
-
-            @staticmethod
-            def backward(ctx, g):
-                x, = ctx.saved_tensors
-                z = torch.exp(-torch.abs(x))
-                s = z / (1 + z)
-                return g * torch.where(x < 0, 1 - s, s)
-        F.logsigmoid = LogSigmoid.apply
-        lm.batch_local = lambda fn, x, params, *state, **kw: \
-            fn(params, *state, x, **kw)
+        lm.mixer = lambda fn, layout, x, params, *state, **kw: \
+            batch_local(fn, x, params, *state, **kw)
     import torch_lm_shard_smoke as smoke
     return smoke.main(argv)
+
+
+def ulp_noise(arch: str, seq: int) -> list:
+    """``--ulp-noise``: one row a site (module docstring)."""
+    import math
+    import torch
+    sys.path.insert(0, str(ROOT / "tools"))
+    import torch_lm_shard_smoke as smoke
+    from repro_torch.models import lm
+    from repro_torch.nn import ssm
+    from repro_torch.tree import tree_leaves, tree_map
+    torch.set_num_threads(1)
+    args = smoke.parse_args(["--device", "cpu", "--arch", arch, "--reduced"])
+    cfg = smoke.build_cfg(args)
+    params = smoke.init_weights(cfg, 0, torch.device("cpu"))
+    batch = smoke.batch_for(cfg, 8, seq, 0, 0, torch.device("cpu"))
+    site = {"at": None}
+
+    def noisy(name):
+        def f(t):
+            if site["at"] != name:
+                return t
+            up = torch.randint(0, 2, t.shape, generator=site["gen"]) > 0
+            return torch.where(up, torch.nextafter(t, t + math.inf),
+                               torch.nextafter(t, t - math.inf))
+        return f
+    collectives = ssm.Collectives(*(noisy(k) for k in ssm.Collectives._fields))
+    out_noise = noisy("output")
+
+    def wrapped(fn):
+        def g(*a, **kw):
+            res = fn(*a, tp=collectives, **kw)
+            if isinstance(res, tuple):
+                return (out_noise(res[0]),) + tuple(res[1:])
+            return out_noise(res)
+        return g
+
+    def grads():
+        site["gen"] = torch.Generator().manual_seed(0)
+        live = tree_map(lambda t: t.detach().requires_grad_(), params)
+        loss = lm.loss_fn(live, cfg, batch)
+        loss = loss[0] if isinstance(loss, tuple) else loss
+        return torch.autograd.grad(loss, tree_leaves(live))
+
+    saved = dict(lm.MIXERS)
+    for k, (apply_fn, step_fn) in saved.items():
+        lm.MIXERS[k] = (wrapped(apply_fn), step_fn)
+    try:
+        base = grads()
+        norm = math.sqrt(sum(float(t.double().square().sum())
+                             for t in base))
+        rows = []
+        for name in ssm.Collectives._fields + ("output",):
+            site["at"] = name
+            moved = grads()
+            n2 = math.sqrt(sum(float(t.double().square().sum())
+                               for t in moved))
+            rows.append({
+                "site": name, "arch": cfg.name, "seq": seq,
+                "gradients": max(smoke.grad_share(a, b, norm)
+                                 for a, b in zip(moved, base)),
+                "grad_norm": smoke.near_share(torch.tensor(n2),
+                                              torch.tensor(norm))})
+    finally:
+        lm.MIXERS.update(saved)
+    return rows
+
+
+def count_layer(p, kind: str, n_heads: int, kw: dict, x_shape, mesh_shape,
+                route: str, dtype=None) -> dict:
+    """One mixer layer (weights ``p``, global; ``kw`` its ``nn/ssm.py``
+    arguments) on an input of ``x_shape``, forward and the backward of
+    ``out.sum()``, on rank 0 of a fake (data, model) = ``mesh_shape``
+    process group through ``act_sharding.mixer`` (``route`` "tp") or
+    ``batch_local`` -> ``op_analysis``'s result (fake tensors: nothing
+    is computed); the input of ``dtype`` (default: the default)."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.distributed import op_analysis
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.distributed.act_sharding import (batch_local,
+                                                      gather_weights,
+                                                      mixer, use_mesh)
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import MeshLayout
+    from repro_torch.models import lm
+    from repro_torch.nn import ssm
+    from repro_torch.tree import tree_map
+    fn = lm.MIXERS[kind][0]
+    x = torch.empty(x_shape, dtype=dtype, device="meta")
+    with dryrun.fake_ranks(MeshLayout(("data", "model"),
+                                      mesh_shape)) as mesh:
+        with FakeTensorMode(allow_non_fake_inputs=True):
+            specs = {"mix": shd.param_specs({"mix": p}, mesh, "tp")["mix"],
+                     "x": shd.batch_spec(mesh, x_shape[0], 2, "tp")}
+            d = dryrun._fake_dtensors({"mix": p, "x": x}, specs, mesh)
+            pd = tree_map(lambda t: t.requires_grad_(), d["mix"])
+            xd = d["x"].requires_grad_()
+            with op_analysis.OpCounter() as c, use_mesh(mesh, "tp"):
+                w = gather_weights(pd)
+                if route == "tp":
+                    out = mixer(fn, ssm.tp_layout(kind, p, n_heads), xd, w,
+                                **kw)
+                else:
+                    out = batch_local(fn, xd, w, **kw)
+                out.sum().backward()
+    return c.result()
+
+
+def full_width_counts(arch: str) -> list:
+    """``--count``: one row a mixer (module docstring)."""
+    import torch
+    from repro_torch.configs.base import SHAPES, get_config
+    from repro_torch.models import lm
+    from repro_torch.tree import tree_map
+    cfg = get_config(arch)
+    shape = SHAPES["train_4k"]
+    B = shape.global_batch // shape.n_microbatches
+    _, pattern, _ = cfg.layer_plan()
+    blocks = lm.param_shapes(cfg)["blocks"]
+    rows = []
+    for kind in dict.fromkeys(sp.kind for sp in pattern):
+        if kind not in ("mamba", "mlstm", "slstm"):
+            continue
+        i = [sp.kind for sp in pattern].index(kind)
+        p = tree_map(lambda t: torch.empty(t.shape[1:], dtype=t.dtype,
+                                           device="meta"),
+                     blocks[str(i)]["mix"])
+        kw = (dict(d_state=cfg.mamba_d_state, chunk=cfg.mamba_chunk)
+              if kind == "mamba" else
+              dict(n_heads=cfg.n_heads, chunk=cfg.rnn_chunk))
+        got = {r: count_layer(p, kind, cfg.n_heads, kw,
+                              (B, shape.seq_len, cfg.d_model), (16, 16), r,
+                              cfg.dtype())
+               for r in ("tp", "batch")}
+        tp, bl = got["tp"], got["batch"]
+        whole = (16 * tp["flops_dot"] - bl["flops_dot"]) / 15
+        rows.append({
+            "arch": arch, "mixer": kind, "rows": B, "seq": shape.seq_len,
+            "dot_flops_on_model": tp["flops_dot"],
+            "dot_flops_batch_local": bl["flops_dot"],
+            "dot_ratio": bl["flops_dot"] / tp["flops_dot"],
+            "dot_flops_whole": whole,
+            "whole_share": whole / tp["flops_dot"],
+            "hbm_ratio": bl["hbm_bytes"] / tp["hbm_bytes"],
+            "collective_bytes_on_model": tp["collective_bytes"],
+            "collective_bytes_batch_local": bl["collective_bytes"]})
+    return rows
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--float64", action="store_true")
     ap.add_argument("--batch-local", action="store_true",
-                    help="the port's own route (batch-local mixers)")
+                    help="the mixers batch-local (act_sharding.batch_local)")
+    ap.add_argument("--arch", default="xlstm-1.3b")
+    ap.add_argument("--model", type=int, default=2)
     ap.add_argument("--seq", type=int, default=32)
+    ap.add_argument("--what", default="train")
     ap.add_argument("--timeout", type=float, default=900)
+    ap.add_argument("--ulp-noise", action="store_true",
+                    help="one process: one ulp of noise where the ranks "
+                         "sum (module docstring)")
+    ap.add_argument("--count", action="store_true",
+                    help="count one full-width layer of each mixer on a "
+                         "fake pod1 group (module docstring)")
     args = ap.parse_args(argv)
+    if args.ulp_noise or args.count:
+        rows = (ulp_noise(args.arch, args.seq) if args.ulp_noise
+                else full_width_counts(args.arch))
+        for row in rows:
+            print(json.dumps(row))
+        return 0
     with tempfile.TemporaryDirectory(prefix="mixer_tp_") as tmp:
         tmp = Path(tmp)
         src = as_float64(tmp / "f64") if args.float64 else ROOT / "src"
@@ -104,9 +272,9 @@ def main(argv=None):
         if args.batch_local:
             env["REPRO_MIXERS_BATCH_LOCAL"] = "1"
         cmd = [sys.executable, str(Path(__file__).resolve()), "--rank",
-               "--device", "cpu", "--reduced", "--arch", "xlstm-1.3b",
-               "--model", "2", "--batch", "8", "--seq", str(args.seq),
-               "--what", "train",
+               "--device", "cpu", "--reduced", "--arch", args.arch,
+               "--model", str(args.model), "--batch", "8",
+               "--seq", str(args.seq), "--what", args.what,
                "--init-method", f"file://{tmp / 'store'}",
                "--json", str(out)]
         procs = [subprocess.Popen(cmd, cwd=ROOT, env=dict(
@@ -122,7 +290,8 @@ def main(argv=None):
                 if p.poll() is None:
                     p.kill()
                     p.communicate()
-        if any(p.returncode for p in procs) or not out.exists():
+        # rank 0 exits 1 on a check above its bound, with its summary
+        if any(p.returncode for p in procs[1:]) or not out.exists():
             print("\n".join(o[-3000:] for o in outs), file=sys.stderr)
             print(json.dumps({"ok": False, "rcs": [p.returncode
                                                    for p in procs]}))
@@ -130,10 +299,13 @@ def main(argv=None):
         s = json.loads(out.read_text())
     print(json.dumps({
         "ok": s["ok"], "arch": s["arch"], "mesh": s["mesh"],
-        "float64": args.float64,
-        "mixers": "batch-local" if args.batch_local else "DTensor, on model",
+        "float64": args.float64, "seq": args.seq, "what": args.what,
+        "mixers": "batch-local" if args.batch_local else "on model",
         "failed": s["failed"],
         "worst_share": {k: v for k, v in s["worst_share"].items() if v},
+        "bytes_ok": all(r["param_bytes"] == r["param_bytes_expected"]
+                        for r in s["per_rank"]
+                        if r["param_bytes"] is not None),
         "step_s": s.get("step_s"),
         "one_process_step_s": s.get("one_process_step_s")}))
     return 0

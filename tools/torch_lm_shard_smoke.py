@@ -42,7 +42,15 @@ and makes the parameters, AdamW's state, the inputs and the decode cache
   ``--expert-axes``, against ``moe.moe_apply``: the output within
   ``EP_TOL[0]`` and the gradients of ``out.sum()`` within ``EP_TOL[1]``,
   absolute below a magnitude of 1 (the reference test's bounds), of the
-  leaf's largest value above it (full width).
+  leaf's largest value above it (full width);
+- ``mixers``: one layer of each recurrent mixer of each ``--arch`` (Mamba,
+  mLSTM, sLSTM; ``lm._layer_init``'s weights) through
+  ``act_sharding.mixer`` (on "model" under the "tp" profile) against the
+  mixer in one process: the output (``LOSS_TOL``) and the gradients of
+  ``(out * w).sum()``, w random (``GRAD_TOL``), the state a prefill
+  leaves, and one decode step on the one-process state laid out by
+  ``cache_specs`` (its output and new state, ``LOSS_TOL``); each rank's
+  bytes of the layer's weights against the global bytes over its shards.
 
 Each rank counts the port's kernel launches over the run (the LM calls
 the ``nn`` functions: none).
@@ -100,7 +108,8 @@ BACKEND = "gloo"
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda")
-    ap.add_argument("--arch", default="qwen3-4b")
+    ap.add_argument("--arch", default="qwen3-4b",
+                    help="several, comma-separated, for --what mixers")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--layers", type=int, default=0,
                     help="cut the depth to this many layers (0: the "
@@ -125,8 +134,8 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def build_cfg(args):
-    cfg = get_config(args.arch)
+def build_cfg(args, arch=None):
+    cfg = get_config(arch or args.arch)
     if args.reduced:
         cfg = reduced(cfg)
     kw = {"param_dtype": "float32"}   # the checks' bounds are float32's
@@ -514,6 +523,94 @@ def run_ep(args, cfg, mesh, dev, rank, checks, summary):
     checks.note("ep gradients", max(gshares))
 
 
+def run_mixers(args, cfg, mesh, dev, rank, checks, summary):
+    """One layer of each recurrent mixer of ``cfg`` on the mesh against
+    one process (the module docstring's ``mixers``); rank 0 runs the
+    one-process layer alone."""
+    from repro_torch.configs.base import LayerSpec
+    from repro_torch.distributed.act_sharding import gather_weights, mixer
+    from repro_torch.nn import ssm
+    B, T, d = args.batch, args.seq, cfg.d_model
+    prologue, pattern, _ = cfg.layer_plan()
+    kinds = list(dict.fromkeys(sp.kind for sp in list(prologue) + pattern
+                               if sp.kind in lm.MIXERS))
+    g = torch.Generator(device=dev).manual_seed(args.seed)
+    summary.setdefault("mixers", {})
+    summary.setdefault("mixer_bytes", {})
+    batch_pl = shd.batch_spec(mesh, B, 2, cfg.parallelism)
+
+    def on_batch(t):
+        spec = batch_pl[:1] + (None,) * (t.dim() - 1)
+        return shd.distribute_tree({"t": t}, {"t": spec}, mesh)["t"]
+    for kind in kinds:
+        p = lm._layer_init(g, cfg, LayerSpec(kind, "none"), dev)["mix"]
+        apply_fn, step_fn = lm.MIXERS[kind]
+        kw = (dict(d_state=cfg.mamba_d_state) if kind == "mamba"
+              else dict(n_heads=cfg.n_heads))
+        chunk = dict(chunk=cfg.mamba_chunk if kind == "mamba"
+                     else cfg.rnn_chunk)
+        x, w = (torch.randn(B, T, d, generator=g, device=dev,
+                            dtype=cfg.dtype()) for _ in range(2))
+        xt = torch.randn(B, d, generator=g, device=dev, dtype=cfg.dtype())
+        layout = ssm.tp_layout(kind, p, cfg.n_heads)
+        with torch.no_grad():
+            _, state = apply_fn(p, x, return_state=True, **kw, **chunk)
+        rec = {}
+        with rank0_alone(mesh):
+            if rank == 0:
+                live = tree_map(lambda t: t.detach().requires_grad_(), p)
+                xr = x.detach().requires_grad_()
+                sync(dev)
+                t0 = time.perf_counter()
+                ref = apply_fn(live, xr, **kw, **chunk)
+                (ref * w).sum().backward()
+                sync(dev)
+                rec["one_process_s"] = time.perf_counter() - t0
+                ref_grads = [xr.grad] + [t.grad for t in tree_leaves(live)]
+                with torch.no_grad():
+                    ref_t = step_fn(p, state, xt, **kw)
+                del live, xr
+        p_d = shd.distribute_tree({"mix": p}, shd.param_specs(
+            {"mix": p}, mesh, cfg.parallelism), mesh)["mix"]
+        p_d = tree_map(lambda t: t.detach().requires_grad_(), p_d)
+        x_d = on_batch(x).requires_grad_()
+        summary["mixer_bytes"][kind] = [local_bytes(p_d),
+                                        expected_bytes(p_d, mesh)]
+        sync(dev)
+        t0 = time.perf_counter()
+        with use_mesh(mesh, cfg.parallelism):
+            out = mixer(apply_fn, layout, x_d, gather_weights(p_d), **kw,
+                        **chunk)
+            (out * on_batch(w)).sum().backward()
+        sync(dev)
+        rec["fwd_bwd_s"] = time.perf_counter() - t0
+        with torch.no_grad(), use_mesh(mesh, cfg.parallelism):
+            _, st = mixer(apply_fn, layout, x_d, gather_weights(p_d),
+                          return_state=True, **kw, **chunk)
+            state_d = shd.distribute_tree(state, shd.cache_specs(
+                state, mesh, B), mesh)
+            out_t, st_t = mixer(step_fn, layout, on_batch(xt),
+                                gather_weights(p_d), state_d, **kw)
+        full = gather((out, [x_d.grad] + [t.grad for t in tree_leaves(p_d)],
+                       st, out_t, st_t), rank == 0)
+        if rank == 0:
+            f_out, f_grads, f_st, f_out_t, f_st_t = full
+            norm = math.sqrt(sum(float(t.double().square().sum())
+                                 for t in ref_grads))
+            checks.note(f"{kind} forward", near_share(f_out, ref))
+            for a, b in zip(f_grads, ref_grads):
+                checks.note(f"{kind} gradients", grad_share(a, b, norm))
+            for a, b in zip(tree_leaves(f_st), tree_leaves(state)):
+                checks.note(f"{kind} prefill state", near_share(a, b))
+            checks.note(f"{kind} decode", near_share(f_out_t, ref_t[0]))
+            for a, b in zip(tree_leaves(f_st_t), tree_leaves(ref_t[1])):
+                checks.note(f"{kind} decode state", near_share(a, b))
+            summary["mixers"][kind] = rec
+        del p_d, x_d, out, st, state_d, out_t, st_t, full
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+
 def _launches() -> int:
     from repro_torch.kernels import aip_step
     return sum(v for key, v in aip_step.LAUNCHES.items() if "[" not in key)
@@ -531,7 +628,8 @@ def main(argv=None):
         gloo_on_card(force=args.raw_collectives)
     # the DTensors live on the mesh's device type: the card's, or the CPU
     mesh = make_host_mesh(args.model, device_type=dev.type)
-    cfg = build_cfg(args)
+    archs = args.arch.split(",")
+    cfg = build_cfg(args, archs[0])
     checks = Checks()
     summary = {"arch": cfg.name, "ranks": dist.get_world_size(),
                "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
@@ -547,12 +645,17 @@ def main(argv=None):
         run_serve(args, cfg, mesh, dev, rank, checks, summary)
     if "ep" in args.what:
         run_ep(args, cfg, mesh, dev, rank, checks, summary)
+    if "mixers" in args.what:
+        for arch in archs:
+            run_mixers(args, build_cfg(args, arch), mesh, dev, rank, checks,
+                       summary)
+        ok = ok and all(a == b for a, b in summary["mixer_bytes"].values())
     summary["kernel_launches"] = _launches() - launches
     per_rank = [None] * dist.get_world_size()
     mine = {k: summary.get(k) for k in (
         "param_bytes", "param_bytes_expected", "moment_bytes",
         "moment_bytes_expected", "max_memory_allocated", "step_s",
-        "kernel_launches")}
+        "kernel_launches", "mixer_bytes")}
     dist.all_gather_object(per_rank, mine)
     oks = [None] * dist.get_world_size()
     dist.all_gather_object(oks, bool(ok))

@@ -87,9 +87,9 @@ Phases, each printing its result and time on its own line:
      iteration only), equal to phase 3's uninterrupted run; the F-IALS
      (phase 3b's traffic run) and the GS (one process here) on 2 ranks,
      PPO's plain loop, whose bitwise repeat is reported, not required (no
-     kernel launched; the three runs side by side); (d)
+     kernel launched); (b), (c) and these three runs side by side; (d)
      the steady iteration time at 1 and 2 ranks (traffic, the resumed
-     run) and 1 and 4 (warehouse);
+     run) and 1 and 4 (warehouse), taken so;
   4. the engine's own entry points on both domains (``engine.rollout``
      per backbone, ``engine.step`` with the GRU AIP), counters zeroed
      before and read after: ``fnn_rollout``, ``aip_rollout_multi`` (each
@@ -261,9 +261,10 @@ Phases, each printing its result and time on its own line:
      ranks (data 2, model 2), one launch, B = 2 x 512: one Mamba layer
      of jamba-1.5-large-398b (d 8192, dI 16384, d_state 16; four scan
      chunks) and one mLSTM and one sLSTM layer of xlstm-1.3b (d 2048, 4
-     heads; two mLSTM chunks) against each mixer in one process: the
-     output and the gradients of ``(out * w).sum()``, the prefill state
-     and one decode step within the shard smoke's bounds, each rank's
+     heads, two whole heads a rank; two mLSTM chunks) against each mixer
+     in one process: the output and the gradients of ``(out * w).sum()``,
+     the prefill state and one decode step within the shard smoke's
+     bounds, each rank's
      bytes of the layer's weights the global bytes over its shards.
 The build phase also prints ptxas's register and spill lines per kernel
 and the HGMMA count of the tensor-core kernel's SASS (``cuobjdump``).
@@ -1476,19 +1477,36 @@ def phase_ranks(ref, keep):
                      "4 ranks (data 2, model 2)", tmp)
         # (b) rl_train under ranks, (c) a one-process checkpoint resumed:
         # the 2-rank traffic run is the resumed one (its own run from
-        # iteration 0 was cut for the script's time)
+        # iteration 0 was cut for the script's time); PPO's plain loop on
+        # the ranks' lanes: runs, bitwise reported. The four runs of
+        # ranks and the GS's one-process run side by side (their
+        # iteration times are then taken beside each other)
+        from concurrent.futures import ThreadPoolExecutor
         traffic = MAIN_ARGS + ["--domain", "traffic", "--simulator", "ials",
                                "--aip", "fnn", "--iterations", "3"]
         pol_fnn = "policy_rollout_fnn"
-        w4 = _train_ranks(4, MAIN_ARGS + [
-            "--domain", "warehouse", "--simulator", "ials", "--n-agents",
-            "36", "--iterations", "2"], ref["warehouse gru"],
-            "warehouse gru A=36", tmp,
-            counter="policy_rollout_gru[warehouse]")
-        res = _train_ranks(2, traffic + ["--ckpt-dir", keep,
-                                         "--save-every", "2"],
-                           ref["fnn"], "traffic fnn A=1 resumed from 1",
-                           tmp, counter=pol_fnn)
+        gs = MAIN_ARGS + ["--domain", "traffic", "--simulator", "gs",
+                          "--iterations", "2"]
+        with ThreadPoolExecutor(4) as pool:
+            w4 = pool.submit(_train_ranks, 4, MAIN_ARGS + [
+                "--domain", "warehouse", "--simulator", "ials",
+                "--n-agents", "36", "--iterations", "2"],
+                ref["warehouse gru"], "warehouse gru A=36", tmp,
+                counter="policy_rollout_gru[warehouse]")
+            res = pool.submit(_train_ranks, 2, traffic + [
+                "--ckpt-dir", keep, "--save-every", "2"], ref["fnn"],
+                "traffic fnn A=1 resumed from 1", tmp, counter=pol_fnn)
+            f_ials = pool.submit(_train_ranks, 2, MAIN_ARGS + [
+                "--domain", "traffic", "--simulator", "f-ials",
+                "--iterations", "2", "--aip", "fnn"], ref["f-ials"],
+                "f-ials traffic fnn A=1", tmp, bitwise=False)
+            gs_ranks = pool.submit(_rl_ranks, 2, gs, "gs traffic A=1", tmp)
+            _, _, gs_one = _train(gs, "gs traffic A=1 (one process, beside "
+                                  "the runs of ranks)")
+            w4, res = w4.result(), res.result()
+            f_ials.result()
+            _train_ranks(2, gs, gs_one, "gs traffic A=1", tmp,
+                         bitwise=False, got=gs_ranks.result())
         saves = [r.get("ckpt_save_s") for r in res["history"]]
         if res["resumed_from"] != 1 or [s is not None for s in saves] != [
                 True, False]:
@@ -1498,30 +1516,14 @@ def phase_ranks(ref, keep):
         log(f"[ranks] resumed at --save-every 2: iteration 1 saved in "
             f"{saves[0] * 1e3:.2f} ms (the global rollout state's gather "
             f"and rank 0's write), iteration 2 saved nothing")
-        # PPO's plain loop on the ranks' lanes: runs, bitwise reported; the
-        # two 2-rank runs and the GS's one-process run side by side (their
-        # iteration times are then taken beside each other)
-        from concurrent.futures import ThreadPoolExecutor
-        gs = MAIN_ARGS + ["--domain", "traffic", "--simulator", "gs",
-                          "--iterations", "2"]
-        with ThreadPoolExecutor(2) as pool:
-            f_ials = pool.submit(_train_ranks, 2, MAIN_ARGS + [
-                "--domain", "traffic", "--simulator", "f-ials",
-                "--iterations", "2", "--aip", "fnn"], ref["f-ials"],
-                "f-ials traffic fnn A=1", tmp, bitwise=False)
-            gs_ranks = pool.submit(_rl_ranks, 2, gs, "gs traffic A=1", tmp)
-            _, _, gs_one = _train(gs, "gs traffic A=1 (one process, beside "
-                                  "the 2-rank runs)")
-            f_ials.result()
-            _train_ranks(2, gs, gs_one, "gs traffic A=1", tmp,
-                         bitwise=False, got=gs_ranks.result())
     # (d) the steady iteration time at 1, 2 and 4 ranks
     log(f"[ranks] steady iteration, traffic FNN A=1 (16 envs): 1 rank "
         f"{_steady_s(ref['fnn']):.4f} s, 2 ranks {_steady_s(res):.4f} s "
         f"(resumed); "
         f"warehouse GRU A=36: 1 rank "
         f"{_steady_s(ref['warehouse gru']):.4f} s, 4 ranks "
-        f"{_steady_s(w4):.4f} s (ranks share the card on gloo)")
+        f"{_steady_s(w4):.4f} s (ranks share the card on gloo; the runs of "
+        f"ranks side by side)")
 
 
 @phase("engine entry points: engine.rollout, engine.step")

@@ -354,10 +354,14 @@ def _share(w, split, mesh, md: int, rows: list):
     weight the rules shard on "model" gathered there), else ``(dim,
     parts)`` -> this rank's share of each part (``_intervals``; from the
     ranks that hold it if the rules shard ``dim`` on "model", else
-    sliced). The gradient: this rank's block where the weight is sharded
+    sliced; where they shard another dim there, ``parts`` 1 -> this
+    rank's block of ``dim``, moved in one all-to-all: the mLSTM's
+    ``wq`` / ``wk`` / ``wv`` held by a head's rows, laid out by whole
+    heads or by their output columns). The gradient: this rank's block
+    where the weight is sharded
     on "model", else partial over "model" and over the mesh dims ``rows``
     (those that split the batch)."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     if not isinstance(w, DTensor):
         raise TypeError("mixer: a plain weight under a mesh")
     pl = list(w.placements)
@@ -366,6 +370,9 @@ def _share(w, split, mesh, md: int, rows: list):
         pl[md] = Replicate()
         w = w.redistribute(mesh, pl)
         sharded = False
+    elif sharded and not pl[md].is_shard(split[0]) and split[1] == 1:
+        pl[md] = Shard(split[0])
+        w = w.redistribute(mesh, pl)
     grad = [p if p.is_shard() else
             (Partial() if i == md or i in rows else Replicate())
             for i, p in enumerate(pl)]
@@ -423,24 +430,25 @@ def _state_whole(t, split, n: int, group):
 
 
 def mixer(fn, layout, x, params, *state, **kw):
-    """A recurrent mixer of ``nn/ssm.py`` (``fn``, with its ``tp_layout``
-    ``layout``) under the installed mesh.
+    """A recurrent mixer of ``nn/ssm.py`` (``fn``; ``layout(n)`` its
+    ``tp_layout`` on n ranks) under the installed mesh.
 
     Under the "tp" profile, on "model" as the reference's rules lay its
     weights out: each weight is gathered over the FSDP axes only
     (``gather_weights``) and this rank takes its share of the layer's
-    channels, value rows or hidden units (``layout``), from the ranks
-    whose blocks hold them in one all-to-all where the rules' even split
-    cuts the parts otherwise (``in_proj``'s [xi | z], the mLSTM's heads)
-    or sliced where the weight is whole on "model"; ``fn`` runs on those
-    local tensors and the input's batch block (a sequence loop sees no
-    ``DTensor`` op), with the collectives of ``nn/ssm.py::Collectives``
-    where a product contracts over the split dim; its output, a partial
-    sum over "model", is all-reduced there (the backward: the identity)
-    and a state is gathered whole on "model" (the cache's layout, whose
-    share a decode step takes). Whole on every rank of "model": the
-    sLSTM's ``r_*`` (gathered once a call) and its recurrence, the small
-    vectors the layout names, and the mLSTM's q, k, n, m and gates
+    channels, heads, value rows or hidden units (``layout``), from the
+    ranks whose blocks hold them in one all-to-all where the rules' even
+    split cuts the parts otherwise (``in_proj``'s [xi | z], the mLSTM's
+    heads or their rows) or sliced where the weight is whole on "model";
+    ``fn`` runs on those local tensors and the input's batch block (a
+    sequence loop sees no ``DTensor`` op), with the collectives of
+    ``nn/ssm.py::Collectives`` where a product contracts over the split
+    dim; its output, a partial sum over "model", is all-reduced there
+    (the backward: the identity) and a state is gathered whole on
+    "model" (the cache's layout, whose share a decode step takes). Whole
+    on every rank of "model": the sLSTM's ``r_*`` (gathered once a call)
+    and its recurrence, the small vectors the layout names, and, where
+    "model" exceeds the mLSTM's heads, its q, k, n, m and gates
     (``docs/TORCH_ARCHITECTURE.md`` §9).
 
     Under ``fsdp_only`` or with "model" of size 1: ``batch_local``; a
@@ -453,11 +461,11 @@ def mixer(fn, layout, x, params, *state, **kw):
     mesh = x.device_mesh
     names = mesh.mesh_dim_names
     md = names.index("model") if "model" in names else None
-    splits, state_splits, even = layout
     if _PROFILE == "fsdp_only" or md is None or mesh.size(md) == 1:
         return batch_local(fn, x, params, *state, **kw)
     n, r = mesh.size(md), mesh.get_local_rank(md)
-    for e in even:
+    lay = layout(n)
+    for e in lay.even:
         if e % n:
             raise ValueError(f"mixer: a width of {e} that the 'model' axis "
                              f"of size {n} does not divide")
@@ -470,14 +478,14 @@ def mixer(fn, layout, x, params, *state, **kw):
         if isinstance(t, dict):
             return {k: walk(v, f"{path}.{k}" if path else k)
                     for k, v in t.items()}
-        return _share(t, splits[path], mesh, md, rows)
+        return _share(t, lay.weights[path], mesh, md, rows)
 
     def whole_on_model(t):
         return t.redistribute(mesh, pl).to_local()
     local_state = [type(st)(*(_state_share(whole_on_model(t), s, n, r)
-                              for t, s in zip(st, state_splits)))
+                              for t, s in zip(st, lay.state)))
                    for st in state]
-    tp = _ssm_collectives(group, n)
+    tp = _ssm_collectives(group, n, lay.heads)
     xl = x.redistribute(mesh, pl).to_local(
         grad_placements=[Partial() if i == md else p
                          for i, p in enumerate(pl)])
@@ -488,15 +496,15 @@ def mixer(fn, layout, x, params, *state, **kw):
     if st is None:
         return out
     st = type(st)(*(_state_whole(t, s, n, group)
-                    for t, s in zip(st, state_splits)))
+                    for t, s in zip(st, lay.state)))
     return out, tree_map(lambda t: DTensor.from_local(t, mesh, pl,
                                                       run_check=False), st)
 
 
-def _ssm_collectives(group, n: int):
+def _ssm_collectives(group, n: int, heads: int = 0):
     from repro_torch.nn.ssm import Collectives
     return Collectives(
         sum=lambda t: _AllReduce.apply(t, group),
         mean=lambda t: _AllReduce.apply(t, group) / n,
         scatter=lambda t: _ReduceScatter.apply(t, group),
-        gather=lambda t: _AllGather.apply(t, group))
+        gather=lambda t: _AllGather.apply(t, group), heads=heads)

@@ -448,8 +448,8 @@ def _mixer(cfg: ArchConfig, kind: str, x, p, *state, **kw):
         kw["d_state"] = cfg.mamba_d_state
     else:
         kw["n_heads"] = cfg.n_heads
-    return mixer(fn, ssm_lib.tp_layout(kind, p, cfg.n_heads), x, p, *state,
-                 **kw)
+    return mixer(fn, lambda n: ssm_lib.tp_layout(kind, p, cfg.n_heads, n), x,
+                 p, *state, **kw)
 
 
 def _ffn_apply(p, cfg: ArchConfig, x, ffn: str, *, full_capacity=False):

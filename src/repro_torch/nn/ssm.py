@@ -14,9 +14,10 @@
 
 Each mixer takes ``tp``, the collectives of its tensor-parallel route
 (``Collectives``; ``distributed/act_sharding.py::mixer`` runs a mixer
-on each rank's share of its channels, heads' value rows or hidden units,
-laid out by ``tp_layout``): they sit where a product contracts over a
-dim that is split across ranks, and are the identity in one process.
+on each rank's share of its channels, heads, heads' value rows or hidden
+units, laid out by ``tp_layout``): they sit where a product contracts
+over a dim that is split across ranks, and are the identity in one
+process.
 """
 from __future__ import annotations
 
@@ -57,11 +58,15 @@ class Collectives(NamedTuple):
     ranks of its tensor-parallel route: ``sum`` the ranks' partial sums
     (an all-reduce), ``mean`` them, ``scatter`` the partial sums' last
     dim (each rank keeps its block of it, summed: a reduce-scatter),
-    ``gather`` the ranks' blocks of the last dim (an all-gather)."""
+    ``gather`` the ranks' blocks of the last dim (an all-gather).
+    ``heads``: the mLSTM heads the rank holds whole (``Layout.heads``:
+    their own products need no collective), 0 where it holds a share of
+    every head."""
     sum: Callable
     mean: Callable
     scatter: Callable
     gather: Callable
+    heads: int = 0
 
 
 def _same(t):
@@ -71,44 +76,72 @@ def _same(t):
 ONE = Collectives(_same, _same, _same, _same)   # one process
 
 
-def tp_layout(kind: str, p: Params, n_heads: int = 0):
-    """The tensor-parallel layout of a mixer's weights ``p`` -> (weights,
-    state, even): for each weight (by its dotted path) ``(dim, parts)``,
-    the dim it splits into ``parts`` equal parts of which each rank takes
-    its share (rank r of n: elements [r P // n, (r + 1) P // n) of each
-    part of P), or None (whole on every rank); the same for the decode
-    state's fields; the sizes that n must divide (the shares of those
-    are gathered or scattered evenly).
+class Layout(NamedTuple):
+    """A mixer's tensor-parallel layout (``tp_layout``)."""
+    weights: dict
+    state: tuple
+    even: tuple
+    heads: int = 0
+
+
+def tp_layout(kind: str, p: Params, n_heads: int = 0,
+              ranks: int = 1) -> Layout:
+    """The tensor-parallel layout of a mixer's weights ``p`` on ``ranks``
+    ranks -> ``Layout``: for each weight (by its dotted path) ``(dim,
+    parts)``, the dim it splits into ``parts`` equal parts of which each
+    rank takes its share (rank r of n: elements [r P // n, (r + 1) P //
+    n) of each part of P), or None (whole on every rank); the same for
+    the decode state's fields; the sizes that n must divide (the shares
+    of those are gathered or scattered evenly); the mLSTM heads each
+    rank holds whole, 0 where it holds a share of every head.
 
     - Mamba: its dI channels (``in_proj``'s [xi | z] both);
-    - mLSTM: each head's value rows (``v``, the rows of C, ``h``), so
-      the channels of ``xi``, ``xc`` and ``z`` are each head's share of
-      its DH, as the rules split ``wq`` / ``wk`` / ``wv`` on their input
-      dim; q, k, n, m and the gates stay whole;
+    - mLSTM, where ``ranks`` divides the heads: whole heads (each head's
+      channels of ``xi``, ``xc`` and ``z``, its ``wq`` / ``wk`` / ``wv``
+      block, its C, n and m; its gates' bias), as the reference's
+      partitioner lays the head out: each head's products contract on
+      one rank, only the gates and ``down_proj`` (over all dI channels)
+      sum across ranks. Else each head's value rows (``v``, the rows of
+      C, ``h``), so the channels of ``xi``, ``xc`` and ``z`` are each
+      head's share of its DH, and ``wq`` / ``wk`` / ``wv`` the same share
+      of their output columns: q, k and v contract whole over the
+      gathered channels, as the reference's do; q, k, n, m and the
+      gates stay whole;
     - sLSTM: ``w_in``'s 4 d columns (gathered whole for the recurrence,
       which runs whole) and the FFN's hidden units."""
     if kind == "mamba":
         dI = p["conv_w"].shape[0]
         ch = (0, 1)
-        return ({"in_proj": (1, 2), "conv_w": ch, "conv_b": ch,
-                 "x_proj": ch, "dt_w": (1, 1), "dt_b": ch, "A_log": ch,
-                 "D": ch, "out_proj": ch},
-                MambaState(conv=(2, 1), h=(1, 1)), (dI,))
+        return Layout({"in_proj": (1, 2), "conv_w": ch, "conv_b": ch,
+                       "x_proj": ch, "dt_w": (1, 1), "dt_b": ch,
+                       "A_log": ch, "D": ch, "out_proj": ch},
+                      MambaState(conv=(2, 1), h=(1, 1)), (dI,))
+    if kind == "mlstm" and n_heads % ranks == 0:
+        heads = (0, 1)
+        return Layout({"up_proj": (1, 2), "conv_w": heads,
+                       "conv_b": heads, "wq": heads, "wk": heads,
+                       "wv": heads, "w_if.w": heads, "w_if.b": (0, 2),
+                       "out_norm_g": heads, "down_proj": heads},
+                      MLSTMState(conv=(2, 1), C=(1, 1), n=(1, 1),
+                                 m=(1, 1)),
+                      (n_heads,), n_heads // ranks)
     if kind == "mlstm":
         dI = p["conv_w"].shape[0]
         rows = (0, n_heads)
-        return ({"up_proj": (1, 2 * n_heads), "conv_w": rows,
-                 "conv_b": rows, "wq": (1, 1), "wk": (1, 1), "wv": (1, 1),
-                 "w_if.w": rows, "w_if.b": None, "out_norm_g": rows,
-                 "down_proj": rows},
-                MLSTMState(conv=(2, n_heads), C=(2, 1), n=None, m=None),
-                (dI // n_heads,))
+        return Layout({"up_proj": (1, 2 * n_heads), "conv_w": rows,
+                       "conv_b": rows, "wq": (2, 1), "wk": (2, 1),
+                       "wv": (2, 1), "w_if.w": rows, "w_if.b": None,
+                       "out_norm_g": rows, "down_proj": rows},
+                      MLSTMState(conv=(2, n_heads), C=(2, 1), n=None,
+                                 m=None),
+                      (dI // n_heads,))
     if kind == "slstm":
         d = p["w_in"]["w"].shape[0]
-        return ({"w_in.w": (1, 1), "w_in.b": (0, 1), "r_z": None,
-                 "r_i": None, "r_f": None, "r_o": None, "out_norm_g": None,
-                 "ff_up": (1, 2), "ff_down": (0, 1)},
-                SLSTMState(None, None, None, None), (4 * d,))
+        return Layout({"w_in.w": (1, 1), "w_in.b": (0, 1), "r_z": None,
+                       "r_i": None, "r_f": None, "r_o": None,
+                       "out_norm_g": None, "ff_up": (1, 2),
+                       "ff_down": (0, 1)},
+                      SLSTMState(None, None, None, None), (4 * d,))
     raise ValueError(kind)
 
 
@@ -326,7 +359,7 @@ def mlstm_init(generator, d_model: int, n_heads: int, *,
 
 
 def _bd_proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x: (..., dI); w: (NH, DH, DH) block-diagonal -> (..., NH, DH)."""
+    """x: (..., dI); w: (NH, DH, E) block-diagonal -> (..., NH, E)."""
     nh, dh = w.shape[0], w.shape[1]
     xr = x.reshape(*x.shape[:-1], nh, dh)
     return torch.einsum("...hd,hde->...he", xr, w)
@@ -419,14 +452,33 @@ def _mlstm_chunk_parallel(q, k, v, i_raw, f_raw, state: MLSTMState):
     return h, MLSTMState(conv=state.conv, C=C_new, n=n_new, m=m_state)
 
 
+def _heads(n_heads: int, tp: Collectives):
+    """-> the mLSTM heads this rank holds, and the collectives of a
+    head's own products: none where the rank holds whole heads
+    (``tp.heads``), ``tp`` where it holds a share of each."""
+    return (tp.heads, ONE) if tp.heads else (n_heads, tp)
+
+
 def _mlstm_qkvif(p: Params, xi, xc, n_heads: int, tp: Collectives = ONE):
-    """-> q, k, v (float32, (..., NH, DH); v's last dim the rank's value
-    rows) and i_raw, f_raw (..., NH)."""
-    q = tp.sum(_bd_proj(xc, p["wq"]).float())
-    k = tp.sum(_bd_proj(xc, p["wk"]).float())
-    v = tp.scatter(_bd_proj(xi, p["wv"]).float())
-    if_raw = tp.sum(xc.float() @ p["w_if"]["w"]) + p["w_if"]["b"]
-    if_raw = if_raw.reshape(*if_raw.shape[:-1], 2, n_heads)
+    """-> q, k, v (float32, (..., nh, DH); v's last dim the rank's value
+    rows) and i_raw, f_raw (..., nh), for the rank's nh heads
+    (``_heads``). Where the rank holds a share of each head (its value
+    rows), q, k and v contract whole over each head's channels, gathered
+    (``tp.gather``), for the rank's output columns, and q and k's
+    columns are gathered. The gates contract over all dI channels:
+    partial sums of every head's gates, each rank's heads kept (all of
+    them where each rank holds a share of each head)."""
+    nh, th = _heads(n_heads, tp)
+    xcw, xiw = xc, xi
+    if th is not ONE:      # (a view in one process reorders xc's gradient)
+        xcw, xiw = (th.gather(t.unflatten(-1, (nh, -1))).flatten(-2)
+                    for t in (xc, xi))
+    q = th.gather(_bd_proj(xcw, p["wq"]).float())
+    k = th.gather(_bd_proj(xcw, p["wk"]).float())
+    v = _bd_proj(xiw, p["wv"]).float()
+    if_raw = (xc.float() @ p["w_if"]["w"]).unflatten(-1, (2, n_heads))
+    if_raw = (tp.sum(if_raw) if nh == n_heads else tp.scatter(if_raw)) + \
+        p["w_if"]["b"].unflatten(-1, (2, nh))
     return q, k, v, if_raw[..., 0, :], if_raw[..., 1, :]
 
 
@@ -441,9 +493,10 @@ def mlstm_apply(p: Params, x: torch.Tensor, n_heads: int, *,
     xi, z = (x @ p["up_proj"]).chunk(2, dim=-1)
     xc = F.silu(causal_conv1d(xi, p["conv_w"], p["conv_b"]))
     q, k, v, i_raw, f_raw = _mlstm_qkvif(p, xi, xc, n_heads, tp)
+    nh, th = _heads(n_heads, tp)
 
-    st = mlstm_init_state(B, q.shape[-2] * q.shape[-1], n_heads, 0,
-                          dtype=x.dtype, device=x.device, rows=v.shape[-1])
+    st = mlstm_init_state(B, nh * q.shape[-1], nh, 0, dtype=x.dtype,
+                          device=x.device, rows=v.shape[-1])
     hs = []
     if chunkwise:
         ck = _chunk(T, chunk)
@@ -458,7 +511,7 @@ def mlstm_apply(p: Params, x: torch.Tensor, n_heads: int, *,
                                    f_raw[:, t]), st)
             hs.append(h_t[None])                        # (1, B, NH, DH)
     h = torch.cat(hs, dim=0).reshape(T, B, dI).transpose(0, 1).to(x.dtype)
-    h = _groupnorm_heads(h, p["out_norm_g"], n_heads, tp)
+    h = _groupnorm_heads(h, p["out_norm_g"], nh, th)
     out = (h * F.silu(z)) @ p["down_proj"]
     if return_state:
         win = _conv_window(xi, p["conv_w"].shape[-1])
@@ -489,8 +542,9 @@ def mlstm_step(p: Params, state: MLSTMState, x: torch.Tensor,
     h, st = _mlstm_cell((q, k, v, i_raw, f_raw),
                         MLSTMState(conv=conv, C=state.C, n=state.n,
                                    m=state.m))
+    nh, th = _heads(n_heads, tp)
     hf = _groupnorm_heads(h.reshape(B, dI).to(x.dtype), p["out_norm_g"],
-                          n_heads, tp)
+                          nh, th)
     return (hf * F.silu(z)) @ p["down_proj"], st
 
 

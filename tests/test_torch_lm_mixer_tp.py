@@ -6,7 +6,8 @@ within the smoke's bounds, on (data 2, model 2) and (data 1, model 4)
 shards, the mixers' weights left on "model"); and each mixer's products
 on rank 0 of a fake (data 1, model 4) process group counted against the
 batch-local route's (``act_sharding.batch_local``): a quarter of them,
-apart from the pieces that stay whole; and the smoke's ``--what mixers``
+apart from the pieces that stay whole, and the mLSTM's by whole heads on
+a fake (data 1, model 2) group: half; and the smoke's ``--what mixers``
 (one layer of each mixer, ``chip_smoke.py`` phase 10 (d)'s check) at
 ``reduced()``. The xLSTM's steps on ranks are in
 ``test_torch_lm_mixer_tp_xlstm.py``."""
@@ -79,11 +80,12 @@ def _whole_mlstm_products():
 def test_each_mixers_products_on_rank0_are_a_quarter(kind):
     """Rank 0's dot FLOPs on "model" = 4: a quarter of the batch-local
     route's (where every rank computes the same rows), the whole pieces
-    apart: none for Mamba; the mLSTM's q, k and n products; the sLSTM's
-    recurrence (``h @ r_all`` each step) and nothing else. No weight is
-    gathered whole on "model" but the sLSTM's ``r_*``: the forward of
-    Mamba and the mLSTM moves its weights by all-to-alls, not
-    all-gathers."""
+    apart: none for Mamba; the mLSTM's q, k and n products (q, k and v
+    themselves contract whole over gathered channels, each rank for its
+    share of their columns); the sLSTM's recurrence (``h @ r_all`` each
+    step) and nothing else. No weight is gathered whole on "model" but
+    the sLSTM's ``r_*``: the forward of Mamba and the mLSTM moves its
+    weights by all-to-alls, not all-gathers."""
     tp, bl = _count(kind, "tp"), _count(kind, "batch")
     if kind == "mamba":
         whole = 0.0
@@ -102,9 +104,26 @@ def test_each_mixers_products_on_rank0_are_a_quarter(kind):
         # r_z, r_i, r_f, r_o, and the backward's gathers of w_in's output
         assert gathered >= 4
     else:
-        # the backward's gathers only: v's reduce-scatter (mLSTM)
-        assert gathered == (1 if kind == "mlstm" else 0), \
+        # the mLSTM's forward gathers of xc's and xi's channels and of q
+        # and k's columns (their backward: reduce-scatters)
+        assert gathered == (4 if kind == "mlstm" else 0), \
             tp["collective_counts"]
+
+
+def test_the_mlstm_by_whole_heads_splits_every_product():
+    """Where "model" divides the heads (2 heads on a fake (data 1, model
+    2) group) each rank holds whole heads: rank 0's dot FLOPs are half the
+    batch-local route's, nothing computed whole, and no weight gathered
+    whole (``wq`` / ``wk`` / ``wv`` move from the rules' split of each
+    head's rows by all-to-alls): the one all-gather is the backward of the
+    gates' reduce-scatter."""
+    tp, bl = _count("mlstm", "tp", (1, 2)), _count("mlstm", "batch", (1, 2))
+    assert tp["flops_dot"] * 2 == bl["flops_dot"], (tp["flops_dot"],
+                                                    bl["flops_dot"])
+    counts = tp["collective_counts"]
+    assert counts.get("all-gather", 0) == 1, counts
+    assert counts.get("reduce-scatter", 0) == 1, counts
+    assert counts.get("all-to-all", 0) >= 3, counts
 
 
 @pytest.mark.parametrize("kind", ["mamba", "mlstm", "slstm"])

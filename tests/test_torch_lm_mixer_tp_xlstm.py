@@ -2,12 +2,13 @@
 (``distributed/act_sharding.py::mixer``) under the "tp" profile, xlstm
 ``reduced()`` (2 heads) through ``tools/torch_lm_shard_smoke.py``
 against the one-process port, within the smoke's bounds, on (data 2,
-model 2) and (data 1, model 4), where "model" exceeds the heads and each
-rank holds a share of every head's value rows: prefill and decode in
-float32; the train steps (and prefill and decode) in float64
-(``test_torch_lm_sharded_steps.py`` says why), at T = 32 and at T = 16.
-Each rank's bytes are the global bytes over its shards: the mixers'
-weights stay on "model"."""
+model 2), where each rank holds whole heads, and (data 1, model 4), where
+"model" exceeds the heads and each rank holds a share of every head's
+value rows: prefill and decode in float32; the two train steps in
+float32 on (data 2, model 2) at T = 32; the train steps (and prefill and
+decode) in float64 (``test_torch_lm_sharded_steps.py`` says why), at
+T = 32 and at T = 16. Each rank's bytes are the global bytes over its
+shards: the mixers' weights stay on "model"."""
 import pytest
 
 from test_torch_lm_sharded_steps import STEPS, run_smoke
@@ -29,6 +30,18 @@ def test_xlstm_serving_on_model_in_float32(tmp_path, world, model):
                                            "32", "--what", "prefill,decode"])
     _check(s, world, model, ("prefill logits", "prefill cache",
                              "decode logits", "decode cache"))
+
+
+def test_xlstm_train_on_model_in_float32(tmp_path):
+    """Each head's products on one rank (``nn/ssm.py::tp_layout``'s whole
+    heads, as the reference's partitioner lays them out): the float32
+    steps hold the smoke's bounds."""
+    s = run_smoke(tmp_path, 4, ARGV + ["--model", "2", "--seq", "32",
+                                       "--what", "train"])
+    _check(s, 4, 2, [f"step {k} {c}" for k in (0, 1)
+                     for c in ("loss", "gradients", "grad_norm",
+                               "update (ulps / 4)")])
+    assert len(s["loss"]) == 2
 
 
 @pytest.mark.parametrize("world,model,seq,what", [

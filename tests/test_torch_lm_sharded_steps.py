@@ -11,14 +11,14 @@ and the expert-parallel route in ``test_torch_lm_sharded_moe.py``; the
 recurrent mixers on "model" in ``test_torch_lm_mixer_tp*.py``.
 
 xLSTM on its own "tp" profile, its mixers tensor-parallel on "model",
-runs in float64 (``tools/torch_lm_mixer_tp_check.py``'s copy of the port
-with every float32 cast a float64 one), within the same bounds: in
-float32 that route's gradients sit 2.4x and its grad norm 3.2x the
-bounds off one process, an open fault (``ROADMAP.md`` Queue 3; a single
-float32 ulp at each mLSTM output in one process alone moves the
-gradients 1.79x the bound, ``PERF.md`` §6). xLSTM in float32 runs under
-``fsdp_only``, where "model" is a batch axis and the mixers run on each
-rank's batch block (``act_sharding.batch_local``)."""
+runs here in float64 (``tools/torch_lm_mixer_tp_check.py``'s copy of the
+port with every float32 cast a float64 one), within the same bounds:
+the check that the route's drift from one process is rounding (a single
+float32 ulp at each mLSTM output in one process moves the reduced
+xlstm's gradients 1.79x the bound, ``PERF.md`` §6); its float32 steps
+on "model" are in ``test_torch_lm_mixer_tp_xlstm.py``. xLSTM in float32
+also runs under ``fsdp_only``, where "model" is a batch axis and the
+mixers run on each rank's batch block (``act_sharding.batch_local``)."""
 import importlib.util
 import json
 from pathlib import Path
@@ -179,11 +179,16 @@ def test_the_cards_all_to_all_moves_each_block_once(tmp_path):
 
 def test_the_mixer_check_makes_every_float32_cast_a_float64_one(tmp_path):
     """``tools/torch_lm_mixer_tp_check.py --float64`` runs a copy of the
-    port and the smoke in which no float32 cast is left."""
+    port and the smoke in which no float32 cast is left (``--parity``'s
+    also a copy of the reference)."""
     mod = mixer_check()
-    src = mod.as_float64(tmp_path)
-    files = list(src.rglob("*.py")) + [tmp_path / "tools" / mod.SMOKE]
+    src = mod.as_float64(tmp_path, reference=True)
+    files = list((src / "repro_torch").rglob("*.py")) + [
+        tmp_path / "tools" / mod.SMOKE]
     assert len(files) > 50
     text = "".join(f.read_text() for f in files)
     assert "torch.float32" not in text and ".float()" not in text
+    assert "np.float32" not in text
     assert "torch.float64" in text and ".double()" in text
+    ref = "".join(f.read_text() for f in (src / "repro").rglob("*.py"))
+    assert "np.float32" not in ref and "jnp.float64" in ref

@@ -2,8 +2,8 @@
 
 Under a mesh's "tp" profile the port runs the recurrent mixers (Mamba,
 mLSTM, sLSTM) on "model" (``distributed/act_sharding.py::mixer``: each
-rank's share of the channels, value rows or hidden units, partial sums
-all-reduced). This check runs ``tools/torch_lm_shard_smoke.py`` on 4
+rank's share of the channels, heads, value rows or hidden units, partial
+sums all-reduced). This check runs ``tools/torch_lm_shard_smoke.py`` on 4
 gloo ranks on the CPU that way, or with the mixers batch-local
 (``--batch-local``: ``act_sharding.batch_local``, their weights gathered
 whole and every "model" rank computing the same rows), in float32 and,
@@ -17,6 +17,10 @@ to float64; a fault does not.
         [--timeout 900]
     python tools/torch_lm_mixer_tp_check.py --ulp-noise [--arch ...]
     python tools/torch_lm_mixer_tp_check.py --count [--arch ...]
+    python tools/torch_lm_mixer_tp_check.py --whole gates,moment,output,\
+        ffn [--model 2]
+    python tools/torch_lm_mixer_tp_check.py --parity xlstm-1.3b \
+        [--whole output,gates] [--float64]
 
 It runs ``--arch`` at ``reduced()``, two train steps of B = 8 rows in 2
 microbatches (and ``--what``'s prefill and decode), on 4 ranks (data 4 /
@@ -30,6 +34,34 @@ down, the side drawn from a seed) where the route on "model" sums across ranks (
 against the same gradients without it, as the smoke's shares of its
 bounds (``GRAD_TOL``; the global norm's under ``LOSS_TOL``), one line
 a site.
+
+``--whole SITE[,SITE...]`` bisects the sharded step's drift by site:
+for one site at a time (``all``: every site at once) the route on
+"model" gathers that product's operands whole on each rank of "model"
+(``act_sharding._state_whole``: the ranks' shares in the layout's
+order) and contracts them in one process's order, where it otherwise
+sums the ranks' partial products. The sites: the mLSTM's ``gates``
+(``nn/ssm.py::_mlstm_qkvif``; its q, k and v contract whole in both of
+its layouts), its group norm's ``moment`` and its ``output``
+(``down_proj``, summed by ``mixer``), and the sLSTM's ``ffn``
+(``ff_up`` and ``ff_down``: its output). A site the layout already
+contracts whole on each rank (the moment where "model" divides the
+mLSTM's heads) is left as it is. A product every rank then
+computes whole is kept on "model"'s rank 0 and zero on the others, so
+``mixer``'s sum of the output, and the all-gathers' reduce-scattered
+gradients, add only zeros to it. One line a site: the first step's
+gradients and grad norm as shares of the smoke's bounds (``--steps 1``
+of the smoke), beside the route unchanged (``none``).
+
+``--parity ARCH`` with ``--whole`` runs the parity test's 4 ranks
+(``tests/test_torch_lm_sharding_ref_mixers.py``: the reference on one
+device and sharded, the port in one process and sharded, a gradient and
+two train steps from common states, on (data 2, model 2) and (data 1,
+model 4)) once a site, the port's route patched as above, and prints its
+cases, each tagged with the site. With ``--float64`` both packages run
+in float64 (the copies of ``as_float64``, the reference's under
+``JAX_ENABLE_X64``): a pair that is the two orders of one function's
+sums shrinks by ~1e8 there; a difference of function does not.
 
 ``--count`` counts one full-width layer of each of ``--arch``'s mixers
 (``distributed/op_analysis.py``), forward and the backward of
@@ -62,17 +94,27 @@ SMOKE = "torch_lm_shard_smoke.py"
 RANKS = 4
 
 
-def as_float64(dst: Path) -> Path:
+def as_float64(dst: Path, reference: bool = False) -> Path:
     """A copy of ``src/repro_torch`` and the smoke under ``dst`` with
-    every float32 cast a float64 one -> the copy's ``src``."""
+    every float32 cast a float64 one (``np.float32`` too: ``convert``'s),
+    and with ``reference`` a copy of ``src/repro`` whose ``jnp.float32``
+    / ``np.float32`` are float64 ones (run with ``JAX_ENABLE_X64``) ->
+    the copy's ``src``."""
+    ignore = shutil.ignore_patterns("__pycache__", "*.so")
     shutil.copytree(ROOT / "src" / "repro_torch", dst / "src" / "repro_torch",
-                    ignore=shutil.ignore_patterns("__pycache__", "*.so"))
+                    ignore=ignore)
     (dst / "tools").mkdir()
     shutil.copy(ROOT / "tools" / SMOKE, dst / "tools" / SMOKE)
     for f in list((dst / "src").rglob("*.py")) + [dst / "tools" / SMOKE]:
         text = f.read_text()
+        text = text.replace("torch.float32", "torch.float64")
         f.write_text(re.sub(r"\.float\(\)", ".double()",
-                            text.replace("torch.float32", "torch.float64")))
+                            text.replace("np.float32", "np.float64")))
+    if reference:
+        shutil.copytree(ROOT / "src" / "repro", dst / "src" / "repro",
+                        ignore=ignore)
+        for f in (dst / "src" / "repro").rglob("*.py"):
+            f.write_text(f.read_text().replace("np.float32", "np.float64"))
     return dst / "src"
 
 
@@ -86,8 +128,130 @@ def rank_main(argv):
         from repro_torch.models import lm
         lm.mixer = lambda fn, layout, x, params, *state, **kw: \
             batch_local(fn, x, params, *state, **kw)
+    if os.environ.get("REPRO_MIXER_WHOLE", "none") != "none":
+        contract_whole(set(os.environ["REPRO_MIXER_WHOLE"].split("+")))
     import torch_lm_shard_smoke as smoke
     return smoke.main(argv)
+
+
+WHOLE_SITES = ("gates", "moment", "output", "ffn")
+
+
+def contract_whole(sites: set) -> None:
+    """``--whole``: the route on "model" with each product of ``sites``
+    contracted whole on every rank (module docstring), by patching
+    ``lm.mixer`` and the ``nn/ssm.py`` functions it reaches."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.distributed import act_sharding as acts
+    from repro_torch.models import lm
+    from repro_torch.nn import ssm
+    if "all" in sites:
+        sites = set(WHOLE_SITES)
+    on = {}                       # the running mixer's "model" group
+
+    def whole(t, dim, parts, size=None):
+        """The ranks' shares of ``t`` on ``dim`` (``parts`` parts of
+        ``size``, default even shares) in the global order: an all-gather
+        of the shares padded to the largest."""
+        n = on["n"]
+        size = size or t.shape[dim] * n
+        ivs = [acts._intervals(size, parts, n, q) for q in range(n)]
+        m = max(sum(b - a for a, b in iv) for iv in ivs)
+        t = t.movedim(dim, -1)
+        g = acts._AllGather.apply(F.pad(t, (0, m - t.shape[-1])),
+                                  on["group"])
+        pieces = {}
+        for q, iv in enumerate(ivs):
+            at = q * m
+            for a, b in iv:
+                pieces[a] = g[..., at:at + b - a]
+                at += b - a
+        return torch.cat([pieces[a] for a in sorted(pieces)],
+                         -1).movedim(-1, dim)
+
+    def owned(t):
+        """``t`` on "model"'s rank 0, zero on the others."""
+        return t if on["r"] == 0 else t * 0.0
+
+    def chan(tp, n_heads):
+        """The parts of a channel dim of the layout (each head's share,
+        or one block of whole heads: ``tp.heads``)."""
+        return 1 if tp.heads else n_heads
+
+    base_qkvif, base_norm = ssm._mlstm_qkvif, ssm._groupnorm_heads
+    base_out = ssm._slstm_out
+
+    def qkvif(p, xi, xc, n_heads, tp=ssm.ONE):
+        q, k, v, i_raw, f_raw = base_qkvif(p, xi, xc, n_heads, tp)
+        if on and "gates" in sites:
+            i_raw, f_raw = gates(p, xc, n_heads, tp)
+        return q, k, v, i_raw, f_raw
+
+    def gates(p, xc, n_heads, tp):
+        """The gates from the whole ``xc`` and ``w_if``; the rank's
+        heads of them."""
+        c, mine = chan(tp, n_heads), tp.heads or n_heads
+        g = whole(xc, -1, c).float() @ whole(p["w_if"]["w"], 0, c)
+        g = g.unflatten(-1, (2, n_heads))
+        if mine < n_heads:
+            g = acts._state_share(g, (g.dim() - 1, 1), on["n"], on["r"])
+        g = g + p["w_if"]["b"].unflatten(-1, (2, mine))
+        return g[..., 0, :], g[..., 1, :]
+
+    def norm(h, g, n_heads, tp=ssm.ONE):
+        if not on or tp is ssm.ONE or "moment" not in sites:
+            return base_norm(h, g, n_heads, tp)
+        shp = h.shape
+        hh = h.reshape(*shp[:-1], n_heads, shp[-1] // n_heads).float()
+        hw = whole(h, -1, n_heads)
+        hw = hw.reshape(*shp[:-1], n_heads, hw.shape[-1] // n_heads).float()
+        var = (hw * hw).mean(dim=-1, keepdim=True)
+        hh = hh * torch.rsqrt(var + 1e-6)
+        return (hh.reshape(shp) * g).to(h.dtype)
+
+    def slstm_out(p, h, n_heads):
+        if not on or "ffn" not in sites:
+            return base_out(p, h, n_heads)
+        d_ff = int(4 / 3 * h.shape[-1])          # slstm_init's ff_factor
+        h = ssm._groupnorm_heads(h, p["out_norm_g"], n_heads)
+        u1, u2 = (h @ whole(p["ff_up"], 1, 2, 2 * d_ff)).chunk(2, dim=-1)
+        return owned((ssm._gelu(u1) * u2) @ whole(p["ff_down"], 0, 1, d_ff))
+
+    def with_output(fn):
+        """The mLSTM with its output product whole (``--whole output``):
+        ``fn`` runs with ``down_proj`` an identity, so it returns the
+        product's left operand, gathered here."""
+        def g(params, *a, n_heads, tp=ssm.ONE, **kw):
+            w = params["down_proj"]
+            eye = torch.eye(w.shape[0], dtype=w.dtype, device=w.device)
+            res = fn(dict(params, down_proj=eye), *a, n_heads=n_heads,
+                     tp=tp, **kw)
+            hz, st = res if isinstance(res, tuple) else (res, None)
+            c = chan(tp, n_heads)
+            out = owned(whole(hz, -1, c) @ whole(w, 0, c))
+            return out if st is None else (out, st)
+        return g
+
+    def mixer(fn, layout, x, params, *state, **kw):
+        from torch.distributed.tensor import DTensor
+        mesh = x.device_mesh if isinstance(x, DTensor) else None
+        if mesh is not None and "model" in mesh.mesh_dim_names and \
+                mesh.size(mesh.mesh_dim_names.index("model")) > 1:
+            md = mesh.mesh_dim_names.index("model")
+            on.update(group=mesh.get_group(md), n=mesh.size(md),
+                      r=mesh.get_local_rank(md))
+        if on and "output" in sites and fn in (ssm.mlstm_apply,
+                                               ssm.mlstm_step):
+            fn = with_output(fn)
+        try:
+            return base_mixer(fn, layout, x, params, *state, **kw)
+        finally:
+            on.clear()
+    base_mixer = lm.mixer
+    lm.mixer = mixer
+    ssm._mlstm_qkvif, ssm._groupnorm_heads = qkvif, norm
+    ssm._slstm_out = slstm_out
 
 
 def ulp_noise(arch: str, seq: int) -> list:
@@ -114,7 +278,8 @@ def ulp_noise(arch: str, seq: int) -> list:
             return torch.where(up, torch.nextafter(t, t + math.inf),
                                torch.nextafter(t, t - math.inf))
         return f
-    collectives = ssm.Collectives(*(noisy(k) for k in ssm.Collectives._fields))
+    calls = ("sum", "mean", "scatter", "gather")
+    collectives = ssm.Collectives(*(noisy(k) for k in calls))
     out_noise = noisy("output")
 
     def wrapped(fn):
@@ -140,7 +305,7 @@ def ulp_noise(arch: str, seq: int) -> list:
         norm = math.sqrt(sum(float(t.double().square().sum())
                              for t in base))
         rows = []
-        for name in ssm.Collectives._fields + ("output",):
+        for name in calls + ("output",):
             site["at"] = name
             moved = grads()
             n2 = math.sqrt(sum(float(t.double().square().sum())
@@ -189,7 +354,8 @@ def count_layer(p, kind: str, n_heads: int, kw: dict, x_shape, mesh_shape,
             with op_analysis.OpCounter() as c, use_mesh(mesh, "tp"):
                 w = gather_weights(pd)
                 if route == "tp":
-                    out = mixer(fn, ssm.tp_layout(kind, p, n_heads), xd, w,
+                    out = mixer(fn, lambda n: ssm.tp_layout(kind, p, n_heads,
+                                                            n), xd, w,
                                 **kw)
                 else:
                     out = batch_local(fn, xd, w, **kw)
@@ -238,29 +404,33 @@ def full_width_counts(arch: str) -> list:
     return rows
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--float64", action="store_true")
-    ap.add_argument("--batch-local", action="store_true",
-                    help="the mixers batch-local (act_sharding.batch_local)")
-    ap.add_argument("--arch", default="xlstm-1.3b")
-    ap.add_argument("--model", type=int, default=2)
-    ap.add_argument("--seq", type=int, default=32)
-    ap.add_argument("--what", default="train")
-    ap.add_argument("--timeout", type=float, default=900)
-    ap.add_argument("--ulp-noise", action="store_true",
-                    help="one process: one ulp of noise where the ranks "
-                         "sum (module docstring)")
-    ap.add_argument("--count", action="store_true",
-                    help="count one full-width layer of each mixer on a "
-                         "fake pod1 group (module docstring)")
-    args = ap.parse_args(argv)
-    if args.ulp_noise or args.count:
-        rows = (ulp_noise(args.arch, args.seq) if args.ulp_noise
-                else full_width_counts(args.arch))
-        for row in rows:
-            print(json.dumps(row))
-        return 0
+def parity(arch: str, site: str, float64: bool, timeout: float) -> list:
+    """``--parity``: the parity test's cases with ``site`` whole, in
+    float64 with ``float64`` (module docstring)."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from test_torch_lm_sharding_ref_mixers import LM, _spawn
+    script = LM if site == "none" else (
+        "import sys; sys.path.insert(0, 'tools')\n"
+        "import torch_lm_mixer_tp_check as chk\n"
+        f"chk.contract_whole({set(site.split('+'))!r})\n" + LM)
+    with tempfile.TemporaryDirectory(prefix="mixer_parity_") as tmp:
+        env = None
+        if float64:
+            src = as_float64(Path(tmp) / "f64", reference=True)
+            # the copy's smoke, which puts the copy's src first on the path
+            at = 'sys.path.insert(0, "tools")'
+            assert script.count(at) == 1
+            script = script.replace(
+                at, f"sys.path.insert(0, {str(src.parent / 'tools')!r})")
+            env = {"PYTHONPATH": str(src), "JAX_ENABLE_X64": "1"}
+        report = _spawn(Path(tmp), script, [arch], timeout, env)
+    return [dict(case, whole=site, float64=float64)
+            for case in report["cases"]]
+
+
+def run_ranks(args, extra_env: dict, steps: int = 2):
+    """The smoke on ``RANKS`` ranks -> rank 0's summary, or None (printed)
+    if a rank failed or overran."""
     with tempfile.TemporaryDirectory(prefix="mixer_tp_") as tmp:
         tmp = Path(tmp)
         src = as_float64(tmp / "f64") if args.float64 else ROOT / "src"
@@ -268,13 +438,15 @@ def main(argv=None):
         env = dict(os.environ, PYTHONPATH=str(src), OMP_NUM_THREADS="1",
                    WORLD_SIZE=str(RANKS), LOCAL_WORLD_SIZE=str(RANKS),
                    REPRO_SMOKE_DIR=str(src.parent / "tools"
-                                       if args.float64 else ROOT / "tools"))
+                                       if args.float64 else ROOT / "tools"),
+                   **extra_env)
         if args.batch_local:
             env["REPRO_MIXERS_BATCH_LOCAL"] = "1"
         cmd = [sys.executable, str(Path(__file__).resolve()), "--rank",
                "--device", "cpu", "--reduced", "--arch", args.arch,
                "--model", str(args.model), "--batch", "8",
                "--seq", str(args.seq), "--what", args.what,
+               "--steps", str(steps), "--seed", str(args.seed),
                "--init-method", f"file://{tmp / 'store'}",
                "--json", str(out)]
         procs = [subprocess.Popen(cmd, cwd=ROOT, env=dict(
@@ -284,7 +456,7 @@ def main(argv=None):
             outs = [p.communicate(timeout=args.timeout)[0] for p in procs]
         except subprocess.TimeoutExpired:
             print(json.dumps({"ok": False, "overran_s": args.timeout}))
-            return 1
+            return None
         finally:
             for p in procs:
                 if p.poll() is None:
@@ -295,8 +467,63 @@ def main(argv=None):
             print("\n".join(o[-3000:] for o in outs), file=sys.stderr)
             print(json.dumps({"ok": False, "rcs": [p.returncode
                                                    for p in procs]}))
-            return 1
-        s = json.loads(out.read_text())
+            return None
+        return json.loads(out.read_text())
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--float64", action="store_true")
+    ap.add_argument("--batch-local", action="store_true",
+                    help="the mixers batch-local (act_sharding.batch_local)")
+    ap.add_argument("--arch", default="xlstm-1.3b")
+    ap.add_argument("--model", type=int, default=2)
+    ap.add_argument("--seq", type=int, default=32)
+    ap.add_argument("--what", default="train")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="the smoke's --seed: its weights and batches")
+    ap.add_argument("--timeout", type=float, default=900)
+    ap.add_argument("--ulp-noise", action="store_true",
+                    help="one process: one ulp of noise where the ranks "
+                         "sum (module docstring)")
+    ap.add_argument("--whole", default=None, metavar="SITE[,SITE...]",
+                    help="bisect by site: " + ", ".join(WHOLE_SITES) +
+                    ", all (module docstring)")
+    ap.add_argument("--parity", default=None, metavar="ARCH",
+                    help="the parity test's cases, with --whole's sites "
+                         "(module docstring)")
+    ap.add_argument("--count", action="store_true",
+                    help="count one full-width layer of each mixer on a "
+                         "fake pod1 group (module docstring)")
+    args = ap.parse_args(argv)
+    if args.ulp_noise or args.count:
+        rows = (ulp_noise(args.arch, args.seq) if args.ulp_noise
+                else full_width_counts(args.arch))
+        for row in rows:
+            print(json.dumps(row))
+        return 0
+    sites = ["none"] + (args.whole.split(",") if args.whole else [])
+    if args.parity:
+        for site in sites:
+            for case in parity(args.parity, site, args.float64,
+                               args.timeout):
+                print(json.dumps(case))
+        return 0
+    if args.whole:
+        for site in sites:
+            s = run_ranks(args, {"REPRO_MIXER_WHOLE": site}, steps=1)
+            if s is None:
+                return 1
+            print(json.dumps({
+                "whole": site, "arch": s["arch"], "mesh": s["mesh"],
+                "seq": args.seq, "seed": args.seed,
+                "gradients": s["worst_share"]["step 0 gradients"],
+                "grad_norm": s["worst_share"]["step 0 grad_norm"],
+                "loss": s["worst_share"]["step 0 loss"]}))
+        return 0
+    s = run_ranks(args, {})
+    if s is None:
+        return 1
     print(json.dumps({
         "ok": s["ok"], "arch": s["arch"], "mesh": s["mesh"],
         "float64": args.float64, "seq": args.seq, "what": args.what,

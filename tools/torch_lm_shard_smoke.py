@@ -68,6 +68,7 @@ start a rank.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import logging
 import math
@@ -552,7 +553,7 @@ def run_mixers(args, cfg, mesh, dev, rank, checks, summary):
         x, w = (torch.randn(B, T, d, generator=g, device=dev,
                             dtype=cfg.dtype()) for _ in range(2))
         xt = torch.randn(B, d, generator=g, device=dev, dtype=cfg.dtype())
-        layout = ssm.tp_layout(kind, p, cfg.n_heads)
+        layout = functools.partial(ssm.tp_layout, kind, p, cfg.n_heads)
         with torch.no_grad():
             _, state = apply_fn(p, x, return_state=True, **kw, **chunk)
         rec = {}

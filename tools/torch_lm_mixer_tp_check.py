@@ -21,6 +21,7 @@ to float64; a fault does not.
         ffn [--model 2]
     python tools/torch_lm_mixer_tp_check.py --parity xlstm-1.3b \
         [--whole output,gates] [--float64]
+    python tools/torch_lm_mixer_tp_check.py --truth xlstm-1.3b
 
 It runs ``--arch`` at ``reduced()``, two train steps of B = 8 rows in 2
 microbatches (and ``--what``'s prefill and decode), on 4 ranks (data 4 /
@@ -54,14 +55,24 @@ gradients and grad norm as shares of the smoke's bounds (``--steps 1``
 of the smoke), beside the route unchanged (``none``).
 
 ``--parity ARCH`` with ``--whole`` runs the parity test's 4 ranks
-(``tests/test_torch_lm_sharding_ref_mixers.py``: the reference on one
+(``tests/torch_lm_ref_mixers_common.py``'s ``LM``, as
+``tests/test_torch_lm_sharding_ref_mixers.py`` does: the reference on one
 device and sharded, the port in one process and sharded, a gradient and
 two train steps from common states, on (data 2, model 2) and (data 1,
-model 4)) once a site, the port's route patched as above, and prints its
-cases, each tagged with the site. With ``--float64`` both packages run
-in float64 (the copies of ``as_float64``, the reference's under
-``JAX_ENABLE_X64``): a pair that is the two orders of one function's
-sums shrinks by ~1e8 there; a difference of function does not.
+model 4)) once a site, the port's route patched as above (the script's
+``REPRO_MIXER_WHOLE``), and prints its cases, each tagged with the site.
+With ``--float64`` both packages run in float64 (the copies of
+``as_float64``, the reference's under ``JAX_ENABLE_X64``; the script's
+``REPRO_SMOKE_DIR`` names the copy's smoke): a pair that is the two
+orders of one function's sums shrinks by ~1e8 there; a difference of
+function does not.
+
+``--truth ARCH`` runs the same 4 ranks once and holds each train step of
+the four runs (R1, RS and PS at both meshes, P1) against its float64
+truth G64, the port's float64 copy's step from the same start, and the
+step's one-ulp response delta (``tests/torch_lm_truth_common.py``): one
+row a run and step with its share of the smoke's bounds, delta, share /
+delta and whether it is within max(1, 8 x delta).
 
 ``--count`` counts one full-width layer of each of ``--arch``'s mixers
 (``distributed/op_analysis.py``), forward and the backward of
@@ -404,28 +415,46 @@ def full_width_counts(arch: str) -> list:
     return rows
 
 
+def _tests_helpers():
+    """``tests/torch_lm_truth_common.py`` and
+    ``tests/torch_lm_ref_mixers_common.py`` (the parity runs and their
+    spawn)."""
+    if str(ROOT / "tests") not in sys.path:
+        sys.path.insert(0, str(ROOT / "tests"))
+    import torch_lm_ref_mixers_common as runs
+    import torch_lm_truth_common as truth
+    return runs, truth
+
+
 def parity(arch: str, site: str, float64: bool, timeout: float) -> list:
     """``--parity``: the parity test's cases with ``site`` whole, in
     float64 with ``float64`` (module docstring)."""
-    sys.path.insert(0, str(ROOT / "tests"))
-    from test_torch_lm_sharding_ref_mixers import LM, _spawn
-    script = LM if site == "none" else (
-        "import sys; sys.path.insert(0, 'tools')\n"
-        "import torch_lm_mixer_tp_check as chk\n"
-        f"chk.contract_whole({set(site.split('+'))!r})\n" + LM)
+    runs, _ = _tests_helpers()
     with tempfile.TemporaryDirectory(prefix="mixer_parity_") as tmp:
-        env = None
+        env = {"REPRO_MIXER_WHOLE": site}
         if float64:
             src = as_float64(Path(tmp) / "f64", reference=True)
-            # the copy's smoke, which puts the copy's src first on the path
-            at = 'sys.path.insert(0, "tools")'
-            assert script.count(at) == 1
-            script = script.replace(
-                at, f"sys.path.insert(0, {str(src.parent / 'tools')!r})")
-            env = {"PYTHONPATH": str(src), "JAX_ENABLE_X64": "1"}
-        report = _spawn(Path(tmp), script, [arch], timeout, env)
+            env.update(PYTHONPATH=str(src), JAX_ENABLE_X64="1",
+                       REPRO_SMOKE_DIR=str(src.parent / "tools"))
+        report = runs.spawn(Path(tmp), runs.LM, [arch], timeout, env)
     return [dict(case, whole=site, float64=float64)
             for case in report["cases"]]
+
+
+def truth_rows(arch: str, timeout: float) -> list:
+    """``--truth``: each train step of R1, RS, P1 and PS against its
+    float64 truth G64, one row a run and step (module docstring)."""
+    runs, truth = _tests_helpers()
+    with tempfile.TemporaryDirectory(prefix="mixer_truth_") as tmp:
+        npz = Path(tmp) / "runs.npz"
+        runs.spawn(Path(tmp), runs.LM, [arch, str(npz)], timeout)
+        got = truth.load_case(npz)[3]
+        t = truth.truth(arch, npz)
+    names = ["R1", "P1"] + [f"{w}{d}{m}" for d, m in runs.MESHES
+                            for w in ("RS", "PS")]
+    return [{"arch": arch, "run": name, "step": k,
+             **truth.score(got[name]["train"][k], g64)}
+            for k, g64 in enumerate(t["train"]) for name in names]
 
 
 def run_ranks(args, extra_env: dict, steps: int = 2):
@@ -492,12 +521,17 @@ def main(argv=None):
     ap.add_argument("--parity", default=None, metavar="ARCH",
                     help="the parity test's cases, with --whole's sites "
                          "(module docstring)")
+    ap.add_argument("--truth", default=None, metavar="ARCH",
+                    help="the parity runs' train steps against their "
+                         "float64 truth, in units of one ulp's response "
+                         "(module docstring)")
     ap.add_argument("--count", action="store_true",
                     help="count one full-width layer of each mixer on a "
                          "fake pod1 group (module docstring)")
     args = ap.parse_args(argv)
-    if args.ulp_noise or args.count:
+    if args.ulp_noise or args.count or args.truth:
         rows = (ulp_noise(args.arch, args.seq) if args.ulp_noise
+                else truth_rows(args.truth, args.timeout) if args.truth
                 else full_width_counts(args.arch))
         for row in rows:
             print(json.dumps(row))
